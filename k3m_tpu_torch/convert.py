@@ -1,0 +1,235 @@
+"""Weight bridge into the port.
+
+  * `from_jax_params(flat)`: '/'-joined flax parameter paths of the JAX
+    package (e.g. `trunk/encoder/layer_0/attention/query/kernel`) -> the
+    port's state-dict names (`encoder.layer.0.attention.self.query.weight`),
+    with Dense kernels transposed to torch's [out, in].
+  * `load_reference_bin(path)`: a reference torch checkpoint (.bin) as a
+    state dict the port's modules load, minus the reference's dead keys.
+
+The port's module names are the reference torch names, so the mapping
+table is the JAX package's reference_to_flat (k3m_tpu/train/convert.py:
+127-230), of which this module keeps its own copy.
+"""
+
+from __future__ import annotations
+
+import functools
+import re
+from typing import Dict
+
+import numpy as np
+import torch
+
+
+class _Sym:
+    """Stand-in for a weight: its torch name and whether the mapping
+    transposed it."""
+    __slots__ = ("name", "transposed")
+
+    def __init__(self, name: str, transposed: bool = False):
+        self.name = name
+        self.transposed = transposed
+
+    @property
+    def T(self) -> "_Sym":
+        return _Sym(self.name, not self.transposed)
+
+
+def _strip_prefix(name: str) -> str:
+    for p in ("bert.", "roberta.", "model."):
+        if name.startswith(p):
+            return name[len(p):]
+    return name
+
+
+def _linear(dst, flax_path, sd, torch_name):
+    w, b = torch_name + ".weight", torch_name + ".bias"
+    if w in sd:
+        dst[flax_path + "/kernel"] = sd[w].T
+        if b in sd:
+            dst[flax_path + "/bias"] = sd[b]
+
+
+def _layernorm(dst, flax_path, sd, torch_name):
+    w = torch_name + ".weight"
+    if w in sd:
+        dst[flax_path + "/scale"] = sd[w]
+        dst[flax_path + "/bias"] = sd[torch_name + ".bias"]
+
+
+def reference_to_flat(sd: Dict, trunk: str = "trunk") -> Dict:
+    """Reference torch state dict -> '/'-joined flax paths (a copy of the
+    JAX package's table)."""
+    sd = {_strip_prefix(k): v for k, v in sd.items()}
+    out: Dict = {}
+    if "embeddings.word_embeddings.weight" in sd:
+        out[f"{trunk}/word_embeddings"] = sd["embeddings.word_embeddings.weight"]
+    for tname, fname in (("embeddings.position_embeddings.weight",
+                          f"{trunk}/embeddings/position_embeddings"),
+                         ("embeddings.token_type_embeddings.weight",
+                          f"{trunk}/embeddings/token_type_embeddings")):
+        if tname in sd:
+            out[fname] = sd[tname]
+    _layernorm(out, f"{trunk}/embeddings/LayerNorm", sd, "embeddings.LayerNorm")
+    _linear(out, f"{trunk}/v_embeddings/image_embeddings", sd,
+            "v_embeddings.image_embeddings")
+    _linear(out, f"{trunk}/v_embeddings/image_location_embeddings", sd,
+            "v_embeddings.image_location_embeddings")
+    _layernorm(out, f"{trunk}/v_embeddings/LayerNorm", sd, "v_embeddings.LayerNorm")
+
+    for stack, projs in (("layer", ("query", "key", "value")),
+                         ("v_layer", ("query", "key", "value"))):
+        i = 0
+        while f"encoder.{stack}.{i}.attention.self.query.weight" in sd:
+            t, f = f"encoder.{stack}.{i}", f"{trunk}/encoder/{stack}_{i}"
+            for proj in projs:
+                _linear(out, f"{f}/attention/{proj}", sd, f"{t}.attention.self.{proj}")
+            if stack == "v_layer":
+                for proj in ("dyLinear_q", "dyLinear_k"):
+                    _linear(out, f"{f}/{proj}", sd, f"{t}.attention.self.{proj}")
+            _linear(out, f"{f}/attention_output", sd, f"{t}.attention.output.dense")
+            _layernorm(out, f"{f}/attention_LayerNorm", sd,
+                       f"{t}.attention.output.LayerNorm")
+            _linear(out, f"{f}/intermediate", sd, f"{t}.intermediate.dense")
+            _linear(out, f"{f}/output", sd, f"{t}.output.dense")
+            _layernorm(out, f"{f}/output_LayerNorm", sd, f"{t}.output.LayerNorm")
+            i += 1
+
+    for stack in ("c_layer", "c_layer_pv_v", "c_layer_pv_t"):
+        i = 0
+        while f"encoder.{stack}.{i}.biattention.query1.weight" in sd:
+            t, f = f"encoder.{stack}.{i}", f"{trunk}/encoder/{stack}_{i}"
+            for proj in ("query1", "key1", "value1", "query2", "key2", "value2"):
+                _linear(out, f"{f}/biattention/{proj}", sd, f"{t}.biattention.{proj}")
+            _linear(out, f"{f}/bi_dense1", sd, f"{t}.biOutput.dense1")
+            _layernorm(out, f"{f}/bi_LayerNorm1", sd, f"{t}.biOutput.LayerNorm1")
+            _linear(out, f"{f}/bi_dense2", sd, f"{t}.biOutput.dense2")
+            _layernorm(out, f"{f}/bi_LayerNorm2", sd, f"{t}.biOutput.LayerNorm2")
+            _linear(out, f"{f}/v_intermediate", sd, f"{t}.v_intermediate.dense")
+            _linear(out, f"{f}/v_output", sd, f"{t}.v_output.dense")
+            _layernorm(out, f"{f}/v_output_LayerNorm", sd, f"{t}.v_output.LayerNorm")
+            _linear(out, f"{f}/t_intermediate", sd, f"{t}.t_intermediate.dense")
+            _linear(out, f"{f}/t_output", sd, f"{t}.t_output.dense")
+            _layernorm(out, f"{f}/t_output_LayerNorm", sd, f"{t}.t_output.LayerNorm")
+            i += 1
+
+    for mod in ("v", "t", "pv"):
+        for score in ("score_self", "score_cross1", "score_cross2", "soft"):
+            _linear(out, f"{trunk}/fusion/fusion_{mod}/{score}_{mod}", sd,
+                    f"{score}_{mod}")
+    _linear(out, f"{trunk}/fusion/map_bi_to_individual", sd, "map_bi_to_individual")
+    for w in ("struc_w1", "struc_w2", "struc_w3"):
+        _linear(out, f"structure/{w}", sd, w)
+
+    _linear(out, "cls/predictions/transform_dense", sd, "cls.predictions.transform.dense")
+    _layernorm(out, "cls/predictions/transform_LayerNorm", sd,
+               "cls.predictions.transform.LayerNorm")
+    if "cls.predictions.bias" in sd:
+        out["cls/predictions/decoder_bias"] = sd["cls.predictions.bias"]
+    _linear(out, "cls/seq_relationship", sd, "cls.seq_relationship")
+    _linear(out, "cls/imagePredictions/transform_dense", sd,
+            "cls.imagePredictions.transform.dense")
+    _layernorm(out, "cls/imagePredictions/transform_LayerNorm", sd,
+               "cls.imagePredictions.transform.LayerNorm")
+    _linear(out, "cls/imagePredictions/decoder", sd, "cls.imagePredictions.decoder")
+
+    _linear(out, "classifier/dense", sd, "classifier.dense")
+    _linear(out, "classifier/out_proj", sd, "classifier.out_proj")
+    return out
+
+
+def _torch_name_universe(max_layers: int = 48):
+    """Every torch name reference_to_flat consumes, with generous layer
+    bounds."""
+    lin = lambda base: [base + ".weight", base + ".bias"]
+    U = ["embeddings.word_embeddings.weight", "embeddings.position_embeddings.weight",
+         "embeddings.token_type_embeddings.weight"]
+    U += lin("embeddings.LayerNorm") + lin("v_embeddings.image_embeddings")
+    U += lin("v_embeddings.image_location_embeddings") + lin("v_embeddings.LayerNorm")
+    for i in range(max_layers):
+        for stack, projs in ((f"encoder.layer.{i}", ("query", "key", "value")),
+                             (f"encoder.v_layer.{i}",
+                              ("query", "key", "value", "dyLinear_q", "dyLinear_k"))):
+            for p in projs:
+                U += lin(f"{stack}.attention.self.{p}")
+            for part in ("attention.output.dense", "attention.output.LayerNorm",
+                         "intermediate.dense", "output.dense", "output.LayerNorm"):
+                U += lin(f"{stack}.{part}")
+        for stack in ("c_layer", "c_layer_pv_v", "c_layer_pv_t"):
+            t = f"encoder.{stack}.{i}"
+            for p in ("query1", "key1", "value1", "query2", "key2", "value2"):
+                U += lin(f"{t}.biattention.{p}")
+            for part in ("biOutput.dense1", "biOutput.LayerNorm1", "biOutput.dense2",
+                         "biOutput.LayerNorm2", "v_intermediate.dense", "v_output.dense",
+                         "v_output.LayerNorm", "t_intermediate.dense", "t_output.dense",
+                         "t_output.LayerNorm"):
+                U += lin(f"{t}.{part}")
+    for mod in ("v", "t", "pv"):
+        for score in ("score_self", "score_cross1", "score_cross2", "soft"):
+            U += lin(f"{score}_{mod}")
+    U += lin("map_bi_to_individual")
+    for w in ("struc_w1", "struc_w2", "struc_w3"):
+        U += lin(w)
+    for part in ("cls.predictions.transform.dense", "cls.predictions.transform.LayerNorm",
+                 "cls.seq_relationship", "cls.imagePredictions.transform.dense",
+                 "cls.imagePredictions.transform.LayerNorm", "cls.imagePredictions.decoder",
+                 "classifier.dense", "classifier.out_proj"):
+        U += lin(part)
+    return U + ["cls.predictions.bias"]
+
+
+@functools.cache
+def _flax_to_torch():
+    """flax path -> _Sym(torch name), by running the table over names."""
+    return reference_to_flat({n: _Sym(n) for n in _torch_name_universe()})
+
+
+def from_jax_params(flat: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
+    """'/'-joined flax paths -> the port's state-dict names, fp32 tensors,
+    Dense kernels transposed. A leading `params/` is ignored. Raises on a
+    path the table does not know."""
+    table = _flax_to_torch()
+    out: Dict[str, torch.Tensor] = {}
+    unknown = []
+    for path, value in flat.items():
+        if path.startswith("params/"):
+            path = path[len("params/"):]
+        sym = table.get(path)
+        if sym is None:
+            unknown.append(path)
+            continue
+        arr = np.asarray(value, np.float32)
+        if sym.transposed:
+            arr = arr.T
+        out[sym.name] = torch.from_numpy(np.ascontiguousarray(arr))
+    if unknown:
+        raise KeyError(f"from_jax_params: no torch name for {sorted(unknown)[:8]}")
+    return out
+
+
+# Reference keys with no counterpart in the port's modules: dead reference
+# parameters (poolers, q_dense*, map_individual_to_bi, the twin NSP head),
+# loss buffers, HF bookkeeping and the tied MLM-decoder alias.
+_DEAD_RE = re.compile("|".join((
+    r"(^|\.)t_pooler\.", r"(^|\.)v_pooler\.", r"(^|\.)pooler\.", r"q_dense\d",
+    r"map_individual_to_bi", r"bi_seq_relationship", r"vis_criterion",
+    r"(^|\.)position_ids$", r"cls\.predictions\.decoder\.weight$",
+)))
+
+
+def load_reference_bin(path: str) -> Dict[str, torch.Tensor]:
+    """A reference torch checkpoint as a state dict for the port: the
+    `module.` (DDP) and `bert.`/`roberta.`/`model.` prefixes stripped and
+    the dead keys dropped."""
+    sd = torch.load(path, map_location="cpu", weights_only=True)
+    if isinstance(sd, dict) and "model_state_dict" in sd:
+        sd = sd["model_state_dict"]
+    out = {}
+    for k, v in sd.items():
+        if k.startswith("module."):
+            k = k[len("module."):]
+        k = _strip_prefix(k)
+        if not _DEAD_RE.search(k):
+            out[k] = v.float()
+    return out

@@ -1,12 +1,12 @@
-"""Pair loading for item alignment: K3MR record file -> fixed-shape numpy
-batches.
+"""Record loading: K3MR record file -> fixed-shape numpy batches.
 
-The port's own copy of the pair path of k3m_tpu/data/pipeline.py
-(reference K3MDataLoader, concept_cap_dataset_struc.py:179-294) on one
-host, with the pure-Python producer: one background thread reads,
-preprocesses and collates batches ahead of the consumer. The same seed
-gives the same shuffle order as the JAX package's loader, so the two yield
-equal batches.
+The port's own copy of k3m_tpu/data/pipeline.py (reference
+ConceptCapLoaderTrain_struc and K3MDataLoader, concept_cap_dataset_struc.py:
+179-529) on one host, with the pure-Python producer: one background thread
+reads, preprocesses and collates batches ahead of the consumer. Epoch e
+visits the records in the permutation drawn from (seed, e, 1) and sample i
+is preprocessed with the Generator of (seed, e, i, 0), as the JAX
+package's loaders do (pipeline.py:121-136), so the two yield equal batches.
 """
 
 from __future__ import annotations
@@ -18,7 +18,7 @@ from typing import Dict, Iterator, Optional
 import numpy as np
 
 from k3m_tpu_torch.data.preprocess import (
-    PairPreprocessor, ShapeSpec, add_global_image_token,
+    PairPreprocessor, PretrainPreprocessor, ShapeSpec, add_global_image_token,
 )
 from k3m_tpu_torch.data.records import RecordReader
 from k3m_tpu_torch.tokenization import WordPieceTokenizer
@@ -53,18 +53,26 @@ def collate_pairs(samples) -> Dict:
     )
 
 
-class AlignmentLoader:
-    """Item-alignment pair loader matching K3MDataLoader (ref :179-294): a
-    seeded, threaded batch producer over one record file. With `shuffle`,
-    epoch e visits the records in the permutation drawn from
-    (seed, e), as the JAX package's loader does."""
+def collate_pretrain(samples) -> Dict[str, np.ndarray]:
+    """Stack per-sample dicts into a pretrain batch and prepend the global
+    image token, dividing by the count of regions not co-masked, at least
+    1 (ref :381-397)."""
+    batch = {k: _stack(samples, k) for k in samples[0] if k != "item_id"}
+    batch["item_id"] = [s["item_id"] for s in samples]
+    count = (batch["masked_label"] == 0).sum(axis=1, keepdims=True)
+    count[count == 0] = 1
+    batch["image_feat"], batch["image_loc"], batch["image_mask"] = add_global_image_token(
+        batch["image_feat"], batch["image_loc"], batch["image_mask"], count)
+    return batch
 
-    def __init__(self, record_path: str, tokenizer: WordPieceTokenizer,
-                 shapes: Optional[ShapeSpec] = None, batch_size: int = 32,
-                 shuffle: bool = False, seed: int = 0, drop_last: bool = True,
-                 prefetch: int = 4):
+
+class _LoaderBase:
+    """A seeded, threaded batch producer over one record file; subclasses
+    give `_map(i)` (one sample) and `_collate(samples)`."""
+
+    def __init__(self, record_path: str, batch_size: int, shuffle: bool,
+                 seed: int, drop_last: bool, prefetch: int):
         self.reader = RecordReader(record_path)
-        self.preprocessor = PairPreprocessor(tokenizer, shapes or ShapeSpec())
         self.batch_size = batch_size
         self.shuffle = shuffle
         self.seed = seed
@@ -82,18 +90,21 @@ class AlignmentLoader:
             np.random.default_rng((self.seed, self.epoch, 1)).shuffle(idx)
         return idx
 
+    def _sample_rng(self, i: int) -> np.random.Generator:
+        return np.random.default_rng((self.seed, self.epoch, i, 0))
+
     def _produce(self, out_q: "queue.Queue", stop: threading.Event):
         try:
             batch = []
             for i in self._indices():
                 if stop.is_set():
                     return
-                batch.append(self.preprocessor(self.reader[int(i)]))
+                batch.append(self._map(int(i)))
                 if len(batch) == self.batch_size:
-                    out_q.put(collate_pairs(batch))
+                    out_q.put(self._collate(batch))
                     batch = []
             if batch and not self.drop_last:
-                out_q.put(collate_pairs(batch))
+                out_q.put(self._collate(batch))
         except Exception as e:      # handed to the consumer, raised there
             out_q.put(e)
         finally:
@@ -123,3 +134,39 @@ class AlignmentLoader:
                     pass
             t.join()
         self.epoch += 1
+
+
+class AlignmentLoader(_LoaderBase):
+    """Item-alignment pair loader matching K3MDataLoader (ref :179-294)."""
+
+    def __init__(self, record_path: str, tokenizer: WordPieceTokenizer,
+                 shapes: Optional[ShapeSpec] = None, batch_size: int = 32,
+                 shuffle: bool = False, seed: int = 0, drop_last: bool = True,
+                 prefetch: int = 4):
+        super().__init__(record_path, batch_size, shuffle, seed, drop_last, prefetch)
+        self.preprocessor = PairPreprocessor(tokenizer, shapes or ShapeSpec())
+
+    def _map(self, i: int):
+        return self.preprocessor(self.reader[i])
+
+    def _collate(self, samples):
+        return collate_pairs(samples)
+
+
+class PretrainLoader(_LoaderBase):
+    """Pretraining loader matching ConceptCapLoaderTrain_struc/Val_struc
+    (ref :297-529), with MLM and RoI masking drawn per sample."""
+
+    def __init__(self, record_path: str, tokenizer: WordPieceTokenizer,
+                 shapes: Optional[ShapeSpec] = None, batch_size: int = 32,
+                 shuffle: bool = True, seed: int = 0, visual_target: int = 0,
+                 drop_last: bool = True, prefetch: int = 4):
+        super().__init__(record_path, batch_size, shuffle, seed, drop_last, prefetch)
+        self.preprocessor = PretrainPreprocessor(tokenizer, shapes or ShapeSpec(),
+                                                 visual_target=visual_target)
+
+    def _map(self, i: int):
+        return self.preprocessor(self.reader[i], self._sample_rng(i))
+
+    def _collate(self, samples):
+        return collate_pretrain(samples)

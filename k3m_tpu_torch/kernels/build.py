@@ -97,14 +97,19 @@ def build(verbose: bool = False) -> Path:
 
 
 def _declare(lib):
-    P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.k3m_layernorm_fwd.argtypes = [P, I, P, I, P, P, P, I, I, I, F, P]
-    lib.k3m_layernorm_fwd.restype = I
-    lib.k3m_attention_fwd.argtypes = [P, P, P, P, P, I, I, I, I, I, I, P, F, P]
-    lib.k3m_attention_fwd.restype = I
+    P, I, F, U = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_uint
+    lib.k3m_layernorm_fwd.argtypes = [P, I, P, I, P, P, P, I, P, I, I, F, P]
+    lib.k3m_ln_bwd_bands.argtypes = [I]
+    lib.k3m_layernorm_bwd.argtypes = [P, I, P, P, P, P, P, I, P, P, P, I, I, P]
+    lib.k3m_attention_fwd.argtypes = [P, P, P, P, P, I, I, I, I, I, I, P, F,
+                                      U, U, F, P]
+    lib.k3m_attention_bwd.argtypes = [P, P, P, P, P, P, P, P, P, P,
+                                      I, I, I, I, I, I, P, F, U, U, F, P]
     lib.k3m_biattention_fwd.argtypes = [P, P, P, P, P, P, P, P, P, P,
-                                        I, I, I, I, I, I, P, F, P]
-    lib.k3m_biattention_fwd.restype = I
+                                        I, I, I, I, I, I, P, F, U, U, F, U, F, P]
+    for fn in (lib.k3m_layernorm_fwd, lib.k3m_ln_bwd_bands, lib.k3m_layernorm_bwd,
+               lib.k3m_attention_fwd, lib.k3m_attention_bwd, lib.k3m_biattention_fwd):
+        fn.restype = I
 
 
 def library():

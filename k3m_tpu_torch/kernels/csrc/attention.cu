@@ -1,8 +1,9 @@
 // Fused multi-head self-attention forward: softmax(Q K^T / sqrt(D) + bias) V.
 //
 // Replaces: k3m_tpu/kernels/attention.py:_attn_kernel (called from
-// _fused_attention_fwd_call) at dropout rate 0; the TPU kernel's in-kernel
-// dropout and its backward (_attn_bwd_kernel) are not ported yet.
+// _fused_attention_fwd_call), dropout on the probabilities included (the
+// TPU PRNG becomes the Philox mask of philox.cuh). Its backward
+// (_attn_bwd_kernel) is attention_bwd.cu.
 //
 // Bound on the H100: at the model's shapes (Lk <= 256, D 64/128) the
 // arithmetic is small beside the card's tensor-core rate, and the least
@@ -56,14 +57,18 @@ int launch(const k3m::AttnArgs& a, int B, int H, int d, cudaStream_t stream) {
 
 // strides: [q_b, q_l, q_h, k_b, k_l, k_h, v_b, v_l, v_h, o_b, o_l, o_h, bias_b]
 // in elements. Returns cudaGetLastError() after the launch (0 on success).
+// Dropout: keep iff (philox bits >> 8) >= keep_min (0: no dropout), kept
+// probabilities scaled by keep_scale; see philox.cuh.
 extern "C" int k3m_attention_fwd(const void* q, const void* k, const void* v,
                                  const float* bias, void* out, int dtype, int B,
                                  int H, int lq, int lk, int d,
                                  const long long* strides, float scale,
+                                 unsigned seed, unsigned keep_min, float keep_scale,
                                  void* stream_ptr) {
   if (B <= 0 || H <= 0 || lq <= 0 || lk <= 0 || B > 65535 || H > 65535)
     return cudaErrorInvalidValue;
-  const k3m::AttnArgs a = k3m::make_args(q, k, v, bias, out, strides, lq, lk, scale);
+  const k3m::AttnArgs a = k3m::make_args(q, k, v, bias, out, strides, lq, lk, H, scale,
+                                         seed, keep_min, keep_scale);
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   if (dtype == k3m::kF32) return launch<float>(a, B, H, d, stream);
   if (!k3m::mma_aligned(a)) return cudaErrorInvalidValue;

@@ -16,11 +16,17 @@
 // stride over D, so the model's [B, L, H, D] projections go in without a
 // transpose. Inner products are scalar fp32 FMAs; the softmax is fp32, as
 // in the Pallas kernel (scores are not rounded to the compute dtype).
+//
+// Dropout on the probabilities (keep_min > 0): the running sum l takes the
+// undropped probabilities, the P V product the dropped ones (Philox mask of
+// philox.cuh), and the output is scaled by keep_scale / l at the end, which
+// is softmax, then `probs * keep / (1 - rate)`, then the product with V.
 #pragma once
 
 #include <math.h>
 
 #include "common.cuh"
+#include "philox.cuh"
 
 namespace k3m {
 
@@ -41,8 +47,11 @@ struct AttnArgs {
   long long v_sb, v_sl, v_sh;
   long long o_sb, o_sl, o_sh;
   long long bias_sb;
-  int lq, lk;
+  int lq, lk, heads;
   float scale;
+  uint32_t seed;      // Philox key word 0: the call's seed plus the salt
+  uint32_t keep_min;  // keep iff (bits >> 8) >= keep_min; 0 = no dropout
+  float keep_scale;   // 1 / (1 - rate)
 };
 
 template <int D>
@@ -110,7 +119,8 @@ __device__ __forceinline__ void attn_tile(const AttnArgs& a, int b, int h, int q
 #pragma unroll
     for (int i = 0; i < kScoresPerLane; ++i) {
       const float p = expf(sc[i] - m_new);
-      s.p[r][c + kRowLanes * i] = p;
+      const int j = c + kRowLanes * i;
+      s.p[r][j] = a.keep_min ? p * keep(a.seed, b * a.heads + h, q0 + r, k0 + j, a.keep_min) : p;
       tsum += p;
     }
 #pragma unroll
@@ -133,7 +143,7 @@ __device__ __forceinline__ void attn_tile(const AttnArgs& a, int b, int h, int q
   const int qi = q0 + r;
   if (qi < a.lq) {
     T* o = static_cast<T*>(a.out) + b * a.o_sb + qi * a.o_sl + h * a.o_sh;
-    const float inv = 1.f / l;
+    const float inv = (a.keep_min ? a.keep_scale : 1.f) / l;
 #pragma unroll
     for (int i = 0; i < kCols; ++i) o[c + kRowLanes * i] = from_f32<T>(acc[i] * inv);
   }
@@ -143,7 +153,8 @@ __device__ __forceinline__ void attn_tile(const AttnArgs& a, int b, int h, int q
 // [q_b, q_l, q_h, k_b, k_l, k_h, v_b, v_l, v_h, o_b, o_l, o_h, bias_b].
 inline AttnArgs make_args(const void* q, const void* k, const void* v,
                           const float* bias, void* out, const long long* st,
-                          int lq, int lk, float scale) {
+                          int lq, int lk, int heads, float scale, uint32_t seed,
+                          uint32_t keep_min, float keep_scale) {
   AttnArgs a;
   a.q = q; a.k = k; a.v = v; a.bias = bias; a.out = out;
   a.q_sb = st[0]; a.q_sl = st[1]; a.q_sh = st[2];
@@ -151,7 +162,8 @@ inline AttnArgs make_args(const void* q, const void* k, const void* v,
   a.v_sb = st[6]; a.v_sl = st[7]; a.v_sh = st[8];
   a.o_sb = st[9]; a.o_sl = st[10]; a.o_sh = st[11];
   a.bias_sb = st[12];
-  a.lq = lq; a.lk = lk; a.scale = scale;
+  a.lq = lq; a.lk = lk; a.heads = heads; a.scale = scale;
+  a.seed = seed; a.keep_min = keep_min; a.keep_scale = keep_scale;
   return a;
 }
 

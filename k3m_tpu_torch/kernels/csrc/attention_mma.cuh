@@ -15,7 +15,10 @@
 //               V is stored transposed, [d][key], so its B fragments are
 //               32-bit loads too.
 // The softmax statistics (running max m and sum l) stay fp32 and use the
-// unrounded probabilities. Shared rows are padded by 8 bf16 so the 8 rows a
+// unrounded, undropped probabilities; under dropout the P fragments carry
+// the dropped ones and the output is scaled by keep_scale / l. A thread's
+// two neighbouring keys (2t, 2t + 1) share one Philox counter, so a 8-key
+// n-block costs two Philox calls per thread. Shared rows are padded by 8 bf16 so the 8 rows a
 // fragment load touches fall in distinct banks. Keys past Lk score -inf and
 // their K/V rows are zero; query rows past Lq run on zeros and are not
 // stored. Operands need 16-byte aligned rows (strides multiples of 8
@@ -167,8 +170,20 @@ __device__ __forceinline__ void attn_tile_mma(const AttnArgs& a, int b, int h,
       const float p2 = expf(sc[nb][2] - mn1), p3 = expf(sc[nb][3] - mn1);
       s0 += p0 + p1;
       s1 += p2 + p3;
-      pa[nb / 2][(nb % 2) * 2 + 0] = pack_bf16(p0, p1);
-      pa[nb / 2][(nb % 2) * 2 + 1] = pack_bf16(p2, p3);
+      float d0 = p0, d1 = p1, d2 = p2, d3 = p3;
+      if (a.keep_min) {
+        const int c = k0 + nb * 8 + 2 * t;   // even: c and c + 1 share a counter
+        const uint32_t bh = b * a.heads + h;
+        const uint4 w0 = dropout_bits(a.seed, bh, r0, c);
+        const uint4 w1 = dropout_bits(a.seed, bh, r1, c);
+        const int i = c & 3;
+        d0 = (word(w0, i) >> 8) >= a.keep_min ? p0 : 0.f;
+        d1 = (word(w0, i + 1) >> 8) >= a.keep_min ? p1 : 0.f;
+        d2 = (word(w1, i) >> 8) >= a.keep_min ? p2 : 0.f;
+        d3 = (word(w1, i + 1) >> 8) >= a.keep_min ? p3 : 0.f;
+      }
+      pa[nb / 2][(nb % 2) * 2 + 0] = pack_bf16(d0, d1);
+      pa[nb / 2][(nb % 2) * 2 + 1] = pack_bf16(d2, d3);
     }
 #pragma unroll
     for (int off = 1; off < 4; off <<= 1) {
@@ -196,7 +211,8 @@ __device__ __forceinline__ void attn_tile_mma(const AttnArgs& a, int b, int h,
   }
 
   __nv_bfloat16* out = static_cast<__nv_bfloat16*>(a.out) + b * a.o_sb + h * a.o_sh;
-  const float inv0 = 1.f / l0, inv1 = 1.f / l1;
+  const float ks = a.keep_min ? a.keep_scale : 1.f;
+  const float inv0 = ks / l0, inv1 = ks / l1;
 #pragma unroll
   for (int db = 0; db < kDBlocks; ++db) {
     const int c = db * 8 + 2 * t;

@@ -3,8 +3,10 @@
 //   ctx2 = softmax(Q1 K2^T / sqrt(D) + bias2) V2   [B, L1, H, D]
 //
 // Replaces: k3m_tpu/kernels/coattn.py:_biattn_kernel (called from
-// _fused_biattention_call) at dropout rate 0; its dropout salts and its
-// backward are not ported yet.
+// _fused_biattention_call), with its dropout: direction 1 draws its Philox
+// mask from seed + 0, direction 2 from seed + 7919, the TPU kernel's salts.
+// Its backward is the attention backward (attention_bwd.cu) once per
+// direction, with the same seeds (coattn.py:178-192).
 //
 // Bound on the H100: like the self-attention kernel, reading the six
 // projections once and writing both contexts once; the arithmetic is small.
@@ -73,14 +75,17 @@ int launch(const k3m::AttnArgs& dir1, const k3m::AttnArgs& dir2, int B, int H,
 }  // namespace
 
 // strides (elements): [q1 b,l,h, k1 b,l,h, v1 b,l,h, q2 b,l,h, k2 b,l,h,
-// v2 b,l,h, out1 b,l,h, out2 b,l,h, bias1_b, bias2_b]. Returns
+// v2 b,l,h, out1 b,l,h, out2 b,l,h, bias1_b, bias2_b]. keep_min1/2 and
+// keep_scale1/2 are the two directions' dropout (0: none). Returns
 // cudaGetLastError() after the launch (0 on success).
 extern "C" int k3m_biattention_fwd(const void* q1, const void* k1, const void* v1,
                                    const float* bias1, const void* q2,
                                    const void* k2, const void* v2,
                                    const float* bias2, void* out1, void* out2,
                                    int dtype, int B, int H, int l1, int l2, int d,
-                                   const long long* st, float scale,
+                                   const long long* st, float scale, unsigned seed,
+                                   unsigned keep_min1, float keep_scale1,
+                                   unsigned keep_min2, float keep_scale2,
                                    void* stream_ptr) {
   if (B <= 0 || H <= 0 || l1 <= 0 || l2 <= 0 || B > 65535 || H > 65535)
     return cudaErrorInvalidValue;
@@ -90,8 +95,10 @@ extern "C" int k3m_biattention_fwd(const void* q1, const void* k1, const void* v
   // direction 2: stream-1 queries over stream-2 keys/values, bias2
   const long long s2[13] = {st[0], st[1], st[2], st[12], st[13], st[14],
                             st[15], st[16], st[17], st[21], st[22], st[23], st[25]};
-  const k3m::AttnArgs dir1 = k3m::make_args(q2, k1, v1, bias1, out1, s1, l2, l1, scale);
-  const k3m::AttnArgs dir2 = k3m::make_args(q1, k2, v2, bias2, out2, s2, l1, l2, scale);
+  const k3m::AttnArgs dir1 = k3m::make_args(q2, k1, v1, bias1, out1, s1, l2, l1, H, scale,
+                                            seed, keep_min1, keep_scale1);
+  const k3m::AttnArgs dir2 = k3m::make_args(q1, k2, v2, bias2, out2, s2, l1, l2, H, scale,
+                                            seed + 7919u, keep_min2, keep_scale2);
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   if (dtype == k3m::kF32) return launch<float>(dir1, dir2, B, H, d, stream);
   if (!k3m::mma_aligned(dir1) || !k3m::mma_aligned(dir2)) return cudaErrorInvalidValue;

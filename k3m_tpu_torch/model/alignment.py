@@ -23,8 +23,10 @@ from torch import nn
 from k3m_tpu_torch.config import K3MConfig
 from k3m_tpu_torch.device import resolve_device
 from k3m_tpu_torch.model.heads import ClassificationHead
-from k3m_tpu_torch.model.layers import adopt, cast_linears, compute_dtype
-from k3m_tpu_torch.model.pretrain import K3MTrunk, check_deterministic
+from k3m_tpu_torch.model.layers import (
+    adopt, cast_linears, compute_dtype, init_weights, set_compute_dtype,
+)
+from k3m_tpu_torch.model.pretrain import K3MTrunk
 from k3m_tpu_torch.model.structure import StructureAggregator
 
 
@@ -45,6 +47,7 @@ class K3MForItemAlignment(nn.Module):
         adopt(self, "structure", StructureAggregator(cfg, with_lpm=False))
         if cfg.loss_type == "ce":
             self.classifier = ClassificationHead(cfg)
+        set_compute_dtype(self, compute_dtype(cfg))
 
     def item_embedding(self, item: Dict[str, torch.Tensor], *,
                        deterministic: bool = True):
@@ -60,7 +63,9 @@ class K3MForItemAlignment(nn.Module):
         return out["c_initial"], c_final
 
     def forward(self, labels, item1, item2, *, deterministic: bool = True):
-        check_deterministic(deterministic)
+        if not deterministic:
+            raise NotImplementedError("training the alignment model (--do_train) "
+                                      "is not ported yet")
         cfg = self.cfg
         _, emb1 = self.item_embedding(item1)
         _, emb2 = self.item_embedding(item2)
@@ -86,21 +91,6 @@ class K3MForItemAlignment(nn.Module):
             emb1, emb2 = probs_full[:, 0], probs_full[:, 1]
             probs = probs_full[:, 1]
         return emb1, emb2, probs, loss
-
-
-def init_weights(model: nn.Module, seed: int, std: float) -> nn.Module:
-    """Random init from a seed, as the JAX package initializes: Linear and
-    Embedding weights ~ N(0, std), biases 0, LayerNorm scale 1 / bias 0.
-    Drawn on the CPU from one torch.Generator, so the same seed gives the
-    same weights on every device."""
-    g = torch.Generator().manual_seed(seed)
-    with torch.no_grad():
-        for m in model.modules():
-            if isinstance(m, (nn.Linear, nn.Embedding)):
-                m.weight.copy_(torch.normal(0.0, std, m.weight.shape, generator=g))
-            if isinstance(m, nn.Linear) and m.bias is not None:
-                m.bias.zero_()
-    return model
 
 
 def build_model(cfg: K3MConfig, *, seed: int = 42, device="cuda") -> K3MForItemAlignment:

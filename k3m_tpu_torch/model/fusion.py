@@ -9,7 +9,8 @@ individual embedding with its two interactive outputs:
   if_pre_sampling == 1: hard selection over three sigmoid scores; at
                         inference an argmax one-hot (the JAX package's
                         documented deviation from torch's eval-time Gumbel
-                        draw), or straight-through Gumbel with injected noise
+                        draw); in training, or with injected noise, the
+                        straight-through hard Gumbel-softmax
   if_pre_sampling == 2: soft sigmoid-weighted concat + projection
   else (3):             mean of the two interactive outputs
 
@@ -25,18 +26,28 @@ import torch
 from torch import nn
 
 from k3m_tpu_torch.config import K3MConfig
-from k3m_tpu_torch.model.layers import adopt
+from k3m_tpu_torch.model import random as k3m_random
+from k3m_tpu_torch.model.layers import Linear, adopt
+
+
+def gumbel_noise_like(logits: torch.Tensor, generator: torch.Generator):
+    """Gumbel(0, 1) noise as the JAX package draws it (fusion.py:40-42):
+    -log(-log(u + 1e-20)) with u uniform in [1e-20, 1)."""
+    u = torch.rand(logits.shape, device=logits.device, generator=generator)
+    u = u * (1.0 - 1e-20) + 1e-20
+    return -torch.log(-torch.log(u + 1e-20))
 
 
 def gumbel_softmax_hard(logits: torch.Tensor, noise: torch.Tensor,
                         dim: int) -> torch.Tensor:
     """Straight-through hard Gumbel-softmax, tau = 1, with pre-drawn Gumbel
-    `noise`. The forward value is y_hard + y_soft - y_soft, evaluated in
-    that order as in the JAX package."""
+    `noise`: the forward value is the one-hot argmax, the gradient that of
+    the soft sample (y_hard + y_soft - y_soft.detach(), evaluated in that
+    order as in the JAX package)."""
     y_soft = torch.softmax(logits.float() + noise.float(), dim=dim)
     index = y_soft.argmax(dim=dim, keepdim=True)
     y_hard = torch.zeros_like(y_soft).scatter_(dim, index, 1.0)
-    return y_hard + y_soft - y_soft
+    return y_hard + y_soft - y_soft.detach()
 
 
 class ModalityFusion(nn.Module):
@@ -51,12 +62,12 @@ class ModalityFusion(nn.Module):
         m = modality
         if self.strategy in (1, 2):
             n_in = size * num_modes
-            self.add_module(f"score_self_{m}", nn.Linear(n_in, size))
+            self.add_module(f"score_self_{m}", Linear(n_in, size))
             if num_modes == 3:
-                self.add_module(f"score_cross1_{m}", nn.Linear(n_in, size))
-            self.add_module(f"score_cross2_{m}", nn.Linear(n_in, size))
+                self.add_module(f"score_cross1_{m}", Linear(n_in, size))
+            self.add_module(f"score_cross2_{m}", Linear(n_in, size))
         if self.strategy == 2:
-            self.add_module(f"soft_{m}", nn.Linear(3 * size, size))
+            self.add_module(f"soft_{m}", Linear(3 * size, size))
 
     def _lin(self, name):
         return getattr(self, f"{name}_{self.modality}")
@@ -94,7 +105,8 @@ class ModalityFusion(nn.Module):
             index = ak.argmax(dim=2, keepdim=True)
             a_index = torch.zeros_like(ak).scatter_(2, index, 1.0)
         else:
-            raise NotImplementedError("deterministic=False is not ported yet")
+            a_index = gumbel_softmax_hard(
+                ak, gumbel_noise_like(ak, k3m_random.active().gumbel), dim=2)
         out = ind * a_index[:, :, 0, :]
         i = 1
         for r in (r1, r2):
@@ -115,7 +127,7 @@ class FusionBlock(nn.Module):
         num_modes = 3 if cfg.use_image else 2
         if cfg.use_image:
             adopt(self, "fusion_v", ModalityFusion(cfg, cfg.bi_hidden_size, num_modes, "v"))
-            self.map_bi_to_individual = nn.Linear(cfg.bi_hidden_size, cfg.hidden_size)
+            self.map_bi_to_individual = Linear(cfg.bi_hidden_size, cfg.hidden_size)
         adopt(self, "fusion_t", ModalityFusion(cfg, cfg.hidden_size, num_modes, "t"))
         adopt(self, "fusion_pv", ModalityFusion(cfg, cfg.hidden_size, num_modes, "pv"))
 

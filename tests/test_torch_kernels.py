@@ -168,20 +168,23 @@ def test_cpu_tensors_run_the_plain_version_and_count_nothing():
     out = fused_layernorm(_t(x), _t(scale), _t(bias), _t(res))
     torch.testing.assert_close(out, layernorm_plain(_t(x), _t(scale), _t(bias), _t(res)))
     q, k, v, b = _attn_inputs(1, 2, 4, 4, 8, seed=2)
-    q, k, v, b = _bld(q), _bld(k), _bld(v), torch.from_numpy(b)
-    fused_attention(q, k, v, b)
-    fused_biattention(q, k, v, b, q, k, v, b)
-    assert kernels.launch_counts() == {"fused_layernorm": 0, "fused_attention": 0,
-                                       "fused_biattention": 0}
+    q, k, v, b = _bld(q).requires_grad_(), _bld(k), _bld(v), torch.from_numpy(b)
+    fused_attention(q, k, v, b, dropout_rate=0.1, seed=3).sum().backward()
+    sum(fused_biattention(q, k, v, b, q, k, v, b, dropout1=0.1)).sum().backward()
+    assert kernels.launch_counts() == {name: 0 for name in kernels.WRAPPERS}
+    assert set(kernels.WRAPPERS) == {"fused_layernorm", "layernorm_bwd", "fused_attention",
+                                     "attention_bwd", "fused_biattention"}
 
 
 def test_dropout_is_refused():
+    """A dropout rate outside [0, 1) is refused, not computed."""
     q = torch.zeros(1, 4, 2, 8)
     b = torch.zeros(1, 4)
-    with pytest.raises(NotImplementedError):
-        fused_attention(q, q, q, b, dropout_rate=0.1)
-    with pytest.raises(NotImplementedError):
-        fused_biattention(q, q, q, b, q, q, q, b, dropout2=0.1)
+    for rate in (1.0, -0.1):
+        with pytest.raises(ValueError):
+            fused_attention(q, q, q, b, dropout_rate=rate)
+        with pytest.raises(ValueError):
+            fused_biattention(q, q, q, b, q, q, q, b, dropout2=rate)
 
 
 def test_other_devices_never_fall_back():

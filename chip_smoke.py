@@ -51,6 +51,7 @@ from __future__ import annotations
 
 import json
 import math
+import re
 import shutil
 import subprocess
 import sys
@@ -267,6 +268,9 @@ def kernel_phase_layernorm_bwd(card, rows_out):
                 _, mean, rstd_l = torch.ops.aten.native_layer_norm(xin, [n], w, b, 1e-12)
                 lib = graph_ms(lambda: torch.ops.aten.native_layer_norm_backward(
                     dy, xin, [n], mean, rstd_l, w, b, [True, True, True]))
+                if what == "pv" and not with_res:
+                    _same_twice("layernorm_bwd", f"[{rows},{n}] {_dt_name(dt)}", got,
+                                lambda: layernorm_bwd(y, rstd, scale, bias, dy, dt), card)
                 esz = y.element_size()
                 bound, by = _bound(3 * rows * n * esz + 4 * rows + 16 * n, 16 * rows * n, f32)
                 _record(rows_out, card, kernel="layernorm_bwd", shape=f"[{rows},{n}] {what}",
@@ -276,6 +280,47 @@ def kernel_phase_layernorm_bwd(card, rows_out):
                         plain_ms=graph_ms(lambda: layernorm_bwd_plain(y, rstd, scale, bias,
                                                                       dy, dt)),
                         library_ms=lib, bound_ms=bound, bound_by=by)
+
+
+def _same_twice(kernel, what, first, run, card):
+    """Determinism: a second call on the same inputs gives the same bits."""
+    second = run()
+    torch.cuda.synchronize()
+    same = all(torch.equal(a, b) for a, b in zip(first, second))
+    log(f"determinism {kernel} {what}: second call bit-identical {same} | {card}")
+    if not same:
+        raise AssertionError(f"{kernel} {what}: two calls on the same inputs differ")
+
+
+def _check_lse(kernel, what, lse, q, k, bias, card):
+    """The forward's row log-sum-exp against attention_lse_plain: each
+    element within 1e-5 of max(1, |lse|) (fp32 statistics on both sides,
+    sums in another order)."""
+    from k3m_tpu_torch.kernels import attention_lse_plain
+    ref = attention_lse_plain(q, k, bias)
+    ratio = float(((lse - ref).abs() / (1e-5 * ref.abs().clamp(min=1.0))).max())
+    log(f"lse {kernel} {what}: worst error / tolerance {ratio:.3e} | {card}")
+    if not ratio <= 1.0:
+        raise AssertionError(f"{kernel} {what}: lse disagrees ({ratio} of its tolerance)")
+    return ratio
+
+
+def _words_to_mask(words, lk):
+    """bool [B, H, Lq, Lk] of a forward's mask words (bit k % 32 of word
+    k // 32 keeps (q, k))."""
+    bits = torch.arange(32, device=words.device, dtype=torch.int32)
+    mask = ((words[..., None] >> bits) & 1).bool()
+    return mask.reshape(*words.shape[:-1], -1)[..., :lk]
+
+
+def _check_words(kernel, what, words, keep, card):
+    """The mask words a forward keeps for its backward against
+    philox_keep_mask_plain, bit for bit."""
+    bad = int((_words_to_mask(words, keep.shape[-1]) != keep).sum())
+    log(f"keep words {kernel} {what}: {keep.numel()} bits, {bad} differ from "
+        f"philox_keep_mask_plain | {card}")
+    if bad:
+        raise AssertionError(f"{kernel} {what}: {bad} mask bits differ")
 
 
 def _qkv(B, L, H, D, dtype, g):
@@ -306,7 +351,7 @@ def _sdpa(q, k, v, bias, rate):
 def _sdpa_bwd_ms(dirs, rate):
     """Device ms of SDPA's backward (via autograd) over the given
     directions [(q, k, v, bias, dout)]: forward + backward minus forward,
-    CUDA events."""
+    each captured in CUDA graphs as the kernels are timed."""
     leaves = [[t.detach().requires_grad_() for t in d[:3]] + list(d[3:]) for d in dirs]
 
     def fwd():
@@ -316,9 +361,7 @@ def _sdpa_bwd_ms(dirs, rate):
         outs = fwd()
         torch.autograd.grad(outs, [t for d in leaves for t in d[:3]],
                             [d[4].transpose(1, 2) for d in leaves])
-    with torch.no_grad():
-        f = cuda_ms(fwd, iters=10)
-    return max(cuda_ms(fwd_bwd, iters=10) - f, 0.0)
+    return max(graph_ms(fwd_bwd, iters=10) - graph_ms(fwd, iters=10), 0.0)
 
 
 ATTN_SHAPES = ((12, 50, 64, "title"), (12, 256, 64, "pv"), (8, 37, 128, "image"))
@@ -328,6 +371,7 @@ BIATTN_SHAPES = ((37, 50, 128, "c_layer"), (37, 256, 128, "c_layer_pv_v"),
 
 def kernel_phase_attention(card, rows_out):
     from k3m_tpu_torch.kernels import attention_plain, fused_attention, philox_keep_mask_plain
+    from k3m_tpu_torch.kernels.attention import _forward
     g = torch.Generator(device="cuda").manual_seed(1)
     for B, (H, L, D, what) in ((b, s) for b in FWD_BATCHES for s in ATTN_SHAPES):
         for dt in (torch.float32, torch.bfloat16):
@@ -338,22 +382,35 @@ def kernel_phase_attention(card, rows_out):
                 keep = philox_keep_mask_plain(seed, B, H, L, L, rate, 0, "cuda") if rate else None
                 out = fused_attention(q, k, v, bias, dropout_rate=rate, seed=seed)
                 ref = attention_plain(q, k, v, bias, keep, rate)
+                out_l, lse, words = _forward(q, k, v, bias, rate, seed, for_backward=True)
                 torch.cuda.synchronize()
+                if not torch.equal(out, out_l):
+                    raise AssertionError(f"fused_attention {what}: keeping lse and the mask "
+                                         "changed the output")
+                tag = f"B{B} L{L} D{D} {_dt_name(dt)} rate {rate}"
+                lse_ratio = _check_lse("fused_attention", tag, lse, q, k, bias, card)
+                if words is not None:
+                    _check_words("fused_attention", tag, words, keep, card)
                 bound, by = _bound(4 * B * L * H * D * q.element_size() + B * L * 4,
                                    _attn_ops(B, H, L, L, D), dt)
+                # timed as its path calls it: training (B96) keeps lse and the
+                # mask words for the backward, serving (B64) keeps nothing
+                train = B == TRAIN_BATCH
                 _record(rows_out, card, kernel="fused_attention", batch=B,
                         shape=f"B{B} H{H} L{L} D{D} {what}", dtype=_dt_name(dt), rate=rate,
                         max_abs_err=max_err(out, ref), tol=tolerance(ref, dt),
-                        ms=graph_ms(lambda: fused_attention(q, k, v, bias, dropout_rate=rate,
-                                                            seed=seed)),
+                        ms=graph_ms(lambda: _forward(q, k, v, bias, rate, seed,
+                                                     for_backward=train)),
+                        timed_for_backward=train,
                         plain_ms=graph_ms(lambda: attention_plain(q, k, v, bias, keep, rate)),
                         library_ms=graph_ms(lambda: _sdpa(q, k, v, bias, rate)),
-                        bound_ms=bound, bound_by=by)
+                        bound_ms=bound, bound_by=by, lse_err_ratio=lse_ratio)
 
 
 def kernel_phase_biattention(card, rows_out):
     from k3m_tpu_torch.kernels import biattention_plain, fused_biattention, \
         philox_keep_mask_plain
+    from k3m_tpu_torch.kernels.coattn import _forward
     g = torch.Generator(device="cuda").manual_seed(2)
     H = 8
     for B, (L1, L2, D, what) in ((b, s) for b in FWD_BATCHES for s in BIATTN_SHAPES):
@@ -370,21 +427,36 @@ def kernel_phase_biattention(card, rows_out):
                 drop = dict(dropout1=rate, dropout2=rate, seed=seed)
                 c1, c2 = fused_biattention(*args, **drop)
                 r1, r2 = biattention_plain(*args, m1, m2, rate, rate)
+                l_c1, l_c2, (lse1, w1), (lse2, w2) = _forward(*args, rate, rate, seed,
+                                                              for_backward=True)
                 torch.cuda.synchronize()
+                if not (torch.equal(c1, l_c1) and torch.equal(c2, l_c2)):
+                    raise AssertionError(f"fused_biattention {what}: keeping lse and the mask "
+                                         "changed the output")
+                tag = f"B{B} L{L1}<->{L2} D{D} {_dt_name(dt)} rate {rate}"
+                lse_ratio = max(
+                    _check_lse("fused_biattention direction 1", tag, lse1, q2, k1, b1, card),
+                    _check_lse("fused_biattention direction 2", tag, lse2, q1, k2, b2, card))
+                if w1 is not None:
+                    _check_words("fused_biattention direction 1", tag, w1, m1, card)
+                    _check_words("fused_biattention direction 2", tag, w2, m2, card)
                 bound, by = _bound(4 * B * (L1 + L2) * H * D * q1.element_size()
                                    + B * (L1 + L2) * 4, 2 * _attn_ops(B, H, L1, L2, D), dt)
 
                 def two_sdpa():
                     _sdpa(q2, k1, v1, b1, rate)
                     _sdpa(q1, k2, v2, b2, rate)
+                train = B == TRAIN_BATCH      # timed as its path calls it
                 _record(rows_out, card, kernel="fused_biattention", batch=B,
                         shape=f"B{B} H{H} L{L1}<->{L2} D{D} {what}", dtype=_dt_name(dt),
                         rate=rate, max_abs_err=max(max_err(c1, r1), max_err(c2, r2)),
                         tol=min(tolerance(r1, dt), tolerance(r2, dt)),
-                        ms=graph_ms(lambda: fused_biattention(*args, **drop)),
+                        ms=graph_ms(lambda: _forward(*args, rate, rate, seed,
+                                                     for_backward=train)),
+                        timed_for_backward=train,
                         plain_ms=graph_ms(lambda: biattention_plain(*args, m1, m2, rate, rate)),
                         library_ms=None, two_sdpa_ms=graph_ms(two_sdpa),
-                        bound_ms=bound, bound_by=by)
+                        bound_ms=bound, bound_by=by, lse_err_ratio=lse_ratio)
 
 
 def bwd_errors(got, ref, dtype):
@@ -416,13 +488,29 @@ def bwd_worst(got, ref, dtype):
 BWD_TILE = 64      # keys per CTA of the bf16 dK/dV kernel (attention_mma.cuh kMmaBQ)
 
 
-def planted_faults(ops_, got, rate, seed, dt):
+def _forward_kept(ops_, rate, seed):
+    """What the forward kernel keeps for the backward of each direction of
+    `ops_`, as the training path saves it: (output, lse, keep words or
+    None); the self-attention kernel for one direction, the bi-attention
+    kernel for two."""
+    from k3m_tpu_torch.kernels import attention, coattn
+    if len(ops_) == 1:
+        q, k, v, b = ops_[0][:4]
+        return [attention._forward(q, k, v, b, rate, seed, for_backward=True)]
+    (q2, k1, v1, b1), (q1, k2, v2, b2) = (o[:4] for o in ops_)
+    c1, c2, kept1, kept2 = coattn._forward(q1, k1, v1, b1, q2, k2, v2, b2, rate, rate,
+                                           seed, for_backward=True)
+    return [(c1, *kept1), (c2, *kept2)]
+
+
+def planted_faults(ops_, fwd, got, rate, seed, dt):
     """Error/tolerance ratios of faults the tolerance must reject, each
     above 1, read on batch element 0 alone, whose rows hold every key
     (_ragged_bias), so that a short row's large gradient cannot be what
-    rejects them: the kernel run under another salt (a wrong mask); dV
-    without the 1 / (1 - rate) of the kept probabilities; dV zero past the
-    first tile of keys (where Lk has more than one)."""
+    rejects them: the kernel run under a wrong mask (the mask words of a
+    forward with another seed); dV without
+    the 1 / (1 - rate) of the kept probabilities; dV zero past the first
+    tile of keys (where Lk has more than one)."""
     from k3m_tpu_torch.kernels import attention_bwd, attention_bwd_plain, \
         philox_keep_mask_plain
 
@@ -430,12 +518,14 @@ def planted_faults(ops_, got, rate, seed, dt):
         err, tol = bwd_errors(a, r, dt)
         return float((err[0] / tol[0]).max())
 
-    faults = {"wrong salt": [], "dV without 1/(1-rate)": [], "dV zero past tile 1": []}
-    for (q, k, v, b, do, salt, H, Lq, Lk, D), (dq, dk, dv) in zip(ops_, got):
+    faults = {"wrong mask": [], "dV without 1/(1-rate)": [], "dV zero past tile 1": []}
+    wrong = _forward_kept(ops_, rate, seed + 1)
+    for (q, k, v, b, do, salt, H, Lq, Lk, D), (out, lse, _), (_, _, other), (dq, dk, dv) \
+            in zip(ops_, fwd, wrong, got):
         keep = philox_keep_mask_plain(seed, q.shape[0], H, Lq, Lk, rate, salt, "cuda")
         want = attention_bwd_plain(q, k, v, b, do, keep, rate)
-        bad = attention_bwd(q, k, v, b, do, rate, seed, salt + 1)
-        faults["wrong salt"].append(max(ratio(a, r) for a, r in zip(bad, want)))
+        bad = attention_bwd(q, k, v, b, out, lse, other, do, rate)
+        faults["wrong mask"].append(max(ratio(a, r) for a, r in zip(bad, want)))
         faults["dV without 1/(1-rate)"].append(ratio(dv * (1 - rate), want[2]))
         if Lk > BWD_TILE:
             cut = dv.clone()
@@ -449,11 +539,31 @@ def planted_faults(ops_, got, rate, seed, dt):
     return ratios
 
 
+def _attn_bwd_bytes(ops_, fwd):
+    """Bytes the backward function must move (its bound): q, k, v, dO and
+    the fp32 bias read, dq, dk, dv written, as the TPU kernel takes them;
+    where `fwd` is given, also what this design reads of the forward's (O,
+    fp32 lse, the mask words), which a backward that recomputes lse and the
+    mask and sums rowsum(dP P) itself does not need."""
+    total = 0
+    for i, (q, k, v, b, do, salt, H, Lq, Lk, D) in enumerate(ops_):
+        e = q.element_size()
+        total += 3 * q.shape[0] * Lq * H * D * e + 4 * q.shape[0] * Lk * H * D * e \
+            + q.shape[0] * Lk * 4
+        if fwd is not None:
+            total += sum(t.numel() * t.element_size() for t in fwd[i] if t is not None)
+    return total
+
+
 def kernel_phase_attention_bwd(card, rows_out):
     """The backward kernel for each self-attention shape and, once per
     direction, each co-attention shape, at rate 0 and 0.1 (under the plain
-    version's Philox mask), at the train batch; at rate 0.1 the tolerance
-    must also reject the planted faults."""
+    version's Philox mask), at the train batch, fed the forward kernel's
+    output and lse as the training path feeds it; at rate 0.1 the tolerance
+    must also reject the planted faults, and at the heaviest shape two calls
+    must give the same bits. The backward reads what the forward kernel
+    keeps for it (output, lse, mask words), as on the training path;
+    times are of the backward alone."""
     from k3m_tpu_torch.kernels import attention_bwd, attention_bwd_plain, \
         philox_keep_mask_plain
     g = torch.Generator(device="cuda").manual_seed(4)
@@ -472,13 +582,14 @@ def kernel_phase_attention_bwd(card, rows_out):
                 ops_.append((q, k, v, _ragged_bias(B, Lk, g), do, salt, H, Lq, Lk, D))
             for rate in RATES:
                 seed = 17
+                fwd = _forward_kept(ops_, rate, seed)
                 keeps = [philox_keep_mask_plain(seed, B, H, Lq, Lk, rate, salt, "cuda")
                          if rate else None
                          for q, k, v, b, do, salt, H, Lq, Lk, D in ops_]
 
                 def kernel():
-                    return [attention_bwd(q, k, v, b, do, rate, seed, salt)
-                            for q, k, v, b, do, salt, *_ in ops_]
+                    return [attention_bwd(q, k, v, b, out, lse, words, do, rate)
+                            for (q, k, v, b, do, *_), (out, lse, words) in zip(ops_, fwd)]
 
                 def plain():
                     return [attention_bwd_plain(q, k, v, b, do, keep, rate)
@@ -487,12 +598,14 @@ def kernel_phase_attention_bwd(card, rows_out):
                 torch.cuda.synchronize()
                 err, tol = _worst([bwd_worst(a, r, dt)
                                    for gs, ws in zip(got, want) for a, r in zip(gs, ws)])
-                faults = planted_faults(ops_, got, rate, seed, dt) if rate else None
-                nbytes = sum(3 * B * Lq * H * D * q.element_size()
-                             + 4 * B * Lk * H * D * q.element_size() + B * Lk * 4
-                             for q, k, v, b, do, salt, H, Lq, Lk, D in ops_)
+                faults = planted_faults(ops_, fwd, got, rate, seed, dt) if rate else None
+                if "L256 D64" in shape and rate:
+                    _same_twice("attention_bwd", f"{shape} {_dt_name(dt)} rate {rate}",
+                                [t for gs in got for t in gs],
+                                lambda: [t for gs in kernel() for t in gs], card)
                 ops = sum(5 * 2 * B * H * Lq * Lk * D for *_, H, Lq, Lk, D in ops_)
-                bound, by = _bound(nbytes, ops, dt)
+                bound, by = _bound(_attn_bwd_bytes(ops_, None), ops, dt)
+                design_bound, _ = _bound(_attn_bwd_bytes(ops_, fwd), ops, dt)
                 if faults:
                     log(f"attention_bwd {shape} {_dt_name(dt)}: planted faults rejected, "
                         f"error/tolerance {faults}")
@@ -501,7 +614,8 @@ def kernel_phase_attention_bwd(card, rows_out):
                         max_abs_err=err, tol=tol, planted_faults=faults,
                         ms=graph_ms(kernel), plain_ms=graph_ms(plain),
                         library_ms=_sdpa_bwd_ms([o[:5] for o in ops_], rate),
-                        bound_ms=bound, bound_by=by)
+                        bound_ms=bound, bound_by=by, design_bound_ms=design_bound)
+                del fwd, got, want
 
 
 def dropout_mask_check(card):
@@ -750,10 +864,19 @@ def _kernel_class(name):
     return "other"
 
 
+LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
+                "cuLaunchKernelEx")
+DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+
+
 def profile_device(fn, card, what, n=2):
     """Device time by kernel class over `n` calls of `fn` (torch.profiler),
-    and the device's idle share of the wall time of those calls."""
-    from torch.autograd import DeviceType
+    and the device's idle share of the wall time of those calls. The times
+    are read from the exported trace, one event per kernel, copy or memset
+    (the profiler's key_averages() left out about half of a train step's
+    kernels); the kernels it holds are counted against the launch calls the
+    host made, and where kernels are missing, busy and idle share are marked
+    as undercounted where over 1% are missing."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -763,32 +886,52 @@ def profile_device(fn, card, what, n=2):
             fn()
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0)
-    by_class, launches, others = {}, {}, []
-    for e in prof.key_averages():
-        # user annotations (the optimizer's "Optimizer.step#AdamW.step") span
-        # kernels that are counted on their own
-        if getattr(e, "device_type", None) != DeviceType.CUDA \
-                or getattr(e, "is_user_annotation", False) or "#" in e.key:
+    WORK.mkdir(parents=True, exist_ok=True)
+    trace = WORK / "profile_trace.json"
+    prof.export_chrome_trace(str(trace))
+    events = json.loads(trace.read_text())["traceEvents"]
+    trace.unlink()
+    by_class, launches, others, ours = {}, {}, {}, {}
+    host_launches = sum(1 for e in events
+                        if e.get("ph") == "X" and e.get("name") in LAUNCH_CALLS) // n
+    seen = 0       # kernels in the trace (copies and memsets aside)
+    for e in events:
+        if e.get("ph") != "X" or e.get("cat") not in DEVICE_CATS:
             continue
-        cls = _kernel_class(e.key)
-        ms = e.self_device_time_total / 1e3 / n
+        name = e.get("name", "")
+        cls = _kernel_class(name) if e["cat"] == "kernel" else "other"
+        seen += e["cat"] == "kernel"
+        ms = e.get("dur", 0.0) / 1e3 / n
         by_class[cls] = by_class.get(cls, 0.0) + ms
-        launches[cls] = launches.get(cls, 0) + e.count // n
+        launches[cls] = launches.get(cls, 0) + 1
         if cls == "other":
-            others.append((ms, e.count // n, e.key[:80]))
-    others.sort(reverse=True)
+            ms0, c0 = others.get(name[:80], (0.0, 0))
+            others[name[:80]] = (ms0 + ms, c0 + 1)
+        elif cls != "matmul":      # the port's kernels, each by its own name
+            m = re.search(r"(\w+(?:<[^()]*>)?)\(", name)
+            short = m.group(1) if m else name[:80]
+            ours[short] = ours.get(short, 0.0) + ms
+    seen //= n
+    launches = {k: c // n for k, c in launches.items()}
+    others = sorted(((ms, c // n, k) for k, (ms, c) in others.items()), reverse=True)
     busy = sum(by_class.values())
     idle = 1.0 - busy * n / wall_ms if wall_ms > 0 else None
+    complete = seen >= 0.99 * host_launches
     log(f"profile: per {what}, device ms by kernel class "
         f"{ {k: round(v, 3) for k, v in sorted(by_class.items())} } launches "
         f"{launches}; busy {busy:.2f} ms, wall {wall_ms / n:.2f} ms under the "
-        f"profiler, idle share {idle} | {card}")
+        f"profiler, idle share {idle}; the trace holds {seen} kernels for "
+        f"{host_launches} kernel launch calls"
+        f"{'' if complete else ' (over 1% lost: busy undercounted, idle overcounted)'} | {card}")
+    log(f"profile: the port's kernels by name, device ms "
+        f"{ {k: round(v, 3) for k, v in sorted(ours.items())} }")
     for ms, count, name in others[:8]:
         log(f"profile: other {ms:.3f} ms in {count} launches of {name}")
     if busy == 0:
         raise AssertionError("the profiler saw no device time")
     return dict(device_ms_by_class=by_class, launches_by_class=launches,
                 busy_ms=busy, wall_ms_profiled=wall_ms / n, idle_share=idle,
+                host_launch_calls=host_launches, complete=complete, kernels_by_name=ours,
                 top_other=others[:20])
 
 
@@ -1069,6 +1212,10 @@ def main(argv):
     build_s = phase_build()
     krows, host_us, masks = phase_kernels(card)
     if "--kernels-only" in argv:       # quick check of a kernel change
+        OUT_JSON.parent.mkdir(parents=True, exist_ok=True)
+        OUT_JSON.write_text(json.dumps(dict(card=card, build_s=build_s, kernels=krows,
+                                            dropout_masks=masks, host_us_per_call=host_us),
+                                       indent=1))
         return 0
     profile = "--profile" in argv
     if WORK.exists():

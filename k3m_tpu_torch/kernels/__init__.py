@@ -7,8 +7,8 @@ The forward wrappers are differentiable: their backward runs
 """
 
 from k3m_tpu_torch.kernels.attention import (
-    attention_bwd, attention_bwd_plain, attention_plain, fused_attention,
-    philox_keep_mask_plain,
+    attention_bwd, attention_bwd_plain, attention_lse_plain, attention_plain,
+    fused_attention, philox_keep_mask_plain,
 )
 from k3m_tpu_torch.kernels.coattn import biattention_plain, fused_biattention
 from k3m_tpu_torch.kernels.layernorm import (
@@ -33,7 +33,7 @@ def launch_counts() -> dict:
     return {name: fn.launches for name, fn in WRAPPERS.items()}
 
 
-__all__ = ["attention_bwd", "attention_bwd_plain", "attention_plain",
+__all__ = ["attention_bwd", "attention_bwd_plain", "attention_lse_plain", "attention_plain",
            "biattention_plain", "fused_attention", "fused_biattention",
            "fused_layernorm", "layernorm_bwd", "layernorm_bwd_plain",
            "layernorm_plain", "launch_counts", "philox_keep_mask_plain",

@@ -14,13 +14,21 @@ Philox4x32-10 word of counter (k // 4, q, 0, 0) under key
 (seed + salt, b * H + h), word k % 4, has `(bits >> 8) * 2^-24 >= rate`,
 and scales the kept ones by 1 / (1 - rate), as `_dropout_mask` does with
 the TPU's own bits (which nothing here can reproduce). The kernels
-(csrc/philox.cuh) and `philox_keep_mask_plain` compute the same bits, so
-the forward, the backward and the plain versions share one mask.
+(csrc/philox.cuh) and `philox_keep_mask_plain` compute the same bits.
+Only the forward draws the mask: where a gradient is needed it keeps it,
+one bit per element (`keep_words`, int32 [B, H, Lq, ceil(Lk / 32)], bit
+k % 32 of word k // 32; the kernels on the card, `pack_keep_words` of the
+plain mask on the CPU), and the backward reads those words on both devices.
 
-The backward recomputes the probabilities and the mask (nothing
-[Lq, Lk]-shaped is saved): dV = P~^T dO, dP = (dO V^T) keep / (1 - rate),
-dS = P (dP - rowsum(dP P)), dQ = dS K / sqrt(D), dK = dS^T Q / sqrt(D), no
-gradient for the bias (attention.py:_attn_bwd_kernel).
+The backward recomputes the probabilities: dV = P~^T dO,
+dP = (dO V^T) keep / (1 - rate), dS = P (dP - rowsum(dP P)),
+dQ = dS K / sqrt(D), dK = dS^T Q / sqrt(D), no gradient for the bias
+(attention.py:_attn_bwd_kernel). The kernel also takes the forward
+kernel's fp32 row log-sum-exp `lse` [B, H, Lq] of the scaled, biased
+scores, so that P = exp(S - lse) needs no pass of its own, and the output
+O, whose rowsum(dO O) stands in for rowsum(dP P) inside the one pass over
+the keys until the exact sum is known at its end (csrc/attention_bwd.cu).
+The plain backward keeps the JAX formulas and reads only the mask.
 """
 
 from __future__ import annotations
@@ -91,12 +99,39 @@ def philox_keep_mask_plain(seed: int, B: int, H: int, Lq: int, Lk: int,
     return (bits >> 8) >= keep_min
 
 
+def pack_keep_words(keep):
+    """int32 [..., ceil(Lk / 32)] words of a bool keep mask [..., Lk], bit
+    k % 32 of word k // 32 keeping key k (zero past Lk), as the forward
+    kernels store them."""
+    lk = keep.shape[-1]
+    n = -(-lk // 32)
+    bits = torch.nn.functional.pad(keep.to(torch.int64), (0, 32 * n - lk))
+    shifts = torch.arange(32, dtype=torch.int64, device=keep.device)
+    w = (bits.reshape(*keep.shape[:-1], n, 32) << shifts).sum(-1)
+    return torch.where(w >= 2 ** 31, w - 2 ** 32, w).to(torch.int32)
+
+
+def unpack_keep_words(words, lk: int):
+    """The bool keep mask [..., lk] of mask words (pack_keep_words)."""
+    shifts = torch.arange(32, dtype=torch.int32, device=words.device)
+    bits = (words[..., None] >> shifts) & 1
+    return bits.bool().reshape(*words.shape[:-1], -1)[..., :lk]
+
+
 # ------------------------------------------------------------------ plain
 
 def _scores_probs(q, k, bias):
     scale = 1.0 / math.sqrt(q.shape[-1])
     s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
     return torch.softmax(s + bias.float()[:, None, None, :], dim=-1)
+
+
+def attention_lse_plain(q, k, bias):
+    """fp32 [B, H, Lq] logsumexp over the keys of the scaled, biased scores:
+    what the forward kernels write for the backward."""
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
+    return torch.logsumexp(s + bias.float()[:, None, None, :], dim=-1)
 
 
 def _drop_factor(keep, rate):
@@ -183,53 +218,103 @@ def _device_kind(t, name):
     return t.device.type
 
 
-def _forward(q, k, v, bias, rate, seed):
+def keep_words_shape(q, lk, rate):
+    """Shape of the mask words a forward under dropout keeps for its
+    backward, else None."""
+    if rate <= 0.0:
+        return None
+    B, Lq, H, _ = q.shape
+    return (B, H, Lq, -(-lk // 32))
+
+
+def keep_words_for(q, lk, rate):
+    """Uninitialized mask words for a forward (keep_words_shape), or None."""
+    shape = keep_words_shape(q, lk, rate)
+    return None if shape is None else torch.empty(shape, dtype=torch.int32, device=q.device)
+
+
+def _ptr(t):
+    return t.data_ptr() if t is not None else None
+
+
+def _plain_forward(q, k, v, bias, rate, seed, salt, for_backward):
+    """(out, None, keep_words) of one direction on the CPU: the plain
+    version, and where a backward follows under dropout the words of its
+    mask (the plain backward reads no lse)."""
+    keep = _plain_keep(q, k, rate, seed, salt)
+    words = pack_keep_words(keep) if for_backward and keep is not None else None
+    return attention_plain(q, k, v, bias, keep, rate), None, words
+
+
+def _forward(q, k, v, bias, rate, seed, for_backward=False):
+    """(out, lse, keep_words): the kernel for CUDA tensors, which keeps lse
+    and (under dropout) the mask words where the backward will read them;
+    the plain version for CPU tensors, which keeps the mask words alone."""
     if _device_kind(q, "fused_attention") == "cpu":
-        return attention_plain(q, k, v, bias, _plain_keep(q, k, rate, seed, 0), rate)
+        return _plain_forward(q, k, v, bias, rate, seed, 0, for_backward)
     check_operands(q, k, v, bias, "fused_attention")
     keep_min, keep_scale = keep_threshold(rate)
     B, Lq, H, D = q.shape
     out = torch.empty((B, Lq, H, D), dtype=q.dtype, device=q.device)
+    lse = words = None
+    if for_backward:
+        lse = torch.empty((B, H, Lq), dtype=torch.float32, device=q.device)
+        words = keep_words_for(q, k.shape[1], rate)
     strides = build.int64_array(bld_strides(q) + bld_strides(k) + bld_strides(v)
                                 + bld_strides(out) + [bias.stride(0)])
     rc = build.library().k3m_attention_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
-        out.data_ptr(), build.DTYPE_CODES[q.dtype], B, H, Lq, k.shape[1], D, strides,
+        out.data_ptr(), _ptr(lse), _ptr(words),
+        build.DTYPE_CODES[q.dtype], B, H, Lq, k.shape[1], D, strides,
         1.0 / math.sqrt(D), seed & U32, keep_min, keep_scale,
         build.stream_handle(q.device))
     build.check(rc, "k3m_attention_fwd")
     fused_attention.launches += 1
-    return out
+    return out, lse, words
 
 
-def attention_bwd(q, k, v, bias, dout, rate: float = 0.0, seed: int = 0,
-                  salt: int = 0):
-    """(dq, dk, dv) of one attention direction whose forward drew its mask
-    from (seed, salt): the backward kernel for CUDA tensors, the plain
-    version for CPU tensors."""
-    if _device_kind(q, "attention_bwd") == "cpu":
-        return attention_bwd_plain(q, k, v, bias, dout,
-                                   _plain_keep(q, k, rate, seed, salt), rate)
-    if not _rows_aligned(dout):
-        dout = dout.contiguous()
-    check_operands(q, k, v, bias, "attention_bwd")
-    if dout.shape != q.shape or dout.dtype != q.dtype:
-        raise ValueError("attention_bwd: dout must be shaped and typed like q")
+def attention_bwd(q, k, v, bias, out, lse, keep_words, dout, rate: float = 0.0):
+    """(dq, dk, dv) of one attention direction whose forward at `rate` gave
+    `out`, the row log-sum-exp `lse` and, under dropout, its mask words
+    `keep_words` (`_forward(..., for_backward=True)`): the backward kernel
+    for CUDA tensors, the plain version for CPU tensors, which reads only
+    the mask words."""
+    device = _device_kind(q, "attention_bwd")
     keep_min, keep_scale = keep_threshold(rate)
     B, Lq, H, D = q.shape
     Lk = k.shape[1]
+    want = keep_words_shape(q, Lk, rate)
+    if want is not None and (keep_words is None or keep_words.shape != want
+                             or keep_words.dtype != torch.int32
+                             or not keep_words.is_contiguous()
+                             or keep_words.device != q.device):
+        raise ValueError(f"attention_bwd: dropout needs the forward's keep_words int32 {want}")
+    if device == "cpu":
+        keep = None if want is None else unpack_keep_words(keep_words, Lk)
+        return attention_bwd_plain(q, k, v, bias, dout, keep, rate)
+    if not _rows_aligned(dout):
+        dout = dout.contiguous()
+    check_operands(q, k, v, bias, "attention_bwd")
+    for name, t in (("dout", dout), ("out", out)):
+        if t.shape != q.shape or t.dtype != q.dtype or t.device != q.device:
+            raise ValueError(f"attention_bwd: {name} must be shaped and typed like q")
+    if q.dtype == torch.bfloat16 and not _rows_aligned(out):
+        raise ValueError("attention_bwd: bf16 out rows must be 16-byte aligned")
+    if lse.dtype != torch.float32 or lse.shape != (B, H, Lq) or not lse.is_contiguous() \
+            or lse.device != q.device:
+        raise ValueError(f"attention_bwd: lse must be contiguous fp32 [{B}, {H}, {Lq}]")
     dq = torch.empty((B, Lq, H, D), dtype=q.dtype, device=q.device)
     dk = torch.empty((B, Lk, H, D), dtype=q.dtype, device=q.device)
     dv = torch.empty((B, Lk, H, D), dtype=q.dtype, device=q.device)
-    stats = torch.empty((2, B, H, Lq), dtype=torch.float32, device=q.device)
+    delta = torch.empty((B, H, Lq), dtype=torch.float32, device=q.device)
     strides = build.int64_array(bld_strides(q) + bld_strides(k) + bld_strides(v)
-                                + bld_strides(dout) + [bias.stride(0)])
+                                + bld_strides(out) + bld_strides(dout) + [bias.stride(0)])
     rc = build.library().k3m_attention_bwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(), dout.data_ptr(),
-        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), stats[0].data_ptr(),
-        stats[1].data_ptr(), build.DTYPE_CODES[q.dtype], B, H, Lq, Lk, D, strides,
-        1.0 / math.sqrt(D), (seed + salt) & U32, keep_min, keep_scale,
-        build.stream_handle(q.device))
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(), out.data_ptr(),
+        lse.data_ptr(), _ptr(keep_words if want is not None else None), dout.data_ptr(),
+        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), delta.data_ptr(),
+        build.DTYPE_CODES[q.dtype], B, H, Lq, Lk, D, strides,
+        1.0 / math.sqrt(D), keep_min, keep_scale, build.stream_handle(q.device))
     build.check(rc, "k3m_attention_bwd")
     attention_bwd.launches += 1
     return dq, dk, dv
@@ -238,14 +323,14 @@ def attention_bwd(q, k, v, bias, dout, rate: float = 0.0, seed: int = 0,
 class _FusedAttention(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, bias, rate, seed):
-        ctx.save_for_backward(q, k, v, bias)
-        ctx.rate, ctx.seed = rate, seed
-        return _forward(q, k, v, bias, rate, seed)
+        out, lse, words = _forward(q, k, v, bias, rate, seed, for_backward=True)
+        ctx.save_for_backward(q, k, v, bias, out, lse, words)
+        ctx.rate = rate
+        return out
 
     @staticmethod
     def backward(ctx, dout):
-        q, k, v, bias = ctx.saved_tensors
-        dq, dk, dv = attention_bwd(q, k, v, bias, dout, ctx.rate, ctx.seed)
+        dq, dk, dv = attention_bwd(*ctx.saved_tensors, dout, ctx.rate)
         return dq, dk, dv, None, None, None
 
 
@@ -256,7 +341,7 @@ def fused_attention(q, k, v, bias, *, dropout_rate: float = 0.0, seed: int = 0):
     keep_threshold(dropout_rate)
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
         return _FusedAttention.apply(q, k, v, bias, dropout_rate, seed)
-    return _forward(q, k, v, bias, dropout_rate, seed)
+    return _forward(q, k, v, bias, dropout_rate, seed)[0]
 
 
 fused_attention.launches = 0

@@ -101,11 +101,11 @@ def _declare(lib):
     lib.k3m_layernorm_fwd.argtypes = [P, I, P, I, P, P, P, I, P, I, I, F, P]
     lib.k3m_ln_bwd_bands.argtypes = [I]
     lib.k3m_layernorm_bwd.argtypes = [P, I, P, P, P, P, P, I, P, P, P, I, I, P]
-    lib.k3m_attention_fwd.argtypes = [P, P, P, P, P, I, I, I, I, I, I, P, F,
+    lib.k3m_attention_fwd.argtypes = [P, P, P, P, P, P, P, I, I, I, I, I, I, P, F,
                                       U, U, F, P]
-    lib.k3m_attention_bwd.argtypes = [P, P, P, P, P, P, P, P, P, P,
-                                      I, I, I, I, I, I, P, F, U, U, F, P]
-    lib.k3m_biattention_fwd.argtypes = [P, P, P, P, P, P, P, P, P, P,
+    lib.k3m_attention_bwd.argtypes = [P, P, P, P, P, P, P, P, P, P, P, P,
+                                      I, I, I, I, I, I, P, F, U, F, P]
+    lib.k3m_biattention_fwd.argtypes = [P, P, P, P, P, P, P, P, P, P, P, P, P, P,
                                         I, I, I, I, I, I, P, F, U, U, F, U, F, P]
     for fn in (lib.k3m_layernorm_fwd, lib.k3m_ln_bwd_bands, lib.k3m_layernorm_bwd,
                lib.k3m_attention_fwd, lib.k3m_attention_bwd, lib.k3m_biattention_fwd):

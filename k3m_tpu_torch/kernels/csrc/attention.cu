@@ -24,21 +24,28 @@ __global__ void __launch_bounds__(k3m::kAttnThreads) attn_fwd_kernel(k3m::AttnAr
   k3m::attn_tile<T, D>(a, blockIdx.z, blockIdx.y, blockIdx.x * k3m::kBQ, s);
 }
 
-template <int D>
-__global__ void __launch_bounds__(k3m::kMmaThreads) attn_fwd_mma_kernel(k3m::AttnArgs a) {
+template <int D, bool kDrop>
+__global__ void __launch_bounds__(k3m::kMmaThreads, k3m::fwd_min_blocks<D>())
+attn_fwd_mma_kernel(k3m::AttnArgs a) {
   __shared__ k3m::MmaSmem<D> s;
-  k3m::attn_tile_mma<D>(a, blockIdx.z, blockIdx.y, blockIdx.x * k3m::kMmaBQ, s);
+  k3m::attn_tile_mma<D, kDrop>(a, blockIdx.z, blockIdx.y, blockIdx.x * k3m::kMmaBQ, s);
 }
 
-int launch_mma(const k3m::AttnArgs& a, int B, int H, int d, cudaStream_t stream) {
+template <bool kDrop>
+int launch_mma_drop(const k3m::AttnArgs& a, int B, int H, int d, cudaStream_t stream) {
   const dim3 grid((a.lq + k3m::kMmaBQ - 1) / k3m::kMmaBQ, H, B);
   switch (d) {
-    case 64: attn_fwd_mma_kernel<64><<<grid, k3m::kMmaThreads, 0, stream>>>(a); break;
-    case 96: attn_fwd_mma_kernel<96><<<grid, k3m::kMmaThreads, 0, stream>>>(a); break;
-    case 128: attn_fwd_mma_kernel<128><<<grid, k3m::kMmaThreads, 0, stream>>>(a); break;
+    case 64: attn_fwd_mma_kernel<64, kDrop><<<grid, k3m::kMmaThreads, 0, stream>>>(a); break;
+    case 96: attn_fwd_mma_kernel<96, kDrop><<<grid, k3m::kMmaThreads, 0, stream>>>(a); break;
+    case 128: attn_fwd_mma_kernel<128, kDrop><<<grid, k3m::kMmaThreads, 0, stream>>>(a); break;
     default: return cudaErrorInvalidValue;
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+int launch_mma(const k3m::AttnArgs& a, int B, int H, int d, cudaStream_t stream) {
+  return a.keep_min ? launch_mma_drop<true>(a, B, H, d, stream)
+                    : launch_mma_drop<false>(a, B, H, d, stream);
 }
 
 template <typename T>
@@ -56,19 +63,25 @@ int launch(const k3m::AttnArgs& a, int B, int H, int d, cudaStream_t stream) {
 }  // namespace
 
 // strides: [q_b, q_l, q_h, k_b, k_l, k_h, v_b, v_l, v_h, o_b, o_l, o_h, bias_b]
-// in elements. Returns cudaGetLastError() after the launch (0 on success).
+// in elements. `lse`: null, or fp32 [B, H, Lq] for each row's log-sum-exp;
+// `keep_words`: null, or uint32 [B, H, Lq, ceil(Lk / 32)] for the dropout
+// mask, one bit per element (both the backward's inputs). Returns
+// cudaGetLastError() after the launch (0 on success).
 // Dropout: keep iff (philox bits >> 8) >= keep_min (0: no dropout), kept
 // probabilities scaled by keep_scale; see philox.cuh.
 extern "C" int k3m_attention_fwd(const void* q, const void* k, const void* v,
-                                 const float* bias, void* out, int dtype, int B,
+                                 const float* bias, void* out, float* lse,
+                                 uint32_t* keep_words, int dtype, int B,
                                  int H, int lq, int lk, int d,
                                  const long long* strides, float scale,
                                  unsigned seed, unsigned keep_min, float keep_scale,
                                  void* stream_ptr) {
   if (B <= 0 || H <= 0 || lq <= 0 || lk <= 0 || B > 65535 || H > 65535)
     return cudaErrorInvalidValue;
-  const k3m::AttnArgs a = k3m::make_args(q, k, v, bias, out, strides, lq, lk, H, scale,
-                                         seed, keep_min, keep_scale);
+  k3m::AttnArgs a = k3m::make_args(q, k, v, bias, out, strides, lq, lk, H, scale,
+                                   seed, keep_min, keep_scale);
+  a.lse = lse;
+  a.keep_words = keep_words;
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   if (dtype == k3m::kF32) return launch<float>(a, B, H, d, stream);
   if (!k3m::mma_aligned(a)) return cudaErrorInvalidValue;

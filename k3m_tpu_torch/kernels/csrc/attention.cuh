@@ -21,6 +21,14 @@
 // undropped probabilities, the P V product the dropped ones (Philox mask of
 // philox.cuh), and the output is scaled by keep_scale / l at the end, which
 // is softmax, then `probs * keep / (1 - rate)`, then the product with V.
+// A key tile is one 32-bit mask word per row: lane c draws keys 4c..4c+3
+// with one Philox call, the row's 8 lanes OR their nibbles together, and
+// where `keep_words` is given lane 0 stores the word for the backward.
+//
+// Where the backward will need it (a non-null `lse`), the tile also writes
+// each row's fp32 log-sum-exp m + log l of the scaled, biased scores
+// ([B, H, Lq]), from the statistics it already keeps: the backward then
+// rebuilds P = exp(S - lse) in one pass. The serving path passes null.
 #pragma once
 
 #include <math.h>
@@ -52,6 +60,8 @@ struct AttnArgs {
   uint32_t seed;      // Philox key word 0: the call's seed plus the salt
   uint32_t keep_min;  // keep iff (bits >> 8) >= keep_min; 0 = no dropout
   float keep_scale;   // 1 / (1 - rate)
+  float* lse;         // [B, H, Lq] row log-sum-exp out, or null
+  uint32_t* keep_words;  // [B, H, Lq, ceil(Lk / 32)] dropout mask out, or null
 };
 
 template <int D>
@@ -67,10 +77,13 @@ template <typename T, int D>
 __device__ __forceinline__ void attn_tile(const AttnArgs& a, int b, int h, int q0,
                                           AttnSmem<D>& s) {
   static_assert(D % kRowLanes == 0, "head dim must be a multiple of 8");
+  static_assert(kBK == 32 && 4 * kRowLanes == kBK, "a key tile is one mask word per row");
   constexpr int kCols = D / kRowLanes;
   const int tid = threadIdx.x;
   const int r = tid / kRowLanes;
   const int c = tid % kRowLanes;
+  const long long row = (static_cast<long long>(b) * a.heads + h) * a.lq + q0 + r;
+  const int nwords = (a.lk + 31) / 32;
   const T* q = static_cast<const T*>(a.q) + b * a.q_sb + h * a.q_sh;
   const T* k = static_cast<const T*>(a.k) + b * a.k_sb + h * a.k_sh;
   const T* v = static_cast<const T*>(a.v) + b * a.v_sb + h * a.v_sh;
@@ -115,12 +128,20 @@ __device__ __forceinline__ void attn_tile(const AttnArgs& a, int b, int h, int q
     // every tile holds at least one real key, so m_new is finite
     const float m_new = fmaxf(m, tmax);
     const float alpha = expf(m - m_new);
+    uint32_t kw = 0;   // bit j keeps key k0 + j
+    if (a.keep_min) {
+      kw = keep_bits4(a.seed, b * a.heads + h, q0 + r, k0 + 4 * c, a.keep_min) << (4 * c);
+#pragma unroll
+      for (int off = 1; off < kRowLanes; off <<= 1) kw |= __shfl_xor_sync(0xffffffffu, kw, off);
+      if (a.keep_words != nullptr && c == 0 && q0 + r < a.lq)
+        a.keep_words[row * nwords + k0 / 32] = kw;
+    }
     float tsum = 0.f;
 #pragma unroll
     for (int i = 0; i < kScoresPerLane; ++i) {
       const float p = expf(sc[i] - m_new);
       const int j = c + kRowLanes * i;
-      s.p[r][j] = a.keep_min ? p * keep(a.seed, b * a.heads + h, q0 + r, k0 + j, a.keep_min) : p;
+      s.p[r][j] = a.keep_min ? p * static_cast<float>((kw >> j) & 1u) : p;
       tsum += p;
     }
 #pragma unroll
@@ -146,6 +167,7 @@ __device__ __forceinline__ void attn_tile(const AttnArgs& a, int b, int h, int q
     const float inv = (a.keep_min ? a.keep_scale : 1.f) / l;
 #pragma unroll
     for (int i = 0; i < kCols; ++i) o[c + kRowLanes * i] = from_f32<T>(acc[i] * inv);
+    if (a.lse != nullptr && c == 0) a.lse[row] = m + logf(l);
   }
 }
 
@@ -164,6 +186,8 @@ inline AttnArgs make_args(const void* q, const void* k, const void* v,
   a.bias_sb = st[12];
   a.lq = lq; a.lk = lk; a.heads = heads; a.scale = scale;
   a.seed = seed; a.keep_min = keep_min; a.keep_scale = keep_scale;
+  a.lse = nullptr;
+  a.keep_words = nullptr;
   return a;
 }
 

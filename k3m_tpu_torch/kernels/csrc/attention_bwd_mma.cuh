@@ -2,96 +2,165 @@
 // The fp32 backward keeps the scalar kernels of attention_bwd.cu.
 //
 // Same split and formulas as the scalar kernels, with every product on
-// mma.sync.m16n8k16 (bf16 in, fp32 accumulate; fragment helpers of
-// attention_mma.cuh). A warp owns 16 rows of its kernel's M dimension:
-//   dQ kernel, one CTA per 64 query rows, key tiles of 32 in shared memory
-//     pass 1  S = Q K^T                 -> row max, sum -> lse
-//     pass 2  S, dP = dO V^T            -> D_i = rowsum(P * dP * f)
-//     pass 3  S, dP, dS = P (dP f - D_i) -> dQ += dS K      (dS rounded to bf16)
-//   dK/dV kernel, one CTA per 64 keys, query tiles of 32 in shared memory
+// mma.sync.m16n8k16 (bf16 in, fp32 accumulate). A CTA is 4 warps, and a
+// warp owns 16 rows of its kernel's M dimension:
+//   dQ kernel, one CTA per 64 query rows, one pass over key tiles of BK;
+//     prologue  D'_i = rowsum(dO * O) from the forward's bf16 output
+//     per tile  S = Q K^T, P = exp(S - lse) (lse from the forward),
+//               dP = dO V^T, dS' = P (dP f - D'_i),
+//               dQ' += dS' K, A += P K, D_i += rowsum(P * dP * f)
+//     end       dQ = dQ' - (D_i - D'_i) A
+//   dK/dV kernel, one CTA per 64 keys, query tiles of BQ
 //     S^T = K Q^T, P^T = exp(S^T - lse), dP^T = V dO^T,
 //     dV += (P^T f) dO, dK += dS^T Q                          (P~, dS rounded to bf16)
-// where f is the dropout factor keep / (1 - rate) of philox.cuh. Q, dO (dQ
-// kernel) and K, V (dK/dV kernel) stay in registers as A fragments; the
-// other operand's tile is stored row-major ([row][d], for products over d)
-// and transposed ([d][row], for products over the rows) in shared memory.
-// The statistics and all sums are fp32; lse and D_i go through device
-// memory [B, H, Lq] from the first kernel to the second. No atomics.
+// where f is the dropout factor keep / (1 - rate) of philox.cuh. 8 products
+// a call. dQ is exact algebra: dS = P (dP f - D_i) = dS' - (D_i - D'_i) P.
+// D'_i alone would leave the bf16 rounding of O, 2^-9 of |dP|, in dS where
+// dS cancels exactly (a row of one key: P = 1, dS = 0); with the fp32 D_i
+// summed in the same pass it enters only through the bf16 roundings of dS'
+// and A, at 2^-9 of 2^-9. The dK/dV kernel reads the exact D_i.
+// Neither kernel draws the mask: both read the words the forward kernel
+// stored, one bit per element (philox.cuh, store_keep_words).
+//
+// Tiles: each operand is one row-major [row][d] tile in shared memory, its
+// rows padded by 16 bytes so that the 8 rows an ldmatrix reads fall in 8
+// distinct bank groups. A fragments and the B fragments of the products
+// over d come from ldmatrix, those of the products over the rows (dQ += dS K,
+// A += P K, dV += P~^T dO, dK += dS^T Q) from ldmatrix.trans of the same
+// tile, so nothing is stored twice. Each CTA keeps its own 64 rows (Q, dO
+// and O, or K and V) in shared memory, and the streamed tiles (K, V, the key
+// bias; or Q, dO, lse, D_i, the keep words) go through a two-stage cp.async
+// ring: the next tile loads while the current one computes, and no thread
+// waits on a load of its own. BK = BQ = 64 at D 64 and 32 at D 96/128.
+// The sums are fp32; D_i goes through device memory [B, H, Lq] from the
+// first kernel to the second. No atomics.
 #pragma once
 
 #include "attention_mma.cuh"
 
 namespace k3m {
 
-constexpr int kBwdBK = 32;   // keys per shared tile (dQ kernel)
-constexpr int kBwdBQ = 32;   // queries per shared tile (dK/dV kernel)
+struct BwdArgs {
+  AttnArgs f;           // q, k, v, bias; f.out and its strides are dO
+  const void* o;        // the forward's output [B, Lq, H, D] (strided)
+  long long o_sb, o_sl, o_sh;
+  const float* lse;     // [B, H, Lq] from the forward
+  float* delta;         // [B, H, Lq] scratch: D_i, written by the dQ kernel
+  const uint32_t* keep_words;  // [B, H, Lq, ceil(Lk / 32)] under dropout, from the
+                               // forward: bit k % 32 of word k / 32 keeps (q, k)
+  void* dq;             // contiguous [B, Lq, H, D]
+  void* dk;             // contiguous [B, Lk, H, D]
+  void* dv;
+};
+
+constexpr float kLog2e = 1.4426950408889634f;
+
+// rows of the streamed tiles: 64 where the registers allow, else 32
+template <int D>
+constexpr int bwd_tile() { return D <= 64 ? 64 : 32; }
 
 template <int D>
 struct DqMmaSmem {
-  __nv_bfloat16 k[kBwdBK][D + kPad];    // [key][d]: B operand of S = Q K^T
-  __nv_bfloat16 v[kBwdBK][D + kPad];    // [key][d]: B operand of dP = dO V^T
-  __nv_bfloat16 kt[D][kBwdBK + kPad];   // [d][key]: B operand of dQ = dS K
-  float bias[kBwdBK];
+  static constexpr int BK = bwd_tile<D>();
+  __nv_bfloat16 q[kMmaBQ][D + kPad];
+  __nv_bfloat16 dout[kMmaBQ][D + kPad];
+  __nv_bfloat16 o[kMmaBQ][D + kPad];    // the forward's output, for D'_i
+  __nv_bfloat16 k[2][BK][D + kPad];
+  __nv_bfloat16 v[2][BK][D + kPad];
+  float bias[2][BK];
+  uint32_t keep[2][kMmaBQ][BK / 32];   // keep words of the tile's keys, per query row
 };
 
 template <int D>
 struct DkvMmaSmem {
-  __nv_bfloat16 q[kBwdBQ][D + kPad];    // [q][d]: B operand of S^T = K Q^T
-  __nv_bfloat16 dout[kBwdBQ][D + kPad]; // [q][d]: B operand of dP^T = V dO^T
-  __nv_bfloat16 qt[D][kBwdBQ + kPad];   // [d][q]: B operand of dK = dS^T Q
-  __nv_bfloat16 dot[D][kBwdBQ + kPad];  // [d][q]: B operand of dV = P~^T dO
-  float lse[kBwdBQ];
-  float delta[kBwdBQ];
+  static constexpr int BQ = bwd_tile<D>();
+  __nv_bfloat16 k[kMmaBQ][D + kPad];
+  __nv_bfloat16 v[kMmaBQ][D + kPad];
+  __nv_bfloat16 q[2][BQ][D + kPad];
+  __nv_bfloat16 dout[2][BQ][D + kPad];
+  float lse[2][BQ];
+  float delta[2][BQ];
+  uint32_t keep[2][BQ][2];    // keep words of the CTA's 64 keys, per query
 };
 
-// rows [r0, r0 + ROWS) of a [L, D] bf16 operand into `rowmajor` [row][d]
-// and, if given, `transposed` [d][row]; zeros past `n`. 16-byte loads.
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared, asynchronous; zeros where !valid (src not read)
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)),
+               "l"(src), "r"(valid ? 16 : 0));
+}
+
+// 4 bytes global -> shared, asynchronous; zero where !valid
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_u32(dst)),
+               "l"(src), "r"(valid ? 4 : 0));
+}
+
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// four 8x8 b16 matrices; lane l gives a row address of matrix l / 8
+__device__ __forceinline__ void ldsm4(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p)));
+}
+
+__device__ __forceinline__ void ldsm4_t(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p)));
+}
+
+// rows [r0, r0 + ROWS) of a [L, D] bf16 operand into `dst` [row][d] with
+// cp.async (not yet committed); zeros past `n`
 template <int ROWS, int D>
-__device__ __forceinline__ void load_tile_bf16(__nv_bfloat16 (*rowmajor)[D + kPad],
-                                               __nv_bfloat16 (*transposed)[ROWS + kPad],
-                                               const __nv_bfloat16* base, long long sl,
-                                               int r0, int n) {
+__device__ __forceinline__ void cp_tile(__nv_bfloat16 (*dst)[D + kPad], const __nv_bfloat16* base,
+                                        long long sl, int r0, int n) {
   constexpr int kVecs = D / 8;
   for (int idx = threadIdx.x; idx < ROWS * kVecs; idx += kMmaThreads) {
-    const int j = idx % ROWS, d = (idx / ROWS) * 8, r = r0 + j;
-    uint4 w = make_uint4(0u, 0u, 0u, 0u);
-    if (r < n) w = *reinterpret_cast<const uint4*>(base + r * sl + d);
-    if (rowmajor != nullptr) *reinterpret_cast<uint4*>(&rowmajor[j][d]) = w;
-    if (transposed != nullptr) {
-      const __nv_bfloat16* e = reinterpret_cast<const __nv_bfloat16*>(&w);
-#pragma unroll
-      for (int i = 0; i < 8; ++i) transposed[d + i][j] = e[i];
-    }
+    const int j = idx / kVecs, d = (idx % kVecs) * 8, r = r0 + j;
+    const bool ok = r < n;
+    cp_async16(&dst[j][d], base + (ok ? r : 0) * sl + d, ok);
   }
 }
 
-// A fragments of rows r0 (and r0 + 8) of a [L, D] bf16 operand, zeros past n
-template <int D>
-__device__ __forceinline__ void load_a_frags(uint32_t (&fa)[D / 16][4],
-                                             const __nv_bfloat16* base, long long sl,
-                                             int r0, int n, int t) {
-  const int r1 = r0 + 8;
+// elements [i0, i0 + N) of an fp32 row into `dst` with cp.async (not yet
+// committed); zeros past `n`
+template <int N>
+__device__ __forceinline__ void cp_row(float* dst, const float* src, int i0, int n) {
+  for (int i = threadIdx.x; i < N; i += kMmaThreads) {
+    const bool ok = i0 + i < n;
+    cp_async4(dst + i, src + (ok ? i0 + i : 0), ok);
+  }
+}
+
+// acc[NB][4] = A (16 rows [a0, a0 + 16) of `at` [row][d]) times B,
+// B[d][n] = bt[n][d] for the NB * 8 rows of `bt`: a product over d
+// (S = Q K^T, dP = dO V^T, S^T = K Q^T, dP^T = V dO^T)
+template <int D, int NB>
+__device__ __forceinline__ void mma_over_d(float (&acc)[NB][4], const __nv_bfloat16 (*at)[D + kPad],
+                                           int a0, const __nv_bfloat16 (*bt)[D + kPad], int lane) {
+  const int row = (lane & 7) + ((lane >> 4) << 3), col = ((lane >> 3) & 1) * 8;
+#pragma unroll
+  for (int nb = 0; nb < NB; ++nb) acc[nb][0] = acc[nb][1] = acc[nb][2] = acc[nb][3] = 0.f;
 #pragma unroll
   for (int kk = 0; kk < D / 16; ++kk) {
-    const int c = kk * 16 + 2 * t;
-    fa[kk][0] = r0 < n ? ld32(base + r0 * sl + c) : 0u;
-    fa[kk][1] = r1 < n ? ld32(base + r1 * sl + c) : 0u;
-    fa[kk][2] = r0 < n ? ld32(base + r0 * sl + c + 8) : 0u;
-    fa[kk][3] = r1 < n ? ld32(base + r1 * sl + c + 8) : 0u;
-  }
-}
-
-// acc[NB][4] += A (16 x D, fragments fa) times the rows of `bt` ([NB*8][D])
-template <int D, int NB>
-__device__ __forceinline__ void mma_rows(float (&acc)[NB][4], const uint32_t (&fa)[D / 16][4],
-                                         const __nv_bfloat16 (*bt)[D + kPad], int g, int t) {
+    uint32_t fa[4];
+    ldsm4(fa, &at[a0 + (lane & 15)][kk * 16 + (lane >> 4) * 8]);
 #pragma unroll
-  for (int nb = 0; nb < NB; ++nb) {
-    acc[nb][0] = acc[nb][1] = acc[nb][2] = acc[nb][3] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      const __nv_bfloat16* p = &bt[nb * 8 + g][kk * 16 + 2 * t];
-      mma_bf16(acc[nb], fa[kk], ld32(p), ld32(p + 8));
+    for (int np = 0; np < NB / 2; ++np) {
+      uint32_t b[4];
+      ldsm4(b, &bt[np * 16 + row][kk * 16 + col]);
+      mma_bf16(acc[2 * np], fa, b[0], b[1]);
+      mma_bf16(acc[2 * np + 1], fa, b[2], b[3]);
     }
   }
 }
@@ -106,200 +175,228 @@ __device__ __forceinline__ void to_a_frags(uint32_t (&fa)[NB / 2][4], const floa
   }
 }
 
-// acc[D/8][4] += A (16 x 8*NB, fragments fa) times bt^T, bt = [D][8*NB] rows
-template <int D, int NB, int W>
-__device__ __forceinline__ void mma_cols(float (&acc)[D / 8][4], const uint32_t (&fa)[NB / 2][4],
-                                         const __nv_bfloat16 (*bt)[W + kPad], int g, int t) {
+// acc[D/8][4] += A (16 x 8*NB, fragments fa) times the rows of `bt`
+// ([8*NB][D] row-major: B[row][d], a product over the rows), B fragments
+// from ldmatrix.trans
+template <int D, int NB>
+__device__ __forceinline__ void mma_over_rows(float (&acc)[D / 8][4],
+                                              const uint32_t (&fa)[NB / 2][4],
+                                              const __nv_bfloat16 (*bt)[D + kPad], int lane) {
+  const int row = (lane & 7) + ((lane >> 3) & 1) * 8, col = (lane >> 4) * 8;
 #pragma unroll
   for (int kk = 0; kk < NB / 2; ++kk) {
 #pragma unroll
-    for (int db = 0; db < D / 8; ++db) {
-      const __nv_bfloat16* p = &bt[db * 8 + g][kk * 16 + 2 * t];
-      mma_bf16(acc[db], fa[kk], ld32(p), ld32(p + 8));
+    for (int dp = 0; dp < D / 16; ++dp) {
+      uint32_t b[4];
+      ldsm4_t(b, &bt[kk * 16 + row][dp * 16 + col]);
+      mma_bf16(acc[2 * dp], fa[kk], b[0], b[1]);
+      mma_bf16(acc[2 * dp + 1], fa[kk], b[2], b[3]);
     }
   }
 }
 
-// dropout factor of element (q, k) (1 without dropout)
-__device__ __forceinline__ float mma_drop(const AttnArgs& a, uint32_t bh, int q, int k) {
-  if (!a.keep_min) return 1.f;
-  return keep(a.seed, bh, q, k, a.keep_min) * a.keep_scale;
+// the dropout factors of the four C-layout elements whose keep bits are `bits`
+__device__ __forceinline__ void drop_factors(float (&f)[4], uint32_t bits, float keep_scale) {
+#pragma unroll
+  for (int e = 0; e < 4; ++e) f[e] = (bits >> e) & 1u ? keep_scale : 0.f;
 }
 
-// dQ kernel body: 64 query rows at q0 of head (b, h). dout is a.out.
+__device__ __forceinline__ float2 bf16x2_to_f2(uint32_t x) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&x));
+}
+
+// rowsum(x * y) of rows r and r + 8 of two shared [row][d] bf16 tiles in
+// fp32, each thread reading the columns of its A-fragment positions; the 4
+// lanes of a row add in a fixed order
 template <int D>
-__device__ __forceinline__ void attn_bwd_dq_mma(const AttnArgs& a, int b, int h, int q0,
-                                                __nv_bfloat16* dq, float* lse_out,
-                                                float* delta_out, DqMmaSmem<D>& s) {
-  constexpr int kNB = kBwdBK / 8;    // n-blocks of S per key tile
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int g = lane / 4, t = lane % 4;
-  const uint32_t bh = b * a.heads + h;
-  const __nv_bfloat16* q = static_cast<const __nv_bfloat16*>(a.q) + b * a.q_sb + h * a.q_sh;
-  const __nv_bfloat16* k = static_cast<const __nv_bfloat16*>(a.k) + b * a.k_sb + h * a.k_sh;
-  const __nv_bfloat16* v = static_cast<const __nv_bfloat16*>(a.v) + b * a.v_sb + h * a.v_sh;
-  const __nv_bfloat16* dout = static_cast<const __nv_bfloat16*>(a.out) + b * a.o_sb + h * a.o_sh;
-  const float* bias = a.bias + b * a.bias_sb;
-  const int r0 = q0 + warp * 16 + g, r1 = r0 + 8;
-
-  uint32_t qa[D / 16][4], da[D / 16][4];
-  load_a_frags<D>(qa, q, a.q_sl, r0, a.lq, t);
-  load_a_frags<D>(da, dout, a.o_sl, r0, a.lq, t);
-
-  auto load = [&](int k0, bool with_v) {
-    __syncthreads();   // the previous tile is consumed
-    load_tile_bf16<kBwdBK, D>(s.k, with_v ? s.kt : nullptr, k, a.k_sl, k0, a.lk);
-    if (with_v) load_tile_bf16<kBwdBK, D>(s.v, nullptr, v, a.v_sl, k0, a.lk);
-    if (tid < kBwdBK) s.bias[tid] = k0 + tid < a.lk ? bias[k0 + tid] : -INFINITY;
-    __syncthreads();
-  };
-  // S of this tile, scaled and biased (-inf past Lk)
-  auto scores = [&](float (&sc)[kNB][4]) {
-    mma_rows<D, kNB>(sc, qa, s.k, g, t);
+__device__ __forceinline__ void row_dot(float& d0, float& d1, const __nv_bfloat16 (*x)[D + kPad],
+                                        const __nv_bfloat16 (*y)[D + kPad], int r, int t) {
+  d0 = d1 = 0.f;
 #pragma unroll
-    for (int nb = 0; nb < kNB; ++nb) {
-      const int c = nb * 8 + 2 * t;
-      sc[nb][0] = sc[nb][0] * a.scale + s.bias[c];
-      sc[nb][1] = sc[nb][1] * a.scale + s.bias[c + 1];
-      sc[nb][2] = sc[nb][2] * a.scale + s.bias[c];
-      sc[nb][3] = sc[nb][3] * a.scale + s.bias[c + 1];
-    }
-  };
-
-  // pass 1: lse (every tile holds a real key, so the maxima stay finite)
-  float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;
-  for (int k0 = 0; k0 < a.lk; k0 += kBwdBK) {
-    load(k0, false);
-    float sc[kNB][4];
-    scores(sc);
-    float t0 = -INFINITY, t1 = -INFINITY;
+  for (int kk = 0; kk < D / 16; ++kk) {
 #pragma unroll
-    for (int nb = 0; nb < kNB; ++nb) {
-      t0 = fmaxf(t0, fmaxf(sc[nb][0], sc[nb][1]));
-      t1 = fmaxf(t1, fmaxf(sc[nb][2], sc[nb][3]));
-    }
-#pragma unroll
-    for (int off = 1; off < 4; off <<= 1) {
-      t0 = fmaxf(t0, __shfl_xor_sync(0xffffffffu, t0, off));
-      t1 = fmaxf(t1, __shfl_xor_sync(0xffffffffu, t1, off));
-    }
-    const float mn0 = fmaxf(m0, t0), mn1 = fmaxf(m1, t1);
-    float s0 = 0.f, s1 = 0.f;
-#pragma unroll
-    for (int nb = 0; nb < kNB; ++nb) {
-      s0 += expf(sc[nb][0] - mn0) + expf(sc[nb][1] - mn0);
-      s1 += expf(sc[nb][2] - mn1) + expf(sc[nb][3] - mn1);
-    }
-#pragma unroll
-    for (int off = 1; off < 4; off <<= 1) {
-      s0 += __shfl_xor_sync(0xffffffffu, s0, off);
-      s1 += __shfl_xor_sync(0xffffffffu, s1, off);
-    }
-    l0 = l0 * expf(m0 - mn0) + s0;
-    l1 = l1 * expf(m1 - mn1) + s1;
-    m0 = mn0;
-    m1 = mn1;
-  }
-  const float lse0 = m0 + logf(l0), lse1 = m1 + logf(l1);
-
-  // probabilities P and dP f of this tile (dP = dO V^T times the dropout factor)
-  auto probs_dp = [&](int k0, float (&p)[kNB][4], float (&dp)[kNB][4]) {
-    scores(p);
-    mma_rows<D, kNB>(dp, da, s.v, g, t);
-#pragma unroll
-    for (int nb = 0; nb < kNB; ++nb) {
-      const int c = k0 + nb * 8 + 2 * t;
-      p[nb][0] = expf(p[nb][0] - lse0);
-      p[nb][1] = expf(p[nb][1] - lse0);
-      p[nb][2] = expf(p[nb][2] - lse1);
-      p[nb][3] = expf(p[nb][3] - lse1);
-      dp[nb][0] *= mma_drop(a, bh, r0, c);
-      dp[nb][1] *= mma_drop(a, bh, r0, c + 1);
-      dp[nb][2] *= mma_drop(a, bh, r1, c);
-      dp[nb][3] *= mma_drop(a, bh, r1, c + 1);
-    }
-  };
-
-  // pass 2: D_i = rowsum(P * dP f)
-  float dl0 = 0.f, dl1 = 0.f;
-  for (int k0 = 0; k0 < a.lk; k0 += kBwdBK) {
-    load(k0, true);
-    float p[kNB][4], dp[kNB][4];
-    probs_dp(k0, p, dp);
-#pragma unroll
-    for (int nb = 0; nb < kNB; ++nb) {
-      dl0 += p[nb][0] * dp[nb][0] + p[nb][1] * dp[nb][1];
-      dl1 += p[nb][2] * dp[nb][2] + p[nb][3] * dp[nb][3];
+    for (int e = 0; e < 4; ++e) {
+      const int rr = r + (e & 1) * 8, c = kk * 16 + 2 * t + (e >> 1) * 8;
+      const float2 u = bf16x2_to_f2(ld32(&x[rr][c])), w = bf16x2_to_f2(ld32(&y[rr][c]));
+      (e & 1 ? d1 : d0) += u.x * w.x + u.y * w.y;
     }
   }
 #pragma unroll
   for (int off = 1; off < 4; off <<= 1) {
-    dl0 += __shfl_xor_sync(0xffffffffu, dl0, off);
-    dl1 += __shfl_xor_sync(0xffffffffu, dl1, off);
+    d0 += __shfl_xor_sync(0xffffffffu, d0, off);
+    d1 += __shfl_xor_sync(0xffffffffu, d1, off);
   }
+}
 
-  // pass 3: dS = P (dP f - D_i), dQ += dS K
-  float acc[D / 8][4];
+// dQ kernel body: 64 query rows at q0 of head (b, h).
+template <int D>
+__device__ __forceinline__ void attn_bwd_dq_mma(const BwdArgs& g, int b, int h, int q0,
+                                                DqMmaSmem<D>& s) {
+  constexpr int BK = DqMmaSmem<D>::BK;
+  constexpr int kNB = BK / 8;        // n-blocks of S per key tile
+  const AttnArgs& a = g.f;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int gr = lane / 4, t = lane % 4;
+  const __nv_bfloat16* q = static_cast<const __nv_bfloat16*>(a.q) + b * a.q_sb + h * a.q_sh;
+  const __nv_bfloat16* k = static_cast<const __nv_bfloat16*>(a.k) + b * a.k_sb + h * a.k_sh;
+  const __nv_bfloat16* v = static_cast<const __nv_bfloat16*>(a.v) + b * a.v_sb + h * a.v_sh;
+  const __nv_bfloat16* dout = static_cast<const __nv_bfloat16*>(a.out) + b * a.o_sb + h * a.o_sh;
+  const __nv_bfloat16* o = static_cast<const __nv_bfloat16*>(g.o) + b * g.o_sb + h * g.o_sh;
+  const float* bias = a.bias + b * a.bias_sb;
+  const int r0 = q0 + warp * 16 + gr, r1 = r0 + 8;
+  const long long row_base = (static_cast<long long>(b) * a.heads + h) * a.lq;
+  const int tiles = (a.lk + BK - 1) / BK;
+
+  const int nwords = (a.lk + 31) / 32;
+  // stage st <- key tile at k0: K, V, the key bias and the keep words of
+  // this CTA's rows
+  auto issue = [&](int st, int k0) {
+    cp_tile<BK, D>(s.k[st], k, a.k_sl, k0, a.lk);
+    cp_tile<BK, D>(s.v[st], v, a.v_sl, k0, a.lk);
+    cp_row<BK>(s.bias[st], bias, k0, a.lk);
+    if (a.keep_min) {
+      for (int i = tid; i < kMmaBQ * (BK / 32); i += kMmaThreads) {
+        const int qi = q0 + i / (BK / 32), word = k0 / 32 + i % (BK / 32);
+        const bool ok = qi < a.lq && word < nwords;
+        cp_async4(&s.keep[st][i / (BK / 32)][i % (BK / 32)],
+                  g.keep_words + (ok ? (row_base + qi) * nwords + word : 0), ok);
+      }
+    }
+    cp_async_commit();
+  };
+  cp_tile<kMmaBQ, D>(s.q, q, a.q_sl, q0, a.lq);   // committed with stage 0
+  cp_tile<kMmaBQ, D>(s.dout, dout, a.o_sl, q0, a.lq);
+  cp_tile<kMmaBQ, D>(s.o, o, g.o_sl, q0, a.lq);
+  issue(0, 0);
+
+  float da0 = 0.f, da1 = 0.f;        // D'_i of rows r0, r1 (zero rows past Lq)
+  // log2-domain lse; rows past Lq: +inf gives P = 0
+  const float lse0 = r0 < a.lq ? g.lse[row_base + r0] * kLog2e : INFINITY;
+  const float lse1 = r1 < a.lq ? g.lse[row_base + r1] * kLog2e : INFINITY;
+  const float scale2 = a.scale * kLog2e;
+
+  float dt0 = 0.f, dt1 = 0.f;        // D_i of rows r0, r1 (this lane's keys)
+  float acc[D / 8][4], pk[D / 8][4];  // dQ' and A = P K
 #pragma unroll
-  for (int i = 0; i < D / 8; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
-  for (int k0 = 0; k0 < a.lk; k0 += kBwdBK) {
-    load(k0, true);
+  for (int i = 0; i < D / 8; ++i) {
+    acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
+    pk[i][0] = pk[i][1] = pk[i][2] = pk[i][3] = 0.f;
+  }
+  for (int it = 0; it < tiles; ++it) {
+    const int st = it & 1, k0 = it * BK;
+    if (it + 1 < tiles) {
+      issue(st ^ 1, k0 + BK);   // that stage was consumed before the last barrier
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    if (it == 0) row_dot<D>(da0, da1, s.dout, s.o, warp * 16 + gr, t);
+
     float p[kNB][4], dp[kNB][4];
-    probs_dp(k0, p, dp);
+    mma_over_d<D, kNB>(p, s.q, warp * 16, s.k[st], lane);      // S = Q K^T
+    mma_over_d<D, kNB>(dp, s.dout, warp * 16, s.v[st], lane);  // dP = dO V^T
+    const bool ragged = k0 + BK > a.lk;
 #pragma unroll
     for (int nb = 0; nb < kNB; ++nb) {
-      p[nb][0] *= dp[nb][0] - dl0;
-      p[nb][1] *= dp[nb][1] - dl0;
-      p[nb][2] *= dp[nb][2] - dl1;
-      p[nb][3] *= dp[nb][3] - dl1;
+      float f[4] = {1.f, 1.f, 1.f, 1.f};
+      if (a.keep_min) {
+        // keys c, c + 1 of rows r0, r1: bits c % 32, c % 32 + 1 of word c / 32
+        const int c = nb * 8 + 2 * t, w = c / 32, sh = c % 32;
+        const uint32_t w0 = s.keep[st][warp * 16 + gr][w] >> sh;
+        const uint32_t w1 = s.keep[st][warp * 16 + gr + 8][w] >> sh;
+        drop_factors(f, (w0 & 3u) | (w1 & 3u) << 2, a.keep_scale);
+      }
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int c = nb * 8 + 2 * t + (e & 1);
+        float pe = exp2f(fmaf(p[nb][e], scale2,
+                              fmaf(s.bias[st][c], kLog2e, -(e < 2 ? lse0 : lse1))));
+        if (ragged && k0 + c >= a.lk) pe = 0.f;   // past Lk
+        const float dpf = dp[nb][e] * f[e];
+        if (e < 2) dt0 += pe * dpf; else dt1 += pe * dpf;
+        dp[nb][e] = pe * (dpf - (e < 2 ? da0 : da1));   // dS'
+        p[nb][e] = pe;
+      }
     }
-    uint32_t dsa[kNB / 2][4];
-    to_a_frags<kNB>(dsa, p);
-    mma_cols<D, kNB, kBwdBK>(acc, dsa, s.kt, g, t);
+    uint32_t dsa[kNB / 2][4], pa[kNB / 2][4];
+    to_a_frags<kNB>(dsa, dp);
+    to_a_frags<kNB>(pa, p);
+    mma_over_rows<D, kNB>(acc, dsa, s.k[st], lane);   // dQ' += dS' K
+    mma_over_rows<D, kNB>(pk, pa, s.k[st], lane);     // A += P K
+    __syncthreads();   // stage st is consumed
   }
 
-  __nv_bfloat16* o = dq + (static_cast<long long>(b) * a.lq * a.heads + h) * D;
+  // D_i: the 4 lanes of a row add in a fixed order
+#pragma unroll
+  for (int off = 1; off < 4; off <<= 1) {
+    dt0 += __shfl_xor_sync(0xffffffffu, dt0, off);
+    dt1 += __shfl_xor_sync(0xffffffffu, dt1, off);
+  }
+  if (t == 0) {
+    if (r0 < a.lq) g.delta[row_base + r0] = dt0;
+    if (r1 < a.lq) g.delta[row_base + r1] = dt1;
+  }
+  const float c0 = dt0 - da0, c1 = dt1 - da1;
+  __nv_bfloat16* dq = static_cast<__nv_bfloat16*>(g.dq) +
+                      (static_cast<long long>(b) * a.lq * a.heads + h) * D;
   const long long row_stride = static_cast<long long>(a.heads) * D;
 #pragma unroll
   for (int db = 0; db < D / 8; ++db) {
     const int c = db * 8 + 2 * t;
     if (r0 < a.lq)
-      *reinterpret_cast<uint32_t*>(o + r0 * row_stride + c) =
-          pack_bf16(acc[db][0] * a.scale, acc[db][1] * a.scale);
+      *reinterpret_cast<uint32_t*>(dq + r0 * row_stride + c) =
+          pack_bf16((acc[db][0] - c0 * pk[db][0]) * a.scale,
+                    (acc[db][1] - c0 * pk[db][1]) * a.scale);
     if (r1 < a.lq)
-      *reinterpret_cast<uint32_t*>(o + r1 * row_stride + c) =
-          pack_bf16(acc[db][2] * a.scale, acc[db][3] * a.scale);
-  }
-  if (t == 0) {
-    const long long base = (static_cast<long long>(b) * a.heads + h) * a.lq;
-    if (r0 < a.lq) { lse_out[base + r0] = lse0; delta_out[base + r0] = dl0; }
-    if (r1 < a.lq) { lse_out[base + r1] = lse1; delta_out[base + r1] = dl1; }
+      *reinterpret_cast<uint32_t*>(dq + r1 * row_stride + c) =
+          pack_bf16((acc[db][2] - c1 * pk[db][2]) * a.scale,
+                    (acc[db][3] - c1 * pk[db][3]) * a.scale);
   }
 }
 
 // dK/dV kernel body: 64 keys at k0 of head (b, h).
 template <int D>
-__device__ __forceinline__ void attn_bwd_dkv_mma(const AttnArgs& a, int b, int h, int k0,
-                                                 __nv_bfloat16* dk, __nv_bfloat16* dv,
-                                                 const float* lse_in, const float* delta_in,
+__device__ __forceinline__ void attn_bwd_dkv_mma(const BwdArgs& g, int b, int h, int k0,
                                                  DkvMmaSmem<D>& s) {
-  constexpr int kNB = kBwdBQ / 8;    // n-blocks of S^T per query tile
+  constexpr int BQ = DkvMmaSmem<D>::BQ;
+  constexpr int kNB = BQ / 8;        // n-blocks of S^T per query tile
+  const AttnArgs& a = g.f;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int g = lane / 4, t = lane % 4;
-  const uint32_t bh = b * a.heads + h;
+  const int gr = lane / 4, t = lane % 4;
   const __nv_bfloat16* q = static_cast<const __nv_bfloat16*>(a.q) + b * a.q_sb + h * a.q_sh;
   const __nv_bfloat16* k = static_cast<const __nv_bfloat16*>(a.k) + b * a.k_sb + h * a.k_sh;
   const __nv_bfloat16* v = static_cast<const __nv_bfloat16*>(a.v) + b * a.v_sb + h * a.v_sh;
   const __nv_bfloat16* dout = static_cast<const __nv_bfloat16*>(a.out) + b * a.o_sb + h * a.o_sh;
-  const float* lse = lse_in + (static_cast<long long>(b) * a.heads + h) * a.lq;
-  const float* delta = delta_in + (static_cast<long long>(b) * a.heads + h) * a.lq;
-  const int j0 = k0 + warp * 16 + g, j1 = j0 + 8;     // this thread's two keys
-  const float kb0 = j0 < a.lk ? a.bias[b * a.bias_sb + j0] : -INFINITY;
-  const float kb1 = j1 < a.lk ? a.bias[b * a.bias_sb + j1] : -INFINITY;
+  const long long row_base = (static_cast<long long>(b) * a.heads + h) * a.lq;
+  const int j0 = k0 + warp * 16 + gr, j1 = j0 + 8;     // this thread's two keys
+  const float kb0 = j0 < a.lk ? a.bias[b * a.bias_sb + j0] * kLog2e : -INFINITY;
+  const float kb1 = j1 < a.lk ? a.bias[b * a.bias_sb + j1] * kLog2e : -INFINITY;
+  const float scale2 = a.scale * kLog2e;
+  const int tiles = (a.lq + BQ - 1) / BQ;
+  const int nwords = (a.lk + 31) / 32;
 
-  uint32_t ka[D / 16][4], va[D / 16][4];
-  load_a_frags<D>(ka, k, a.k_sl, j0, a.lk, t);
-  load_a_frags<D>(va, v, a.v_sl, j0, a.lk, t);
+  // stage st <- query tile at q0: Q, dO, lse, D_i and the keep words of
+  // this CTA's two 32-key groups
+  auto issue = [&](int st, int q0) {
+    cp_tile<BQ, D>(s.q[st], q, a.q_sl, q0, a.lq);
+    cp_tile<BQ, D>(s.dout[st], dout, a.o_sl, q0, a.lq);
+    cp_row<BQ>(s.lse[st], g.lse + row_base, q0, a.lq);
+    cp_row<BQ>(s.delta[st], g.delta + row_base, q0, a.lq);
+    if (a.keep_min) {
+      for (int i = tid; i < 2 * BQ; i += kMmaThreads) {
+        const int qi = q0 + i / 2, word = k0 / 32 + (i & 1);
+        const bool ok = qi < a.lq && word < nwords;
+        cp_async4(&s.keep[st][i / 2][i & 1],
+                  g.keep_words + (ok ? (row_base + qi) * nwords + word : 0), ok);
+      }
+    }
+    cp_async_commit();
+  };
+  cp_tile<kMmaBQ, D>(s.k, k, a.k_sl, k0, a.lk);   // committed with stage 0
+  cp_tile<kMmaBQ, D>(s.v, v, a.v_sl, k0, a.lk);
+  issue(0, 0);
+
   float dka[D / 8][4], dva[D / 8][4];
 #pragma unroll
   for (int i = 0; i < D / 8; ++i) {
@@ -307,39 +404,52 @@ __device__ __forceinline__ void attn_bwd_dkv_mma(const AttnArgs& a, int b, int h
     dva[i][0] = dva[i][1] = dva[i][2] = dva[i][3] = 0.f;
   }
 
-  for (int q0 = 0; q0 < a.lq; q0 += kBwdBQ) {
-    __syncthreads();   // the previous query tile is consumed
-    load_tile_bf16<kBwdBQ, D>(s.q, s.qt, q, a.q_sl, q0, a.lq);
-    load_tile_bf16<kBwdBQ, D>(s.dout, s.dot, dout, a.o_sl, q0, a.lq);
-    if (tid < kBwdBQ) {
-      // queries past Lq: lse +inf gives P = 0, so they add nothing
-      s.lse[tid] = q0 + tid < a.lq ? lse[q0 + tid] : INFINITY;
-      s.delta[tid] = q0 + tid < a.lq ? delta[q0 + tid] : 0.f;
+  for (int it = 0; it < tiles; ++it) {
+    const int st = it & 1, q0 = it * BQ;
+    if (it + 1 < tiles) {
+      issue(st ^ 1, q0 + BQ);   // that stage was consumed before the last barrier
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
     }
     __syncthreads();
 
-    float st[kNB][4], dpt[kNB][4];
-    mma_rows<D, kNB>(st, ka, s.q, g, t);      // S^T = K Q^T   [key][q]
-    mma_rows<D, kNB>(dpt, va, s.dout, g, t);  // dP^T = V dO^T [key][q]
+    float pt[kNB][4], dpt[kNB][4];
+    mma_over_d<D, kNB>(pt, s.k, warp * 16, s.q[st], lane);       // S^T = K Q^T
+    mma_over_d<D, kNB>(dpt, s.v, warp * 16, s.dout[st], lane);   // dP^T = V dO^T
+    const bool ragged = q0 + BQ > a.lq;
 #pragma unroll
     for (int nb = 0; nb < kNB; ++nb) {
       const int c = nb * 8 + 2 * t;           // query column within the tile
+      float f[4] = {1.f, 1.f, 1.f, 1.f};
+      if (a.keep_min) {
+        // keys j0, j1 share the word (warp / 2) of the CTA's two
+        const uint32_t wa = s.keep[st][c][warp >> 1], wb = s.keep[st][c + 1][warp >> 1];
+        const int p0 = (warp & 1) * 16 + gr, p1 = p0 + 8;
+        drop_factors(f, ((wa >> p0) & 1u) | ((wb >> p0) & 1u) << 1 | ((wa >> p1) & 1u) << 2 |
+                            ((wb >> p1) & 1u) << 3,
+                     a.keep_scale);
+      }
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const int qc = c + (e & 1), key = e < 2 ? j0 : j1;
-        const float p = expf(st[nb][e] * a.scale + (e < 2 ? kb0 : kb1) - s.lse[qc]);
-        const float f = mma_drop(a, bh, q0 + qc, key);
-        st[nb][e] = p * f;                                  // P~^T
-        dpt[nb][e] = p * (dpt[nb][e] * f - s.delta[qc]);    // dS^T
+        const int qc = c + (e & 1);
+        float p = exp2f(fmaf(pt[nb][e], scale2,
+                             fmaf(s.lse[st][qc], -kLog2e, e < 2 ? kb0 : kb1)));
+        if (ragged && q0 + qc >= a.lq) p = 0.f;   // past Lq
+        pt[nb][e] = p * f[e];                                      // P~^T
+        dpt[nb][e] = p * (dpt[nb][e] * f[e] - s.delta[st][qc]);    // dS^T
       }
     }
     uint32_t pa[kNB / 2][4], dsa[kNB / 2][4];
-    to_a_frags<kNB>(pa, st);
+    to_a_frags<kNB>(pa, pt);
     to_a_frags<kNB>(dsa, dpt);
-    mma_cols<D, kNB, kBwdBQ>(dva, pa, s.dot, g, t);   // dV += P~^T dO
-    mma_cols<D, kNB, kBwdBQ>(dka, dsa, s.qt, g, t);   // dK += dS^T Q
+    mma_over_rows<D, kNB>(dva, pa, s.dout[st], lane);   // dV += P~^T dO
+    mma_over_rows<D, kNB>(dka, dsa, s.q[st], lane);     // dK += dS^T Q
+    __syncthreads();   // stage st is consumed
   }
 
+  __nv_bfloat16* dk = static_cast<__nv_bfloat16*>(g.dk);
+  __nv_bfloat16* dv = static_cast<__nv_bfloat16*>(g.dv);
   const long long row_stride = static_cast<long long>(a.heads) * D;
   const long long base = (static_cast<long long>(b) * a.lk * a.heads + h) * D;
 #pragma unroll

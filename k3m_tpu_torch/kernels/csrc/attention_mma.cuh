@@ -16,13 +16,15 @@
 //               32-bit loads too.
 // The softmax statistics (running max m and sum l) stay fp32 and use the
 // unrounded, undropped probabilities; under dropout the P fragments carry
-// the dropped ones and the output is scaled by keep_scale / l. A thread's
-// two neighbouring keys (2t, 2t + 1) share one Philox counter, so a 8-key
-// n-block costs two Philox calls per thread. Shared rows are padded by 8 bf16 so the 8 rows a
-// fragment load touches fall in distinct banks. Keys past Lk score -inf and
-// their K/V rows are zero; query rows past Lq run on zeros and are not
-// stored. Operands need 16-byte aligned rows (strides multiples of 8
-// elements), which the launchers and the Python wrappers check.
+// the dropped ones and the output is scaled by keep_scale / l at the end.
+// The mask costs one Philox call per four elements (keep_bits_qk), and a
+// non-null a.keep_words receives it, one bit per element, for the backward.
+// Shared rows are padded by 8 bf16 so the 8 rows a fragment load touches
+// fall in distinct banks. Keys past Lk score -inf and their K/V rows are
+// zero; query rows past Lq run on zeros and are not stored. A non-null
+// a.lse receives each row's m + log l (attention.cuh). Operands need
+// 16-byte aligned rows (strides multiples of 8 elements), which the
+// launchers and the Python wrappers check.
 #pragma once
 
 #include <math.h>
@@ -37,6 +39,11 @@ constexpr int kMmaThreads = 32 * kMmaWarps;
 constexpr int kMmaBQ = 16 * kMmaWarps;   // query rows per CTA
 constexpr int kMmaBK = 64;               // keys per shared tile
 constexpr int kPad = 8;                  // bf16 padding per shared row
+
+// CTAs per SM the tile's kernels are compiled for: at D 64 the tile fits in
+// 128 registers, so that 4 CTAs share an SM (at 130 only 3 would)
+template <int D>
+constexpr int fwd_min_blocks() { return D <= 64 ? 4 : 1; }
 
 template <int D>
 struct MmaSmem {
@@ -75,7 +82,9 @@ inline bool mma_aligned(const AttnArgs& a) {
   return true;
 }
 
-template <int D>
+// kDrop: compiled with dropout (applied where a.keep_min is set); the
+// kernels without it carry none of its registers (the serving path)
+template <int D, bool kDrop>
 __device__ __forceinline__ void attn_tile_mma(const AttnArgs& a, int b, int h,
                                               int q0, MmaSmem<D>& s) {
   static_assert(D % 16 == 0, "head dim must be a multiple of 16");
@@ -164,6 +173,7 @@ __device__ __forceinline__ void attn_tile_mma(const AttnArgs& a, int b, int h,
     m1 = mn1;
     float s0 = 0.f, s1 = 0.f;
     uint32_t pa[kMmaBK / 16][4];   // P as A fragments, bf16
+    uint32_t tile_bits = 0;        // keep bits, 4 nb + e
 #pragma unroll
     for (int nb = 0; nb < kMmaBK / 8; ++nb) {
       const float p0 = expf(sc[nb][0] - mn0), p1 = expf(sc[nb][1] - mn0);
@@ -171,20 +181,22 @@ __device__ __forceinline__ void attn_tile_mma(const AttnArgs& a, int b, int h,
       s0 += p0 + p1;
       s1 += p2 + p3;
       float d0 = p0, d1 = p1, d2 = p2, d3 = p3;
-      if (a.keep_min) {
-        const int c = k0 + nb * 8 + 2 * t;   // even: c and c + 1 share a counter
-        const uint32_t bh = b * a.heads + h;
-        const uint4 w0 = dropout_bits(a.seed, bh, r0, c);
-        const uint4 w1 = dropout_bits(a.seed, bh, r1, c);
-        const int i = c & 3;
-        d0 = (word(w0, i) >> 8) >= a.keep_min ? p0 : 0.f;
-        d1 = (word(w0, i + 1) >> 8) >= a.keep_min ? p1 : 0.f;
-        d2 = (word(w1, i) >> 8) >= a.keep_min ? p2 : 0.f;
-        d3 = (word(w1, i + 1) >> 8) >= a.keep_min ? p3 : 0.f;
+      if (kDrop && a.keep_min) {
+        const uint32_t kb = keep_bits_qk(a.seed, b * a.heads + h, r0, r1, k0 + nb * 8,
+                                         a.keep_min, t);
+        tile_bits |= kb << (4 * nb);
+        d0 = kb & 1u ? p0 : 0.f;
+        d1 = kb & 2u ? p1 : 0.f;
+        d2 = kb & 4u ? p2 : 0.f;
+        d3 = kb & 8u ? p3 : 0.f;
       }
       pa[nb / 2][(nb % 2) * 2 + 0] = pack_bf16(d0, d1);
       pa[nb / 2][(nb % 2) * 2 + 1] = pack_bf16(d2, d3);
     }
+    if (kDrop && a.keep_min && a.keep_words != nullptr)
+      store_keep_words<kMmaBK>(a.keep_words, tile_bits,
+                               (static_cast<long long>(b) * a.heads + h) * a.lq, r0, r1, k0,
+                               a.lq, a.lk, t);
 #pragma unroll
     for (int off = 1; off < 4; off <<= 1) {
       s0 += __shfl_xor_sync(0xffffffffu, s0, off);
@@ -211,7 +223,7 @@ __device__ __forceinline__ void attn_tile_mma(const AttnArgs& a, int b, int h,
   }
 
   __nv_bfloat16* out = static_cast<__nv_bfloat16*>(a.out) + b * a.o_sb + h * a.o_sh;
-  const float ks = a.keep_min ? a.keep_scale : 1.f;
+  const float ks = kDrop && a.keep_min ? a.keep_scale : 1.f;
   const float inv0 = ks / l0, inv1 = ks / l1;
 #pragma unroll
   for (int db = 0; db < kDBlocks; ++db) {
@@ -222,6 +234,11 @@ __device__ __forceinline__ void attn_tile_mma(const AttnArgs& a, int b, int h,
     if (r1 < a.lq)
       *reinterpret_cast<uint32_t*>(out + r1 * a.o_sl + c) =
           pack_bf16(o[db][2] * inv1, o[db][3] * inv1);
+  }
+  if (a.lse != nullptr && t == 0) {
+    float* lse = a.lse + (static_cast<long long>(b) * a.heads + h) * a.lq;
+    if (r0 < a.lq) lse[r0] = m0 + logf(l0);
+    if (r1 < a.lq) lse[r1] = m1 + logf(l1);
   }
 }
 

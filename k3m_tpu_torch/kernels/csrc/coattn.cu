@@ -32,15 +32,18 @@ biattn_fwd_kernel(k3m::AttnArgs dir1, k3m::AttnArgs dir2, int tiles1) {
     k3m::attn_tile<T, D>(dir2, blockIdx.z, blockIdx.y, (t - tiles1) * k3m::kBQ, s);
 }
 
+// One instantiation, dropout compiled in (the tile applies it where
+// keep_min is set): without it the two inlined directions measured slower
+// at D 96 and 128, while the self-attention kernel gained
 template <int D>
-__global__ void __launch_bounds__(k3m::kMmaThreads)
+__global__ void __launch_bounds__(k3m::kMmaThreads, k3m::fwd_min_blocks<D>())
 biattn_fwd_mma_kernel(k3m::AttnArgs dir1, k3m::AttnArgs dir2, int tiles1) {
   __shared__ k3m::MmaSmem<D> s;
   const int t = blockIdx.x;
   if (t < tiles1)
-    k3m::attn_tile_mma<D>(dir1, blockIdx.z, blockIdx.y, t * k3m::kMmaBQ, s);
+    k3m::attn_tile_mma<D, true>(dir1, blockIdx.z, blockIdx.y, t * k3m::kMmaBQ, s);
   else
-    k3m::attn_tile_mma<D>(dir2, blockIdx.z, blockIdx.y, (t - tiles1) * k3m::kMmaBQ, s);
+    k3m::attn_tile_mma<D, true>(dir2, blockIdx.z, blockIdx.y, (t - tiles1) * k3m::kMmaBQ, s);
 }
 
 int launch_mma(const k3m::AttnArgs& dir1, const k3m::AttnArgs& dir2, int B, int H,
@@ -75,14 +78,19 @@ int launch(const k3m::AttnArgs& dir1, const k3m::AttnArgs& dir2, int B, int H,
 }  // namespace
 
 // strides (elements): [q1 b,l,h, k1 b,l,h, v1 b,l,h, q2 b,l,h, k2 b,l,h,
-// v2 b,l,h, out1 b,l,h, out2 b,l,h, bias1_b, bias2_b]. keep_min1/2 and
+// v2 b,l,h, out1 b,l,h, out2 b,l,h, bias1_b, bias2_b]. lse1 [B, H, L2] and
+// lse2 [B, H, L1]: null, or the rows' log-sum-exp out; words1 [B, H, L2,
+// ceil(L1 / 32)] and words2 [B, H, L1, ceil(L2 / 32)]: null, or the two
+// directions' dropout masks out, one bit per element. keep_min1/2 and
 // keep_scale1/2 are the two directions' dropout (0: none). Returns
 // cudaGetLastError() after the launch (0 on success).
 extern "C" int k3m_biattention_fwd(const void* q1, const void* k1, const void* v1,
                                    const float* bias1, const void* q2,
                                    const void* k2, const void* v2,
                                    const float* bias2, void* out1, void* out2,
-                                   int dtype, int B, int H, int l1, int l2, int d,
+                                   float* lse1, float* lse2, uint32_t* words1,
+                                   uint32_t* words2, int dtype, int B,
+                                   int H, int l1, int l2, int d,
                                    const long long* st, float scale, unsigned seed,
                                    unsigned keep_min1, float keep_scale1,
                                    unsigned keep_min2, float keep_scale2,
@@ -95,10 +103,14 @@ extern "C" int k3m_biattention_fwd(const void* q1, const void* k1, const void* v
   // direction 2: stream-1 queries over stream-2 keys/values, bias2
   const long long s2[13] = {st[0], st[1], st[2], st[12], st[13], st[14],
                             st[15], st[16], st[17], st[21], st[22], st[23], st[25]};
-  const k3m::AttnArgs dir1 = k3m::make_args(q2, k1, v1, bias1, out1, s1, l2, l1, H, scale,
-                                            seed, keep_min1, keep_scale1);
-  const k3m::AttnArgs dir2 = k3m::make_args(q1, k2, v2, bias2, out2, s2, l1, l2, H, scale,
-                                            seed + 7919u, keep_min2, keep_scale2);
+  k3m::AttnArgs dir1 = k3m::make_args(q2, k1, v1, bias1, out1, s1, l2, l1, H, scale,
+                                      seed, keep_min1, keep_scale1);
+  k3m::AttnArgs dir2 = k3m::make_args(q1, k2, v2, bias2, out2, s2, l1, l2, H, scale,
+                                      seed + 7919u, keep_min2, keep_scale2);
+  dir1.lse = lse1;
+  dir2.lse = lse2;
+  dir1.keep_words = words1;
+  dir2.keep_words = words2;
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   if (dtype == k3m::kF32) return launch<float>(dir1, dir2, B, H, d, stream);
   if (!k3m::mma_aligned(dir1) || !k3m::mma_aligned(dir2)) return cudaErrorInvalidValue;

@@ -15,18 +15,28 @@
 //
 // Bound on the H100: device-memory bytes. Each element is read once (x, and
 // res when given; y and dy in the backward) and written once, with ~10-16
-// flops per element, far below the card's flop/byte balance. Design: one
-// warp per row (N <= 1024), so a row lives in 32 registers per lane; the
-// row statistics come from warp shuffles, and nothing but the row tensors
-// touches device memory. Lane l handles columns l, l+32, ..., so each warp
-// load is one contiguous run of the row.
+// flops per element, far below the card's flop/byte balance.
 //
-// The TPU sums dscale/dbias across its sequential grid in VMEM. Blocks on
-// the card run in no order, so each block takes a band of rows, each of its
-// warps sums its rows' dy * xhat and dy into its own shared-memory row, the
-// block adds its warps in a fixed order and writes fp32 partials
-// [n_blocks, N]; a second small kernel adds the partials in a fixed order.
-// No atomics: the parameter gradients are the same in every run.
+// Forward design: one warp per row (N <= 1024), so a row lives in 32
+// registers per lane; the row statistics come from warp shuffles, and
+// nothing but the row tensors touches device memory. Lane l handles columns
+// l, l+32, ..., so each warp load is one contiguous run of the row.
+//
+// Backward design. The TPU sums dscale/dbias across its sequential grid in
+// VMEM; blocks on the card run in no order, so the rows are cut into bands,
+// one per block of 8 warps, and the grid is two waves of the card's SMs
+// (bands_for). A warp takes one row at a time and loads the next one while
+// it computes, with 16-byte loads: lane l owns the 16-byte column vectors
+// l, l + 32, ... of every row of its band, so it keeps those columns' scale,
+// bias, 1 / safe(scale) and its dscale/dbias sums in registers for the
+// whole band and the row's data never goes through shared memory. At the
+// end the block adds its 8 warps in a fixed order and writes fp32 partials
+// [bands, N]; a second kernel, parallel over columns, adds the partials in
+// band order. No atomics: the parameter gradients are the same in every
+// run. The backward takes widths that are whole 16-byte vectors (N a
+// multiple of 8 in bf16, of 4 in fp32).
+#include <stdint.h>
+
 #include "common.cuh"
 
 namespace {
@@ -34,7 +44,6 @@ namespace {
 constexpr int kWarps = 4;          // rows in flight per CTA
 constexpr int kMaxPerLane = 32;    // N <= 32 * 32
 constexpr int kMaxN = 32 * kMaxPerLane;
-constexpr int kMaxBands = 512;     // blocks of the backward (partials rows)
 
 template <typename TX, typename TR, typename TO, bool kRes>
 __global__ void __launch_bounds__(kWarps * 32)
@@ -99,100 +108,265 @@ void launch_res(const void* x, const void* res, int res_dtype, const void* scale
     launch<TX, __nv_bfloat16, TO, true>(x, res, scale, bias, out, rstd, rows, n, eps, stream);
 }
 
+constexpr int kBwdWarps = 8;       // rows in flight per block of the backward
+
+template <typename T>
+struct VecOf {
+  static constexpr int kElems = 16 / sizeof(T);   // elements per 16-byte vector
+};
+
+__device__ __forceinline__ void unpack(const uint4& v, float (&f)[8]) {
+  const uint32_t w[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 p = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w[i]));
+    f[2 * i] = p.x;
+    f[2 * i + 1] = p.y;
+  }
+}
+
+__device__ __forceinline__ void unpack(const uint4& v, float (&f)[4]) {
+  f[0] = __uint_as_float(v.x);
+  f[1] = __uint_as_float(v.y);
+  f[2] = __uint_as_float(v.z);
+  f[3] = __uint_as_float(v.w);
+}
+
+__device__ __forceinline__ uint32_t pack2(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// E values at p (E / 2 bf16 pairs or E floats, 8- or 16-byte aligned)
+template <int E>
+__device__ __forceinline__ void store(__nv_bfloat16* p, const float (&f)[E]) {
+  if constexpr (E == 8) {
+    *reinterpret_cast<uint4*>(p) = make_uint4(pack2(f[0], f[1]), pack2(f[2], f[3]),
+                                              pack2(f[4], f[5]), pack2(f[6], f[7]));
+  } else {
+    *reinterpret_cast<uint2*>(p) = make_uint2(pack2(f[0], f[1]), pack2(f[2], f[3]));
+  }
+}
+
+template <int E>
+__device__ __forceinline__ void store(float* p, const float (&f)[E]) {
+#pragma unroll
+  for (int i = 0; i < E; i += 4)
+    *reinterpret_cast<float4*>(p + i) = make_float4(f[i], f[i + 1], f[i + 2], f[i + 3]);
+}
+
 // dx of the rows in this block's band, and the band's dscale/dbias partials.
-// TY: dtype of y and dy (the forward's output dtype); TX: dtype of dx.
-template <typename TY, typename TX>
-__global__ void __launch_bounds__(kWarps * 32)
+// TY: dtype of y and dy (the forward's output dtype); TX: dtype of dx; VPL:
+// 16-byte vectors of TY per lane and row (vectors past N are masked).
+template <typename TY, typename TX, int VPL>
+__global__ void __launch_bounds__(kBwdWarps * 32, 1)
 ln_bwd_kernel(const TY* __restrict__ y, const float* __restrict__ rstd,
               const float* __restrict__ scale, const float* __restrict__ bias,
               const TY* __restrict__ dy, TX* __restrict__ dx,
               float* __restrict__ part_ds, float* __restrict__ part_db, int rows,
               int n, int band) {
-  __shared__ float sds[kWarps][kMaxN];
-  __shared__ float sdb[kWarps][kMaxN];
+  constexpr int E = VecOf<TY>::kElems;
+  // the next row's loads overlap this row's arithmetic where the registers
+  // allow it (bf16 up to 768 columns)
+  constexpr bool kPrefetch = sizeof(TY) == 2 && VPL <= 3;
+  __shared__ float red[kBwdWarps][kMaxN];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  // a lane owns columns lane + 32 i of its warp's rows: no two threads
-  // touch one shared word until the fixed-order sum at the end
-  for (int c = lane; c < n; c += 32) sds[warp][c] = sdb[warp][c] = 0.f;
+  const int nv = n / E;                         // vectors per row
+
+  // this lane's columns: vector lane + 32 i, columns E (lane + 32 i) + e
+  float sc[VPL][E], inv[VPL][E], bs[VPL][E], ads[VPL][E], adb[VPL][E];
+#pragma unroll
+  for (int i = 0; i < VPL; ++i) {
+    const int vi = lane + 32 * i;
+#pragma unroll
+    for (int e = 0; e < E; ++e) {
+      const int c = vi * E + e;
+      const float s = vi < nv ? scale[c] : 1.f;
+      sc[i][e] = s;
+      inv[i][e] = 1.f / (fabsf(s) < 1e-6f ? 1e-6f : s);
+      bs[i][e] = vi < nv ? bias[c] : 0.f;
+      ads[i][e] = adb[i][e] = 0.f;
+    }
+  }
+
   const int r0 = blockIdx.x * band, r1 = min(r0 + band, rows);
-  for (int row = r0 + warp; row < r1; row += kWarps) {
-    const size_t base = static_cast<size_t>(row) * n;
-    float xh[kMaxPerLane], g[kMaxPerLane];
+  uint4 ny[VPL], ndy[VPL];
+  float nr = 0.f;
+  auto load_row = [&](int row, uint4 (&vy)[VPL], uint4 (&vdy)[VPL], float& r) {
+    const size_t base = static_cast<size_t>(row) * nv;
+#pragma unroll
+    for (int i = 0; i < VPL; ++i) {
+      const int vi = lane + 32 * i;
+      vy[i] = vdy[i] = make_uint4(0u, 0u, 0u, 0u);
+      if (vi < nv) {
+        vy[i] = reinterpret_cast<const uint4*>(y)[base + vi];
+        vdy[i] = reinterpret_cast<const uint4*>(dy)[base + vi];
+      }
+    }
+    r = rstd[row];
+  };
+  if (kPrefetch && r0 + warp < r1) load_row(r0 + warp, ny, ndy, nr);
+
+  for (int row = r0 + warp; row < r1; row += kBwdWarps) {
+    uint4 vy[VPL], vdy[VPL];
+    float r;
+    if constexpr (kPrefetch) {
+#pragma unroll
+      for (int i = 0; i < VPL; ++i) {
+        vy[i] = ny[i];
+        vdy[i] = ndy[i];
+      }
+      r = nr;
+      if (row + kBwdWarps < r1) load_row(row + kBwdWarps, ny, ndy, nr);
+    } else {
+      load_row(row, vy, vdy, r);
+    }
+    // pass 1: the row sums of g = dy * scale and g * xhat; the band sums
     float sg = 0.f, sgx = 0.f;
 #pragma unroll
-    for (int i = 0; i < kMaxPerLane; ++i) {
-      const int c = lane + 32 * i;
-      xh[i] = g[i] = 0.f;
-      if (c < n) {
-        const float s = scale[c];
-        const float safe = fabsf(s) < 1e-6f ? 1e-6f : s;
-        const float x = (k3m::to_f32(y[base + c]) - bias[c]) / safe;
-        const float d = k3m::to_f32(dy[base + c]);
-        xh[i] = x;
-        g[i] = d * s;
-        sg += g[i];
-        sgx += g[i] * x;
-        sds[warp][c] += d * x;
-        sdb[warp][c] += d;
+    for (int i = 0; i < VPL; ++i) {
+      float fy[E], fd[E];
+      unpack(vy[i], fy);
+      unpack(vdy[i], fd);
+#pragma unroll
+      for (int e = 0; e < E; ++e) {
+        const float xh = (fy[e] - bs[i][e]) * inv[i][e];
+        const float g = fd[e] * sc[i][e];
+        sg += g;
+        sgx += g * xh;
+        ads[i][e] += fd[e] * xh;
+        adb[i][e] += fd[e];
       }
     }
     const float gm = k3m::warp_sum(sg) / n, gxm = k3m::warp_sum(sgx) / n;
-    const float r = rstd[row];
+    // pass 2: dx = rstd (g - mean(g) - xhat mean(g xhat))
+    TX* out = dx + static_cast<size_t>(row) * n;
 #pragma unroll
-    for (int i = 0; i < kMaxPerLane; ++i) {
-      const int c = lane + 32 * i;
-      if (c < n) dx[base + c] = k3m::from_f32<TX>(r * (g[i] - gm - xh[i] * gxm));
+    for (int i = 0; i < VPL; ++i) {
+      const int vi = lane + 32 * i;
+      if (vi >= nv) continue;
+      float fy[E], fd[E], o[E];
+      unpack(vy[i], fy);
+      unpack(vdy[i], fd);
+#pragma unroll
+      for (int e = 0; e < E; ++e) {
+        const float xh = (fy[e] - bs[i][e]) * inv[i][e];
+        o[e] = r * (fd[e] * sc[i][e] - gm - xh * gxm);
+      }
+      store<E>(out + vi * E, o);
     }
   }
+
+  // the block's partials: its warps added in a fixed order
+#pragma unroll
+  for (int pass = 0; pass < 2; ++pass) {
+    float* part = pass == 0 ? part_ds : part_db;
+#pragma unroll
+    for (int i = 0; i < VPL; ++i) {
+      const int vi = lane + 32 * i;
+      if (vi < nv) {
+#pragma unroll
+        for (int e = 0; e < E; ++e) red[warp][vi * E + e] = pass == 0 ? ads[i][e] : adb[i][e];
+      }
+    }
+    __syncthreads();
+    for (int c = threadIdx.x; c < n; c += kBwdWarps * 32) {
+      float sum = 0.f;
+#pragma unroll
+      for (int w = 0; w < kBwdWarps; ++w) sum += red[w][c];
+      part[static_cast<size_t>(blockIdx.x) * n + c] = sum;
+    }
+    __syncthreads();
+  }
+}
+
+// dscale[c] (blockIdx.y 0) or dbias[c] (1) = the sum over bands p of the
+// partials [p][c], in band order: warp w adds bands w, w + 8, ..., then
+// warp 0 adds the 8 warps in order. One lane per column of a 32-column group.
+__global__ void __launch_bounds__(kBwdWarps * 32)
+ln_bwd_reduce_kernel(const float* __restrict__ part_ds, const float* __restrict__ part_db,
+                     int bands, int n, float* __restrict__ dscale, float* __restrict__ dbias) {
+  __shared__ float red[kBwdWarps][32];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int c = blockIdx.x * 32 + lane;
+  const float* part = blockIdx.y == 0 ? part_ds : part_db;
+  float sum = 0.f;
+  if (c < n) {
+#pragma unroll 8
+    for (int p = warp; p < bands; p += kBwdWarps) sum += part[static_cast<size_t>(p) * n + c];
+  }
+  red[warp][lane] = sum;
   __syncthreads();
-  for (int c = threadIdx.x; c < n; c += kWarps * 32) {
-    float ds = 0.f, db = 0.f;
+  if (warp == 0 && c < n) {
+    float total = 0.f;
 #pragma unroll
-    for (int w = 0; w < kWarps; ++w) {
-      ds += sds[w][c];
-      db += sdb[w][c];
-    }
-    part_ds[static_cast<size_t>(blockIdx.x) * n + c] = ds;
-    part_db[static_cast<size_t>(blockIdx.x) * n + c] = db;
+    for (int w = 0; w < kBwdWarps; ++w) total += red[w][lane];
+    (blockIdx.y == 0 ? dscale : dbias)[c] = total;
   }
 }
 
-// dscale[c] = sum over bands p of part_ds[p][c], in band order; dbias alike.
-__global__ void ln_bwd_reduce_kernel(const float* __restrict__ part_ds,
-                                     const float* __restrict__ part_db, int bands,
-                                     int n, float* __restrict__ dscale,
-                                     float* __restrict__ dbias) {
-  const int c = blockIdx.x * blockDim.x + threadIdx.x;
-  if (c >= n) return;
-  float ds = 0.f, db = 0.f;
-  for (int p = 0; p < bands; ++p) {
-    ds += part_ds[static_cast<size_t>(p) * n + c];
-    db += part_db[static_cast<size_t>(p) * n + c];
-  }
-  dscale[c] = ds;
-  dbias[c] = db;
-}
-
+// Bands (blocks) of the backward for `rows` rows: two waves of the card's
+// SMs at one block per SM, and at least a warp's row per band. The SM count
+// is read from the current device at every call (a cheap query).
 int bands_for(int rows) {
-  const int want = (rows + kWarps - 1) / kWarps;
-  return want < kMaxBands ? want : kMaxBands;
+  int dev = 0, sms = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess ||
+      sms <= 0)
+    sms = 132;
+  const int want = (rows + kBwdWarps - 1) / kBwdWarps;
+  return want < 2 * sms ? want : 2 * sms;
+}
+
+template <typename TY, typename TX, int VPL>
+void launch_bwd_vpl(const void* y, const float* rstd, const float* scale, const float* bias,
+                    const void* dy, void* dx, float* part_ds, float* part_db, int rows, int n,
+                    int bands, int band, cudaStream_t stream) {
+  ln_bwd_kernel<TY, TX, VPL><<<bands, kBwdWarps * 32, 0, stream>>>(
+      static_cast<const TY*>(y), rstd, scale, bias, static_cast<const TY*>(dy),
+      static_cast<TX*>(dx), part_ds, part_db, rows, n, band);
 }
 
 template <typename TY, typename TX>
 int launch_bwd(const void* y, const float* rstd, const float* scale, const float* bias,
                const void* dy, void* dx, float* part, float* dscale, float* dbias,
                int rows, int n, cudaStream_t stream) {
+  constexpr int E = VecOf<TY>::kElems;
+  if (n % E || reinterpret_cast<uintptr_t>(y) % 16 || reinterpret_cast<uintptr_t>(dy) % 16 ||
+      reinterpret_cast<uintptr_t>(dx) % 16)
+    return cudaErrorInvalidValue;
   const int bands = bands_for(rows);
   const int band = (rows + bands - 1) / bands;
   float* part_ds = part;
   float* part_db = part + static_cast<size_t>(bands) * n;
-  ln_bwd_kernel<TY, TX><<<bands, kWarps * 32, 0, stream>>>(
-      static_cast<const TY*>(y), rstd, scale, bias, static_cast<const TY*>(dy),
-      static_cast<TX*>(dx), part_ds, part_db, rows, n, band);
+  const int vpl = (n / E + 31) / 32;
+  switch (vpl) {
+#define K3M_LN_BWD_CASE(V)                                                                  \
+  case V:                                                                                   \
+    launch_bwd_vpl<TY, TX, V>(y, rstd, scale, bias, dy, dx, part_ds, part_db, rows, n,     \
+                              bands, band, stream);                                        \
+    break;
+    K3M_LN_BWD_CASE(1)
+    K3M_LN_BWD_CASE(2)
+    K3M_LN_BWD_CASE(3)
+    K3M_LN_BWD_CASE(4)
+#undef K3M_LN_BWD_CASE
+    default:
+      if constexpr (E == 4) {   // fp32 y: up to 8 vectors per lane
+        if (vpl <= 6)
+          launch_bwd_vpl<TY, TX, 6>(y, rstd, scale, bias, dy, dx, part_ds, part_db, rows, n,
+                                    bands, band, stream);
+        else
+          launch_bwd_vpl<TY, TX, 8>(y, rstd, scale, bias, dy, dx, part_ds, part_db, rows, n,
+                                    bands, band, stream);
+        break;
+      }
+      return cudaErrorInvalidValue;
+  }
   const cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
-  ln_bwd_reduce_kernel<<<(n + 255) / 256, 256, 0, stream>>>(part_ds, part_db, bands, n,
-                                                             dscale, dbias);
+  ln_bwd_reduce_kernel<<<dim3((n + 31) / 32, 2), kBwdWarps * 32, 0, stream>>>(
+      part_ds, part_db, bands, n, dscale, dbias);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -221,10 +395,11 @@ extern "C" int k3m_layernorm_fwd(const void* x, int x_dtype, const void* res,
 // allocates 2 * bands * n fp32 partials.
 extern "C" int k3m_ln_bwd_bands(int rows) { return bands_for(rows); }
 
-// y, dy: [rows, n] in y_dtype (the forward's output dtype); rstd fp32
-// [rows]; dx: [rows, n] in x_dtype; dscale, dbias fp32 [n]; part: fp32
-// scratch of 2 * k3m_ln_bwd_bands(rows) * n. Returns cudaGetLastError()
-// after the launches (0 on success).
+// y, dy: [rows, n] in y_dtype (the forward's output dtype), contiguous and
+// 16-byte aligned, n a multiple of 8 (bf16) or 4 (fp32); rstd fp32 [rows];
+// dx: [rows, n] in x_dtype; dscale, dbias fp32 [n]; part: fp32 scratch of
+// 2 * k3m_ln_bwd_bands(rows) * n. Returns cudaGetLastError() after the
+// launches (0 on success).
 extern "C" int k3m_layernorm_bwd(const void* y, int y_dtype, const float* rstd,
                                  const float* scale, const float* bias, const void* dy,
                                  void* dx, int x_dtype, float* part, float* dscale,

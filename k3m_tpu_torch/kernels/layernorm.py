@@ -102,7 +102,9 @@ def _forward(x, scale, bias, residual, eps, out_dtype, with_rstd):
 
 def layernorm_bwd(y, rstd, scale, bias, dy, x_dtype):
     """(dx, dscale, dbias): the backward kernel for CUDA tensors, the plain
-    version for CPU tensors."""
+    version for CPU tensors. The kernel reads rows of whole 16-byte vectors:
+    N a multiple of 8 in bf16, of 4 in fp32. A `dy` of another dtype or
+    layout than y is copied first (none is on the training path)."""
     if y.device.type == "cpu":
         return layernorm_bwd_plain(y, rstd, scale, bias, dy, x_dtype)
     if y.device.type != "cuda":
@@ -110,9 +112,13 @@ def layernorm_bwd(y, rstd, scale, bias, dy, x_dtype):
     n = y.shape[-1]
     rows = y.numel() // n
     if not 0 < n <= MAX_N or x_dtype not in build.DTYPE_CODES \
-            or y.dtype not in build.DTYPE_CODES:
-        raise ValueError(f"layernorm_bwd: unsupported width {n} or dtypes")
-    dy = dy.to(y.dtype).contiguous()
+            or y.dtype not in build.DTYPE_CODES or n % (16 // y.element_size()):
+        raise ValueError(f"layernorm_bwd: unsupported width {n} or dtypes "
+                         f"{y.dtype} -> {x_dtype}")
+    if not y.is_contiguous():
+        raise ValueError("layernorm_bwd: y must be contiguous")
+    if dy.dtype != y.dtype or not dy.is_contiguous():
+        dy = dy.to(y.dtype).contiguous()
     lib = build.library()
     bands = lib.k3m_ln_bwd_bands(rows)
     dx = torch.empty(y.shape, dtype=x_dtype, device=y.device)

@@ -11,9 +11,9 @@ import torch
 
 from k3m_tpu_torch import kernels
 from k3m_tpu_torch.kernels import (
-    attention_bwd, attention_bwd_plain, attention_plain, biattention_plain,
-    fused_attention, fused_biattention, fused_layernorm, layernorm_bwd,
-    layernorm_bwd_plain, layernorm_plain, philox_keep_mask_plain,
+    attention, attention_bwd, attention_bwd_plain, attention_lse_plain, attention_plain,
+    biattention_plain, coattn, fused_attention, fused_biattention, fused_layernorm,
+    layernorm_bwd, layernorm_bwd_plain, layernorm_plain, philox_keep_mask_plain,
 )
 
 
@@ -68,8 +68,9 @@ def test_cuda_bf16_attention_refuses_misaligned_rows(cuda_device):
     b = torch.zeros(2, 9, device=cuda_device)
     with pytest.raises(ValueError, match="aligned"):
         fused_attention(x, x, x, b)
+    lse = torch.zeros(2, 2, 9, device=cuda_device)
     with pytest.raises(ValueError, match="aligned"):
-        attention_bwd(x, x, x, b, x)
+        attention_bwd(x, x, x, b, x, lse, None, x)
 
 
 def _share(dtype):
@@ -124,13 +125,56 @@ def test_cuda_attention_with_dropout_matches_plain(cuda_device, dtype, rate):
         if rate else None
     _check(fused_attention(q, k, v, bias, dropout_rate=rate, seed=seed),
            attention_plain(q, k, v, bias, keep, rate), _share(dtype))
+    out, lse, words = attention._forward(q, k, v, bias, rate, seed, for_backward=True)
+    _check_bwd(attention_bwd(q, k, v, bias, out, lse, words, do, rate),
+               attention_bwd_plain(q, k, v, bias, do, keep, rate), dtype)
+
+
+def _check_bwd(got, want, dtype):
+    """Each backward output within its share of the scale of each (batch,
+    head), as in chip_smoke.bwd_errors."""
     share, floor = (1e-4, 1e-2) if dtype == torch.float32 else (2.0 ** -6, 1e-3)
-    for a, r in zip(attention_bwd(q, k, v, bias, do, rate, seed),
-                    attention_bwd_plain(q, k, v, bias, do, keep, rate)):
+    for a, r in zip(got, want):
         r = r.float()
         scale = r.abs().amax(dim=(1, 3), keepdim=True)      # per (batch, head)
         tol = share * scale.clamp(min=floor * float(r.abs().max()))
         assert bool(((a.float() - r).abs() <= tol).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_lse_and_the_backward_it_drives(cuda_device, dtype):
+    """The row log-sum-exp both directions of the bi-attention kernel write
+    for the backward, within 1e-5 of max(1, |lse|) of attention_lse_plain;
+    the mask words it keeps, bit for bit those of philox_keep_mask_plain;
+    and the backward fed what the forward kept
+    against the plain backward (which needs none of it), at rate 0.1; two
+    calls of the backward give the same bits."""
+    g = torch.Generator(device=cuda_device).manual_seed(3)
+    B, H, L1, L2, D, rate, seed = 2, 4, 37, 70, 128, 0.1, 21
+    q1, k1, v1 = torch.randn(3, B, L1, H, D, generator=g, device=cuda_device).to(dtype)
+    q2, k2, v2 = torch.randn(3, B, L2, H, D, generator=g, device=cuda_device).to(dtype)
+    b1 = torch.zeros(B, L1, device=cuda_device)
+    b1[1, 5:] = -10000.0
+    b2 = torch.zeros(B, L2, device=cuda_device)
+    b2[0, 66:] = -10000.0
+    c1, _, (lse1, words1), (lse2, words2) = coattn._forward(
+        q1, k1, v1, b1, q2, k2, v2, b2, rate, rate, seed, for_backward=True)
+    bits = torch.arange(32, device=cuda_device, dtype=torch.int32)
+    for lse, words, (q, k, b), salt in ((lse1, words1, (q2, k1, b1), 0),
+                                        (lse2, words2, (q1, k2, b2), 7919)):
+        ref = attention_lse_plain(q, k, b)
+        assert bool(((lse - ref).abs() <= 1e-5 * ref.abs().clamp(min=1.0)).all())
+        mask = ((words[..., None] >> bits) & 1).bool().reshape(*words.shape[:-1], -1)
+        keep = philox_keep_mask_plain(seed, B, H, q.shape[1], k.shape[1], rate, salt,
+                                      cuda_device)
+        assert torch.equal(mask[..., :k.shape[1]], keep)
+    do1 = torch.randn(B, L2, H, D, generator=g, device=cuda_device).to(dtype)
+    keep1 = philox_keep_mask_plain(seed, B, H, L2, L1, rate, 0, cuda_device)
+    got = attention_bwd(q2, k1, v1, b1, c1, lse1, words1, do1, rate)
+    _check_bwd(got, attention_bwd_plain(q2, k1, v1, b1, do1, keep1, rate), dtype)
+    again = attention_bwd(q2, k1, v1, b1, c1, lse1, words1, do1, rate)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
 
 
 @pytest.mark.cuda

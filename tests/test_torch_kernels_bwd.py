@@ -22,9 +22,10 @@ from k3m_tpu.kernels.attention import padded_fused_attention
 from k3m_tpu.kernels.coattn import padded_fused_biattention
 from k3m_tpu.kernels.layernorm import fused_layernorm as jax_layernorm
 from k3m_tpu_torch.kernels import (
-    attention_bwd_plain, attention_plain, fused_attention, fused_biattention,
-    fused_layernorm, philox_keep_mask_plain,
+    attention_bwd, attention_bwd_plain, attention_lse_plain, attention_plain,
+    fused_attention, fused_biattention, fused_layernorm, philox_keep_mask_plain,
 )
+from k3m_tpu_torch.kernels import attention
 from k3m_tpu_torch.kernels.attention import keep_threshold, philox4x32_10_plain
 
 
@@ -174,7 +175,8 @@ def test_dropout_plain_versions_match_numpy():
 def test_dropout_wrappers_use_the_philox_mask():
     """On the CPU the wrappers draw their mask with philox_keep_mask_plain
     from (seed, salt): salt 0 for self-attention and co-attention direction
-    1, 7919 for direction 2, and the backward redraws the same mask."""
+    1, 7919 for direction 2, and the backward reads the mask the forward
+    kept."""
     B, H, L1, L2, D, rate, seed = 2, 2, 6, 10, 8, 0.3, 1234
     rng = np.random.default_rng(3)
     q1, k1, v1, b1 = (torch.from_numpy(a) for a in _attn_inputs(rng, B, H, L1, L1, D))
@@ -196,6 +198,79 @@ def test_dropout_wrappers_use_the_philox_mask():
     out = fused_attention(q2, k2, v2, b2, dropout_rate=rate, seed=seed)
     torch.testing.assert_close(out, attention_plain(
         q2, k2, v2, b2, philox_keep_mask_plain(seed, B, H, L2, L2, rate), rate))
+
+
+# ------------------------------------------ the backward's inputs from the forward
+
+@pytest.mark.parametrize("Lq,Lk,D", [(9, 14, 16), (5, 37, 64)])
+def test_attention_lse_plain_matches_numpy(Lq, Lk, D):
+    """attention_lse_plain: the fp32 log-sum-exp over the keys of the scaled,
+    biased scores, against float64 numpy, with ragged key masks."""
+    rng = np.random.default_rng(Lk)
+    q, k, _, bias = _attn_inputs(rng, 3, 2, Lq, Lk, D)
+    s = np.einsum("bhqd,bhkd->bhqk", q.astype(np.float64), k.astype(np.float64))
+    s = s / np.sqrt(D) + bias[:, None, None, :]
+    m = s.max(-1, keepdims=True)
+    want = (m + np.log(np.exp(s - m).sum(-1, keepdims=True)))[..., 0]
+    got = attention_lse_plain(_bld(q), _bld(k), torch.from_numpy(bias))
+    assert got.dtype == torch.float32 and got.shape == (3, 2, Lq)
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_rowsum_dout_out_equals_rowsum_p_dp(rate):
+    """rowsum(dO * O), which the backward kernel takes from the forward's
+    output, is the JAX formula's D_i = rowsum(P * dP * f) under dropout
+    too, because O = sum_k P f V: float64 under an explicit Philox keep
+    mask."""
+    B, H, Lq, Lk, D, seed = 2, 3, 11, 21, 16, 8
+    rng = np.random.default_rng(4)
+    q, k, v, bias = (a.astype(np.float64) for a in _attn_inputs(rng, B, H, Lq, Lk, D))
+    do = rng.normal(size=(B, H, Lq, D))
+    keep = philox_keep_mask_plain(seed, B, H, Lq, Lk, rate).numpy() if rate \
+        else np.ones((B, H, Lq, Lk), bool)
+    f = keep / (1.0 - rate)
+    s = np.einsum("bhqd,bhkd->bhqk", q, k) / np.sqrt(D) + bias[:, None, None, :]
+    p = np.exp(s - s.max(-1, keepdims=True))
+    p /= p.sum(-1, keepdims=True)
+    out = np.einsum("bhqk,bhkd->bhqd", p * f, v)
+    dp = np.einsum("bhqd,bhkd->bhqk", do, v) * f
+    np.testing.assert_allclose((do * out).sum(-1), (p * dp).sum(-1), rtol=1e-12, atol=1e-12)
+
+
+def test_attention_bwd_on_cpu_takes_the_forward_tensors():
+    """The wrapper's signature: on the CPU the forward keeps its mask words
+    (no lse) and the backward runs the plain backward under the mask it
+    reads from them, which is the Philox mask of the forward's seed;
+    without the words under dropout it refuses."""
+    B, H, L, D, rate, seed = 2, 2, 7, 8, 0.2, 3
+    rng = np.random.default_rng(9)
+    q, k, v, bias = (torch.from_numpy(a) for a in _attn_inputs(rng, B, H, L, L, D))
+    q, k, v = (t.permute(0, 2, 1, 3).contiguous() for t in (q, k, v))
+    do = torch.randn(B, L, H, D)
+    out, lse, words = attention._forward(q, k, v, bias, rate, seed, for_backward=True)
+    assert lse is None and words.dtype == torch.int32 and words.shape == (B, H, L, 1)
+    keep = philox_keep_mask_plain(seed, B, H, L, L, rate)
+    want = attention_bwd_plain(q, k, v, bias, do, keep, rate)
+    for g, r in zip(attention_bwd(q, k, v, bias, out, lse, words, do, rate), want):
+        torch.testing.assert_close(g, r)
+    with pytest.raises(ValueError, match="keep_words"):
+        attention_bwd(q, k, v, bias, out, lse, None, do, rate)
+
+
+@pytest.mark.parametrize("lk", [7, 32, 70])
+def test_keep_words_round_trip(lk):
+    """pack_keep_words puts key k at bit k % 32 of word k // 32 (the kernels'
+    layout, zero past Lk), and unpack_keep_words gives the mask back."""
+    keep = torch.from_numpy(np.random.default_rng(lk).random((2, 3, 5, lk)) < 0.5)
+    words = attention.pack_keep_words(keep)
+    assert words.dtype == torch.int32 and words.shape == (2, 3, 5, -(-lk // 32))
+    w = words.numpy().astype(np.int64) & 0xFFFFFFFF
+    for key in (0, lk // 2, lk - 1):
+        np.testing.assert_array_equal((w[..., key // 32] >> (key % 32)) & 1,
+                                      keep[..., key].numpy())
+    assert not (w[..., -1] >> (lk - 32 * (words.shape[-1] - 1))).any()
+    assert torch.equal(attention.unpack_keep_words(words, lk), keep)
 
 
 def test_philox_known_answers():

@@ -8,7 +8,9 @@
 Phases, in order; any failure exits non-zero and no phase carries on past
 a failure:
   1. environment: torch/CUDA versions, card name and power limit;
-  2. build: compile the CUDA kernels from k3m_tpu_torch/kernels/csrc/;
+  2. build: compile the CUDA kernels from k3m_tpu_torch/kernels/csrc/ and
+     report each kernel's registers, static shared memory and spill bytes
+     from ptxas;
   3. kernels: hold each kernel against its plain PyTorch version on the
      card, in fp32 and bf16, at every main-path shape (forward kernels at
      the serving batch 64 and the train batch 96, backward kernels at 96),
@@ -17,7 +19,9 @@ a failure:
      gradient within a share of its own scale, and show that this
      tolerance rejects planted faults; read the forward kernels' dropout masks
      back and hold them to `philox_keep_mask_plain` bit for bit, and their
-     keep rate to 0.9 within 4 sigma; time the kernel, the plain version
+     keep rate to 0.9 within 4 sigma; hold both forward kernels to their
+     plain versions (output, lse, mask words) at the edges of their tiles
+     (lengths 1 to 256, D 64/96/128); time the kernel, the plain version
      and (where one PyTorch call computes the same function) the library
      call; then the host's cost of one wrapper call;
   4. slice (serving): write 256 synthetic pair records at the full shapes
@@ -155,6 +159,43 @@ def phase_env():
     return smi.splitlines()[0]
 
 
+PTXAS_ENTRY = re.compile(r"Compiling entry function '(\w+)'")
+PTXAS_SPILL = re.compile(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                         r"(\d+) bytes spill loads")
+PTXAS_USED = re.compile(r"Used (\d+) registers")
+PTXAS_SMEM = re.compile(r"(\d+) bytes smem")
+
+
+def _demangle(names):
+    """Readable kernel names (c++filt where the toolkit's binutils have it;
+    the mangled names otherwise, which still say what they are)."""
+    if not names or shutil.which("c++filt") is None:
+        return names
+    out = subprocess.run(["c++filt"], input="\n".join(names), capture_output=True,
+                         text=True, check=True).stdout.splitlines()
+    return out if len(out) == len(names) else names
+
+
+def ptxas_report(log_text):
+    """Per kernel, from the build's `-Xptxas -v` log: registers per thread,
+    static shared memory (the forward and backward tiles take theirs
+    dynamically, at launch) and spill bytes."""
+    rows, cur = [], None
+    for line in log_text.splitlines():
+        if m := PTXAS_ENTRY.search(line):
+            cur = dict(kernel=m.group(1))
+            rows.append(cur)
+        elif cur is not None and (m := PTXAS_SPILL.search(line)):
+            cur.update(stack=int(m.group(1)), spill_stores=int(m.group(2)),
+                       spill_loads=int(m.group(3)))
+        elif cur is not None and (m := PTXAS_USED.search(line)):
+            smem = PTXAS_SMEM.search(line)
+            cur.update(registers=int(m.group(1)), smem_static=int(smem.group(1)) if smem else 0)
+    for row, name in zip(rows, _demangle([r["kernel"] for r in rows])):
+        row["kernel"] = name
+    return rows
+
+
 def phase_build():
     from k3m_tpu_torch.kernels import build
     t0 = time.perf_counter()
@@ -163,10 +204,17 @@ def phase_build():
     secs = time.perf_counter() - t0
     log(f"build: {path} in {secs:.2f} s")
     ptxas = path.parent / "ptxas.log"
+    report = []
     if ptxas.exists():
         OUT_JSON.parent.mkdir(parents=True, exist_ok=True)
         shutil.copy(ptxas, OUT_JSON.parent / "ptxas.log")
-    return secs
+        report = ptxas_report(ptxas.read_text())
+        for r in report:
+            if "mma_kernel" in r["kernel"]:
+                log(f"ptxas {r['kernel']}: {r.get('registers')} registers, "
+                    f"{r.get('spill_stores')} bytes spill stores, {r.get('spill_loads')} "
+                    f"bytes spill loads, {r.get('smem_static')} bytes static smem")
+    return secs, report
 
 
 def ln_shapes(batch):
@@ -407,6 +455,83 @@ def kernel_phase_attention(card, rows_out):
                         bound_ms=bound, bound_by=by, lse_err_ratio=lse_ratio)
 
 
+EDGE_LENGTHS = (1, 16, 37, 50, 64, 65, 129, 256)
+EDGE_BI = ((37, 50), (37, 256), (256, 50), (1, 65))
+
+
+def _edge_check(kernel, tag, got, want, lses, kept, dt):
+    """One edge case: the output(s) within the forward's tolerance, each
+    direction's lse within 1e-5 of max(1, |lse|) of attention_lse_plain,
+    its mask words bit for bit those of philox_keep_mask_plain; returns the
+    output's error / tolerance."""
+    from k3m_tpu_torch.kernels import attention_lse_plain
+    ratio = max(max_err(a, r) / tolerance(r, dt) for a, r in zip(got, want))
+    if not ratio <= 1.0:
+        raise AssertionError(f"{kernel} {tag} disagrees: {ratio} of its tolerance")
+    for lse, (q, k, b) in lses:
+        ref = attention_lse_plain(q, k, b)
+        if not bool(((lse - ref).abs() <= 1e-5 * ref.abs().clamp(min=1.0)).all()):
+            raise AssertionError(f"{kernel} {tag}: lse disagrees")
+    for words, keep in kept:
+        if not torch.equal(_words_to_mask(words, keep.shape[-1]), keep):
+            raise AssertionError(f"{kernel} {tag}: mask words differ")
+    return ratio
+
+
+def forward_edge_check(card):
+    """The forward kernels at the edges of their tiles, B 2, H 3, in fp32
+    and bf16 at rate 0 and 0.1, q/k/v strided views of packed projections:
+    the self-attention kernel at every Lq x Lk over EDGE_LENGTHS (one query
+    row; one key; a key tile and one more; a 64-row CTA and one more row;
+    8-warp CTAs at D 64) with D 64, 96 and 128, and the bi-attention kernel
+    at EDGE_BI with the same D (warps of padding rows, n-blocks past Lk, the
+    long direction first)."""
+    from k3m_tpu_torch.kernels import attention, attention_plain, biattention_plain, coattn, \
+        philox_keep_mask_plain
+    g = torch.Generator(device="cuda").manual_seed(5)
+    B, H, seed = 2, 3, 23
+    worst, cases = 0.0, 0
+    for D in (64, 96, 128):
+        for dt in (torch.float32, torch.bfloat16):
+            for Lq in EDGE_LENGTHS:
+                for Lk in EDGE_LENGTHS:
+                    q = _qkv(B, Lq, H, D, dt, g)[0]
+                    k, v = _qkv(B, Lk, H, D, dt, g)[1:]
+                    bias = _ragged_bias(B, Lk, g)
+                    for rate in RATES:
+                        keep = philox_keep_mask_plain(seed, B, H, Lq, Lk, rate, 0, "cuda") \
+                            if rate else None
+                        out, lse, words = attention._forward(q, k, v, bias, rate, seed,
+                                                             for_backward=True)
+                        worst = max(worst, _edge_check(
+                            "fused_attention", f"Lq{Lq} Lk{Lk} D{D} {_dt_name(dt)} rate {rate}",
+                            [out], [attention_plain(q, k, v, bias, keep, rate)],
+                            [(lse, (q, k, bias))], [(words, keep)] if rate else [], dt))
+                        cases += 1
+            for L1, L2 in EDGE_BI:
+                q1, k1, v1 = _qkv(B, L1, H, D, dt, g)
+                q2, k2, v2 = _qkv(B, L2, H, D, dt, g)
+                b1, b2 = _ragged_bias(B, L1, g), _ragged_bias(B, L2, g)
+                args = (q1, k1, v1, b1, q2, k2, v2, b2)
+                for rate in RATES:
+                    m1 = philox_keep_mask_plain(seed, B, H, L2, L1, rate, 0, "cuda") \
+                        if rate else None
+                    m2 = philox_keep_mask_plain(seed, B, H, L1, L2, rate, 7919, "cuda") \
+                        if rate else None
+                    c1, c2, (lse1, w1), (lse2, w2) = coattn._forward(*args, rate, rate, seed,
+                                                                     for_backward=True)
+                    worst = max(worst, _edge_check(
+                        "fused_biattention", f"L{L1}<->{L2} D{D} {_dt_name(dt)} rate {rate}",
+                        [c1, c2], biattention_plain(*args, m1, m2, rate, rate),
+                        [(lse1, (q2, k1, b1)), (lse2, (q1, k2, b2))],
+                        [(w1, m1), (w2, m2)] if rate else [], dt))
+                    cases += 1
+    torch.cuda.synchronize()
+    log(f"forward edges: {cases} cases of both forward kernels agree with their plain "
+        f"versions (worst error / tolerance {worst:.3e}), lse and mask words too | {card}")
+    return dict(cases=cases, worst_ratio=worst)
+
+
 def kernel_phase_biattention(card, rows_out):
     from k3m_tpu_torch.kernels import biattention_plain, fused_biattention, \
         philox_keep_mask_plain
@@ -485,7 +610,7 @@ def bwd_worst(got, ref, dtype):
     return float(err.flatten()[i]), float(tol.flatten()[i])
 
 
-BWD_TILE = 64      # keys per CTA of the bf16 dK/dV kernel (attention_mma.cuh kMmaBQ)
+BWD_TILE = 64      # keys per CTA of the bf16 dK/dV kernel (mma_util.cuh kMmaBQ)
 
 
 def _forward_kept(ops_, rate, seed):
@@ -718,8 +843,9 @@ def phase_kernels(card):
         phase(card, rows)
         torch.cuda.empty_cache()
     masks = dropout_mask_check(card)
+    edges = forward_edge_check(card)
     torch.cuda.empty_cache()
-    return rows, launch_overhead(card), masks
+    return rows, launch_overhead(card), masks, edges
 
 
 # ------------------------------------------------------------ slice phase
@@ -1209,12 +1335,13 @@ def main(argv):
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
     card = phase_env()
-    build_s = phase_build()
-    krows, host_us, masks = phase_kernels(card)
+    build_s, ptxas = phase_build()
+    krows, host_us, masks, edges = phase_kernels(card)
     if "--kernels-only" in argv:       # quick check of a kernel change
         OUT_JSON.parent.mkdir(parents=True, exist_ok=True)
-        OUT_JSON.write_text(json.dumps(dict(card=card, build_s=build_s, kernels=krows,
-                                            dropout_masks=masks, host_us_per_call=host_us),
+        OUT_JSON.write_text(json.dumps(dict(card=card, build_s=build_s, ptxas=ptxas,
+                                            kernels=krows, dropout_masks=masks,
+                                            forward_edges=edges, host_us_per_call=host_us),
                                        indent=1))
         return 0
     profile = "--profile" in argv
@@ -1226,8 +1353,9 @@ def main(argv):
     train_cross = phase_train_crosscheck(card)
     summary = summarize(krows, train_res)
     OUT_JSON.parent.mkdir(parents=True, exist_ok=True)
-    OUT_JSON.write_text(json.dumps(dict(card=card, build_s=build_s, kernels=krows,
-                                        dropout_masks=masks, host_us_per_call=host_us,
+    OUT_JSON.write_text(json.dumps(dict(card=card, build_s=build_s, ptxas=ptxas,
+                                        kernels=krows, dropout_masks=masks,
+                                        forward_edges=edges, host_us_per_call=host_us,
                                         slice=slice_res, crosscheck_worst=cross,
                                         train=train_res, train_crosscheck=train_cross,
                                         summary=summary), indent=1))

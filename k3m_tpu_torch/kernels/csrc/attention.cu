@@ -11,9 +11,11 @@
 // design keeps the [Lq, Lk] score matrix out of device memory (online
 // softmax over shared-memory K/V tiles) and reads the strided [B, L, H, D]
 // projections in place. bf16 runs both products on the tensor cores
-// (mma.sync, attention_mma.cuh); fp32 keeps scalar fp32 FMAs
-// (attention.cuh), so that its result stays within fp32 rounding of the
-// plain version.
+// (mma.sync, attention_mma.cuh: a cp.async ring of K/V tiles, ldmatrix
+// fragments, base-2 softmax, the dropout mask drawn beside the products,
+// dead rows and keys skipped), compiled with and without dropout; fp32
+// keeps scalar fp32 FMAs (attention.cuh), so that its result stays within
+// fp32 rounding of the plain version.
 #include "attention_mma.cuh"
 
 namespace {
@@ -27,20 +29,33 @@ __global__ void __launch_bounds__(k3m::kAttnThreads) attn_fwd_kernel(k3m::AttnAr
 template <int D, bool kDrop>
 __global__ void __launch_bounds__(k3m::kMmaThreads, k3m::fwd_min_blocks<D>())
 attn_fwd_mma_kernel(k3m::AttnArgs a) {
-  __shared__ k3m::MmaSmem<D> s;
-  k3m::attn_tile_mma<D, kDrop>(a, blockIdx.z, blockIdx.y, blockIdx.x * k3m::kMmaBQ, s);
+  extern __shared__ __align__(16) unsigned char smem[];
+  k3m::attn_tile_mma<D, kDrop>(a, blockIdx.z, blockIdx.y, blockIdx.x * k3m::kMmaBQ,
+                               *reinterpret_cast<k3m::FwdSmem<D>*>(smem));
+}
+
+// The tile's shared memory is over the 48 KB a launch gets without asking
+// (dynamically) at D 128: the kernel's limit is raised on the current
+// device at every launch (cheap; nothing is cached).
+template <int D, bool kDrop>
+int launch_mma_d(const k3m::AttnArgs& a, int B, int H, cudaStream_t stream) {
+  constexpr int bytes = sizeof(k3m::FwdSmem<D>);
+  const cudaError_t e = cudaFuncSetAttribute(attn_fwd_mma_kernel<D, kDrop>,
+                                             cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const dim3 grid((a.lq + k3m::kMmaBQ - 1) / k3m::kMmaBQ, H, B);
+  attn_fwd_mma_kernel<D, kDrop><<<grid, k3m::kMmaThreads, bytes, stream>>>(a);
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <bool kDrop>
 int launch_mma_drop(const k3m::AttnArgs& a, int B, int H, int d, cudaStream_t stream) {
-  const dim3 grid((a.lq + k3m::kMmaBQ - 1) / k3m::kMmaBQ, H, B);
   switch (d) {
-    case 64: attn_fwd_mma_kernel<64, kDrop><<<grid, k3m::kMmaThreads, 0, stream>>>(a); break;
-    case 96: attn_fwd_mma_kernel<96, kDrop><<<grid, k3m::kMmaThreads, 0, stream>>>(a); break;
-    case 128: attn_fwd_mma_kernel<128, kDrop><<<grid, k3m::kMmaThreads, 0, stream>>>(a); break;
+    case 64: return launch_mma_d<64, kDrop>(a, B, H, stream);
+    case 96: return launch_mma_d<96, kDrop>(a, B, H, stream);
+    case 128: return launch_mma_d<128, kDrop>(a, B, H, stream);
     default: return cudaErrorInvalidValue;
   }
-  return static_cast<int>(cudaGetLastError());
 }
 
 int launch_mma(const k3m::AttnArgs& a, int B, int H, int d, cudaStream_t stream) {
@@ -76,7 +91,8 @@ extern "C" int k3m_attention_fwd(const void* q, const void* k, const void* v,
                                  const long long* strides, float scale,
                                  unsigned seed, unsigned keep_min, float keep_scale,
                                  void* stream_ptr) {
-  if (B <= 0 || H <= 0 || lq <= 0 || lk <= 0 || B > 65535 || H > 65535)
+  if (B <= 0 || H <= 0 || lq <= 0 || lk <= 0 || B > 65535 || H > 65535 ||
+      keep_min >= k3m::kKeepMinLimit)
     return cudaErrorInvalidValue;
   k3m::AttnArgs a = k3m::make_args(q, k, v, bias, out, strides, lq, lk, H, scale,
                                    seed, keep_min, keep_scale);

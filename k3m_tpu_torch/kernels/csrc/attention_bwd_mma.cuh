@@ -27,7 +27,8 @@
 // distinct bank groups. A fragments and the B fragments of the products
 // over d come from ldmatrix, those of the products over the rows (dQ += dS K,
 // A += P K, dV += P~^T dO, dK += dS^T Q) from ldmatrix.trans of the same
-// tile, so nothing is stored twice. Each CTA keeps its own 64 rows (Q, dO
+// tile, so nothing is stored twice (the helpers are mma_util.cuh's, shared
+// with the forward). Each CTA keeps its own 64 rows (Q, dO
 // and O, or K and V) in shared memory, and the streamed tiles (K, V, the key
 // bias; or Q, dO, lse, D_i, the keep words) go through a two-stage cp.async
 // ring: the next tile loads while the current one computes, and no thread
@@ -52,8 +53,6 @@ struct BwdArgs {
   void* dk;             // contiguous [B, Lk, H, D]
   void* dv;
 };
-
-constexpr float kLog2e = 1.4426950408889634f;
 
 // rows of the streamed tiles: 64 where the registers allow, else 32
 template <int D>
@@ -83,86 +82,8 @@ struct DkvMmaSmem {
   uint32_t keep[2][BQ][2];    // keep words of the CTA's 64 keys, per query
 };
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes global -> shared, asynchronous; zeros where !valid (src not read)
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)),
-               "l"(src), "r"(valid ? 16 : 0));
-}
-
-// 4 bytes global -> shared, asynchronous; zero where !valid
-__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool valid) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_u32(dst)),
-               "l"(src), "r"(valid ? 4 : 0));
-}
-
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-// four 8x8 b16 matrices; lane l gives a row address of matrix l / 8
-__device__ __forceinline__ void ldsm4(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_u32(p)));
-}
-
-__device__ __forceinline__ void ldsm4_t(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_u32(p)));
-}
-
-// rows [r0, r0 + ROWS) of a [L, D] bf16 operand into `dst` [row][d] with
-// cp.async (not yet committed); zeros past `n`
-template <int ROWS, int D>
-__device__ __forceinline__ void cp_tile(__nv_bfloat16 (*dst)[D + kPad], const __nv_bfloat16* base,
-                                        long long sl, int r0, int n) {
-  constexpr int kVecs = D / 8;
-  for (int idx = threadIdx.x; idx < ROWS * kVecs; idx += kMmaThreads) {
-    const int j = idx / kVecs, d = (idx % kVecs) * 8, r = r0 + j;
-    const bool ok = r < n;
-    cp_async16(&dst[j][d], base + (ok ? r : 0) * sl + d, ok);
-  }
-}
-
-// elements [i0, i0 + N) of an fp32 row into `dst` with cp.async (not yet
-// committed); zeros past `n`
-template <int N>
-__device__ __forceinline__ void cp_row(float* dst, const float* src, int i0, int n) {
-  for (int i = threadIdx.x; i < N; i += kMmaThreads) {
-    const bool ok = i0 + i < n;
-    cp_async4(dst + i, src + (ok ? i0 + i : 0), ok);
-  }
-}
-
-// acc[NB][4] = A (16 rows [a0, a0 + 16) of `at` [row][d]) times B,
-// B[d][n] = bt[n][d] for the NB * 8 rows of `bt`: a product over d
-// (S = Q K^T, dP = dO V^T, S^T = K Q^T, dP^T = V dO^T)
-template <int D, int NB>
-__device__ __forceinline__ void mma_over_d(float (&acc)[NB][4], const __nv_bfloat16 (*at)[D + kPad],
-                                           int a0, const __nv_bfloat16 (*bt)[D + kPad], int lane) {
-  const int row = (lane & 7) + ((lane >> 4) << 3), col = ((lane >> 3) & 1) * 8;
-#pragma unroll
-  for (int nb = 0; nb < NB; ++nb) acc[nb][0] = acc[nb][1] = acc[nb][2] = acc[nb][3] = 0.f;
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    uint32_t fa[4];
-    ldsm4(fa, &at[a0 + (lane & 15)][kk * 16 + (lane >> 4) * 8]);
-#pragma unroll
-    for (int np = 0; np < NB / 2; ++np) {
-      uint32_t b[4];
-      ldsm4(b, &bt[np * 16 + row][kk * 16 + col]);
-      mma_bf16(acc[2 * np], fa, b[0], b[1]);
-      mma_bf16(acc[2 * np + 1], fa, b[2], b[3]);
-    }
-  }
+__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
 }
 
 // C-layout fp32 [16 x 8*NB] -> bf16 A fragments [16 x 16] x NB/2
@@ -172,26 +93,6 @@ __device__ __forceinline__ void to_a_frags(uint32_t (&fa)[NB / 2][4], const floa
   for (int nb = 0; nb < NB; ++nb) {
     fa[nb / 2][(nb % 2) * 2 + 0] = pack_bf16(c[nb][0], c[nb][1]);
     fa[nb / 2][(nb % 2) * 2 + 1] = pack_bf16(c[nb][2], c[nb][3]);
-  }
-}
-
-// acc[D/8][4] += A (16 x 8*NB, fragments fa) times the rows of `bt`
-// ([8*NB][D] row-major: B[row][d], a product over the rows), B fragments
-// from ldmatrix.trans
-template <int D, int NB>
-__device__ __forceinline__ void mma_over_rows(float (&acc)[D / 8][4],
-                                              const uint32_t (&fa)[NB / 2][4],
-                                              const __nv_bfloat16 (*bt)[D + kPad], int lane) {
-  const int row = (lane & 7) + ((lane >> 3) & 1) * 8, col = (lane >> 4) * 8;
-#pragma unroll
-  for (int kk = 0; kk < NB / 2; ++kk) {
-#pragma unroll
-    for (int dp = 0; dp < D / 16; ++dp) {
-      uint32_t b[4];
-      ldsm4_t(b, &bt[kk * 16 + row][dp * 16 + col]);
-      mma_bf16(acc[2 * dp], fa[kk], b[0], b[1]);
-      mma_bf16(acc[2 * dp + 1], fa[kk], b[2], b[3]);
-    }
   }
 }
 

@@ -1,73 +1,83 @@
-// Tensor-core device code of one bf16 attention tile, shared by the
+// Tensor-core device code of one bf16 attention forward tile, shared by the
 // self-attention kernel (attention.cu) and the co-attention kernel
 // (coattn.cu). The fp32 kernels keep the scalar tile of attention.cuh.
 //
-// One CTA of 4 warps owns kMmaBQ = 64 query rows of one (batch, head), 16
-// per warp, and streams the keys in tiles of kMmaBK = 64 through shared
-// memory with an online softmax. Both products run on the tensor cores with
-// mma.sync.m16n8k16 (bf16 in, fp32 accumulate):
-//   S = Q K^T : Q's A fragments are loaded once from device memory into
-//               registers; K^T's B fragments are 32-bit shared loads of the
-//               [key][d] tile (a "col" B operand is K row-major).
-//   O += P V  : the fp32 S accumulators are exactly the A-fragment layout
-//               of the next product, so P goes from registers to the tensor
-//               cores after one bf16 rounding (as FlashAttention-2 does);
-//               V is stored transposed, [d][key], so its B fragments are
-//               32-bit loads too.
-// The softmax statistics (running max m and sum l) stay fp32 and use the
-// unrounded, undropped probabilities; under dropout the P fragments carry
-// the dropped ones and the output is scaled by keep_scale / l at the end.
-// The mask costs one Philox call per four elements (keep_bits_qk), and a
-// non-null a.keep_words receives it, one bit per element, for the backward.
-// Shared rows are padded by 8 bf16 so the 8 rows a fragment load touches
-// fall in distinct banks. Keys past Lk score -inf and their K/V rows are
-// zero; query rows past Lq run on zeros and are not stored. A non-null
-// a.lse receives each row's m + log l (attention.cuh). Operands need
-// 16-byte aligned rows (strides multiples of 8 elements), which the
-// launchers and the Python wrappers check.
+// A CTA of 4 warps owns 64 query rows of one (batch, head), 16 per warp,
+// and streams the keys in tiles of fwd_bk<D>() with an online softmax.
+// What bounds it on the H100 at the model's shapes (L <= 256, D 64-128) is
+// latency and instruction issue, not the tensor cores (4 B H Lq Lk D flops
+// take a third of the byte time at L 256), and under dropout the integer
+// work of the Philox mask. The design:
+//   loads     Q is staged once into shared memory with cp.async (16-byte
+//             rows); K, V and the key bias go through a two-stage cp.async
+//             ring of row-major [key][D + 8] tiles, so tile j + 1 is in
+//             flight while tile j computes (mma_util.cuh);
+//   products  both on mma.sync.m16n8k16 (bf16 in, fp32 accumulate): S =
+//             Q K^T with A and B fragments from ldmatrix, O += P V with P
+//             from registers (the fp32 S accumulators are the A-fragment
+//             layout after one bf16 rounding, as in FlashAttention-2) and
+//             V's B fragments from ldmatrix.trans of the row-major tile;
+//   softmax   base 2: x = s scale log2(e) + bias log2(e) is one FFMA, then
+//             one MUFU.EX2 (ex2.approx.ftz: a probability below 2^-126 of
+//             the row's largest is 0); the running max m and sum l stay fp32
+//             and use the unrounded, undropped probabilities; the stored lse
+//             is the natural-log m ln 2 + log l;
+//   dropout   K, V and the bias are stored key-permuted in groups of 16
+//             (perm16), so that the 4 accumulator columns a thread holds in a
+//             group's two n-blocks are 4 consecutive keys: one Philox call
+//             (keep_nibble) gives their mask in each of its rows, with no
+//             exchange between lanes, and the calls of rows r0 and r1 run
+//             round by round, drawn beside the tile's products. P V takes
+//             the dropped probabilities and the output is scaled by
+//             keep_scale / l at the end; a non-null a.keep_words receives
+//             the mask, one bit per element (store_keep_words);
+//   dead work a warp whose 16 rows all lie at or past Lq only loads and
+//             waits; in the last tile, the n-blocks of S (and the k-steps of
+//             P V) whose first key is at or past Lk are skipped and draw no
+//             mask (keys past Lk in a live n-block score -inf, their K/V
+//             rows are zero);
+//   output    each warp writes its bf16 rows into its own Q rows in shared
+//             memory and stores them as 16-byte rows.
+// Key tiles are 64 keys at D 64 and 32 at D 96/128, where a smaller ring
+// leaves room for three CTAs per SM. Operands need 16-byte aligned rows
+// (strides multiples of 8 elements), which the launchers and the Python
+// wrappers check.
 #pragma once
 
 #include <math.h>
 #include <stdint.h>
 
 #include "attention.cuh"
+#include "mma_util.cuh"
 
 namespace k3m {
 
-constexpr int kMmaWarps = 4;
-constexpr int kMmaThreads = 32 * kMmaWarps;
-constexpr int kMmaBQ = 16 * kMmaWarps;   // query rows per CTA
-constexpr int kMmaBK = 64;               // keys per shared tile
-constexpr int kPad = 8;                  // bf16 padding per shared row
+constexpr float kLn2 = 0.6931471805599453f;
 
-// CTAs per SM the tile's kernels are compiled for: at D 64 the tile fits in
-// 128 registers, so that 4 CTAs share an SM (at 130 only 3 would)
+// keys per shared tile
 template <int D>
-constexpr int fwd_min_blocks() { return D <= 64 ? 4 : 1; }
+constexpr int fwd_bk() { return D <= 64 ? 64 : 32; }
+
+// CTAs per SM the forward kernels are compiled for: at D 64 the tile fits
+// in 128 registers, so that 4 CTAs share an SM; at D 96 and 128 three
+template <int D>
+constexpr int fwd_min_blocks() { return D <= 64 ? 4 : 3; }
 
 template <int D>
-struct MmaSmem {
-  __nv_bfloat16 k[kMmaBK][D + kPad];
-  __nv_bfloat16 vt[D][kMmaBK + kPad];
-  float bias[kMmaBK];
+struct FwdSmem {
+  static constexpr int BK = fwd_bk<D>();
+  __nv_bfloat16 q[kMmaBQ][D + kPad];     // the CTA's query rows; at the end each
+                                         // warp's 16 rows take its output
+  __nv_bfloat16 k[2][BK][D + kPad];      // the two stages of the key ring
+  __nv_bfloat16 v[2][BK][D + kPad];
+  float bias[2][BK];
 };
 
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
+// 2^x on the MUFU unit; a result below 2^-126 is flushed to 0
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
 }
 
 // True when every row the tile reads or writes starts 16-byte aligned.
@@ -82,82 +92,104 @@ inline bool mma_aligned(const AttnArgs& a) {
   return true;
 }
 
-// kDrop: compiled with dropout (applied where a.keep_min is set); the
-// kernels without it carry none of its registers (the serving path)
+// a compile-time flag passed to the tile's generic lambda
+template <bool B>
+struct Flag {
+  static constexpr bool value = B;
+};
+
+// kDrop: compiled with dropout (a.keep_min 0 keeps every element); the
+// copies without it carry none of its registers (the serving path)
 template <int D, bool kDrop>
-__device__ __forceinline__ void attn_tile_mma(const AttnArgs& a, int b, int h,
-                                              int q0, MmaSmem<D>& s) {
+__device__ __forceinline__ void attn_tile_mma(const AttnArgs& a, int b, int h, int q0,
+                                              FwdSmem<D>& s) {
   static_assert(D % 16 == 0, "head dim must be a multiple of 16");
-  constexpr int kSteps = D / 16;     // k-steps of S = Q K^T
-  constexpr int kDBlocks = D / 8;    // n-blocks of O
-  constexpr int kVecs = D / 8;       // 16-byte vectors per row
-  const int tid = threadIdx.x;
-  const int warp = tid / 32, lane = tid % 32;
+  constexpr int BK = FwdSmem<D>::BK;
+  constexpr int kNB = BK / 8;        // n-blocks of S per key tile
+  constexpr int kDB = D / 8;         // n-blocks of O
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int g = lane / 4, t = lane % 4;   // fragment row group, column pair
   const __nv_bfloat16* q = static_cast<const __nv_bfloat16*>(a.q) + b * a.q_sb + h * a.q_sh;
   const __nv_bfloat16* k = static_cast<const __nv_bfloat16*>(a.k) + b * a.k_sb + h * a.k_sh;
   const __nv_bfloat16* v = static_cast<const __nv_bfloat16*>(a.v) + b * a.v_sb + h * a.v_sh;
   const float* bias = a.bias + b * a.bias_sb;
+  const int row0 = warp * 16;                 // the warp's first row in the CTA
+  const int r0 = q0 + row0 + g, r1 = r0 + 8;  // this thread's two query rows
+  const bool live = q0 + row0 < a.lq;         // warp-uniform
+  const uint32_t bh = static_cast<uint32_t>(b * a.heads + h);
+  const long long row_base = static_cast<long long>(bh) * a.lq;
+  const float scale2 = a.scale * kLog2e;
+  const int tiles = (a.lk + BK - 1) / BK;
 
-  // this thread's two query rows and its Q A-fragments
-  const int r0 = q0 + warp * 16 + g, r1 = r0 + 8;
-  uint32_t qa[kSteps][4];
-#pragma unroll
-  for (int kk = 0; kk < kSteps; ++kk) {
-    const int c = kk * 16 + 2 * t;
-    qa[kk][0] = r0 < a.lq ? ld32(q + r0 * a.q_sl + c) : 0u;
-    qa[kk][1] = r1 < a.lq ? ld32(q + r1 * a.q_sl + c) : 0u;
-    qa[kk][2] = r0 < a.lq ? ld32(q + r0 * a.q_sl + c + 8) : 0u;
-    qa[kk][3] = r1 < a.lq ? ld32(q + r1 * a.q_sl + c + 8) : 0u;
-  }
+  // stage st <- key tile at k0: K, V and the key bias, key-permuted in
+  // groups of 16 (perm16), so that the 4 accumulator columns a thread holds
+  // in a group's two n-blocks are 4 consecutive keys: one Philox call each
+  // for its rows r0 and r1, no exchange between lanes
+  auto issue = [&](int st, int k0) {
+    cp_tile<BK, D, true>(s.k[st], k, a.k_sl, k0, a.lk);
+    cp_tile<BK, D, true>(s.v[st], v, a.v_sl, k0, a.lk);
+    cp_row<BK, true>(s.bias[st], bias, k0, a.lk);
+    cp_async_commit();
+  };
+  cp_tile<kMmaBQ, D>(s.q, q, a.q_sl, q0, a.lq);   // committed with stage 0
+  issue(0, 0);
 
-  float o[kDBlocks][4];
+  float o[kDB][4];
 #pragma unroll
-  for (int i = 0; i < kDBlocks; ++i) o[i][0] = o[i][1] = o[i][2] = o[i][3] = 0.f;
-  float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;
+  for (int i = 0; i < kDB; ++i) o[i][0] = o[i][1] = o[i][2] = o[i][3] = 0.f;
+  float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;   // m in log2 units
 
-  for (int k0 = 0; k0 < a.lk; k0 += kMmaBK) {
-    __syncthreads();  // the previous K/V tile is consumed
-    // K: a warp reads whole rows (d fastest); V: a warp reads 32 keys of
-    // one 8-column slice (key fastest), so its transposed stores hit one
-    // shared row each and no bank twice
-    for (int idx = tid; idx < kMmaBK * kVecs; idx += kMmaThreads) {
-      const int j = idx / kVecs, d = (idx % kVecs) * 8, kj = k0 + j;
-      uint4 kv = make_uint4(0u, 0u, 0u, 0u);
-      if (kj < a.lk) kv = *reinterpret_cast<const uint4*>(k + kj * a.k_sl + d);
-      *reinterpret_cast<uint4*>(&s.k[j][d]) = kv;
-    }
-    for (int idx = tid; idx < kMmaBK * kVecs; idx += kMmaThreads) {
-      const int j = idx % kMmaBK, d = (idx / kMmaBK) * 8, kj = k0 + j;
-      uint4 vv = make_uint4(0u, 0u, 0u, 0u);
-      if (kj < a.lk) vv = *reinterpret_cast<const uint4*>(v + kj * a.v_sl + d);
-      const __nv_bfloat16* ve = reinterpret_cast<const __nv_bfloat16*>(&vv);
+  // n-blocks of the tile at k0 that hold a key below Lk (a prefix: n-block
+  // 2 m + a of the permuted tile starts at key k0 + 16 m + 2 a)
+  auto live_blocks = [&](int k0) {
+    const int n = a.lk - k0;
+    return n >= BK ? kNB : 2 * (n / 16) + (n % 16 > 2 ? 2 : n % 16 > 0 ? 1 : 0);
+  };
+  // the keep bits of the tile at k0 (store_keep_words' layout): keys
+  // k0 + 16 m + 4 t + [0, 4) of rows r0 and r1, in the 16-key groups that
+  // hold a live n-block; the two calls of a group run round by round
+  auto draw = [&](int k0, int nlive) {
+    uint32_t bits = 0;
 #pragma unroll
-      for (int i = 0; i < 8; ++i) s.vt[d + i][j] = ve[i];
-    }
-    if (tid < kMmaBK) s.bias[tid] = k0 + tid < a.lk ? bias[k0 + tid] : -INFINITY;
-    __syncthreads();
-
-    // S = Q K^T over this tile: 8 n-blocks of 8 keys
-    float sc[kMmaBK / 8][4];
-#pragma unroll
-    for (int nb = 0; nb < kMmaBK / 8; ++nb) {
-      sc[nb][0] = sc[nb][1] = sc[nb][2] = sc[nb][3] = 0.f;
-#pragma unroll
-      for (int kk = 0; kk < kSteps; ++kk) {
-        const __nv_bfloat16* kr = &s.k[nb * 8 + g][kk * 16 + 2 * t];
-        mma_bf16(sc[nb], qa[kk], ld32(kr), ld32(kr + 8));
+    for (int m = 0; m < kNB / 2; ++m) {
+      if (2 * m < nlive) {
+        const uint32_t c4 = static_cast<uint32_t>(k0 / 4 + 4 * m + t);
+        uint4 c[2] = {make_uint4(c4, static_cast<uint32_t>(r0), 0u, 0u),
+                      make_uint4(c4, static_cast<uint32_t>(r1), 0u, 0u)};
+        philox4x32_10_n<2>(c, make_uint2(a.seed, bh));
+        bits |= (keep_nibble(c[0], a.keep_min) | keep_nibble(c[1], a.keep_min) << 4) << (8 * m);
       }
     }
-    // scale, key bias (-inf past Lk) and the rows' tile max
+    return bits;
+  };
+
+  // one key tile of this warp's 16 rows; kPart: the tile reaches past Lk.
+  // The mask is drawn here, in the same block as the products, so that the
+  // Philox chains issue beside them
+  auto step = [&](int st, int k0, auto part) {
+    constexpr bool kPart = decltype(part)::value;
+    const int nlive = kPart ? live_blocks(k0) : kNB;
+    const uint32_t bits = kDrop ? draw(k0, nlive) : 0u;
+    float sc[kNB][4];
+    mma_over_d<D, kNB>(sc, s.q, row0, s.k[st], lane, nlive);   // S = Q K^T
+
+    // base-2 scores and the rows' tile max
     float t0 = -INFINITY, t1 = -INFINITY;
 #pragma unroll
-    for (int nb = 0; nb < kMmaBK / 8; ++nb) {
+    for (int nb = 0; nb < kNB; ++nb) {
+      if (kPart && nb >= nlive) continue;
       const int c = nb * 8 + 2 * t;
-      sc[nb][0] = sc[nb][0] * a.scale + s.bias[c];
-      sc[nb][1] = sc[nb][1] * a.scale + s.bias[c + 1];
-      sc[nb][2] = sc[nb][2] * a.scale + s.bias[c];
-      sc[nb][3] = sc[nb][3] * a.scale + s.bias[c + 1];
+      const float2 bb = *reinterpret_cast<const float2*>(&s.bias[st][c]);
+      float b0 = bb.x * kLog2e, b1 = bb.y * kLog2e;
+      if (kPart) {   // column 2 t + e of n-block 2 m + a is key 16 m + 4 t + 2 a + e
+        const int key = k0 + 16 * (nb / 2) + 4 * t + 2 * (nb % 2);
+        if (key >= a.lk) b0 = -INFINITY;
+        if (key + 1 >= a.lk) b1 = -INFINITY;
+      }
+      sc[nb][0] = fmaf(sc[nb][0], scale2, b0);
+      sc[nb][1] = fmaf(sc[nb][1], scale2, b1);
+      sc[nb][2] = fmaf(sc[nb][2], scale2, b0);
+      sc[nb][3] = fmaf(sc[nb][3], scale2, b1);
       t0 = fmaxf(t0, fmaxf(sc[nb][0], sc[nb][1]));
       t1 = fmaxf(t1, fmaxf(sc[nb][2], sc[nb][3]));
     }
@@ -168,35 +200,34 @@ __device__ __forceinline__ void attn_tile_mma(const AttnArgs& a, int b, int h,
     }
     // every tile holds at least one real key, so the new maxima are finite
     const float mn0 = fmaxf(m0, t0), mn1 = fmaxf(m1, t1);
-    const float al0 = expf(m0 - mn0), al1 = expf(m1 - mn1);
+    const float al0 = ex2(m0 - mn0), al1 = ex2(m1 - mn1);
     m0 = mn0;
     m1 = mn1;
     float s0 = 0.f, s1 = 0.f;
-    uint32_t pa[kMmaBK / 16][4];   // P as A fragments, bf16
-    uint32_t tile_bits = 0;        // keep bits, 4 nb + e
+    uint32_t pa[kNB / 2][4];   // P as A fragments, bf16
 #pragma unroll
-    for (int nb = 0; nb < kMmaBK / 8; ++nb) {
-      const float p0 = expf(sc[nb][0] - mn0), p1 = expf(sc[nb][1] - mn0);
-      const float p2 = expf(sc[nb][2] - mn1), p3 = expf(sc[nb][3] - mn1);
+    for (int nb = 0; nb < kNB; ++nb) {
+      uint32_t& lo = pa[nb / 2][(nb % 2) * 2 + 0];
+      uint32_t& hi = pa[nb / 2][(nb % 2) * 2 + 1];
+      if (kPart && nb >= nlive) {
+        lo = hi = 0u;
+        continue;
+      }
+      const float p0 = ex2(sc[nb][0] - mn0), p1 = ex2(sc[nb][1] - mn0);
+      const float p2 = ex2(sc[nb][2] - mn1), p3 = ex2(sc[nb][3] - mn1);
       s0 += p0 + p1;
       s1 += p2 + p3;
-      float d0 = p0, d1 = p1, d2 = p2, d3 = p3;
-      if (kDrop && a.keep_min) {
-        const uint32_t kb = keep_bits_qk(a.seed, b * a.heads + h, r0, r1, k0 + nb * 8,
-                                         a.keep_min, t);
-        tile_bits |= kb << (4 * nb);
-        d0 = kb & 1u ? p0 : 0.f;
-        d1 = kb & 2u ? p1 : 0.f;
-        d2 = kb & 4u ? p2 : 0.f;
-        d3 = kb & 8u ? p3 : 0.f;
+      if (kDrop) {   // row r0's keys at bits 8 m + 2 a + [0, 2), row r1's 4 above
+        const uint32_t kb = bits >> (8 * (nb / 2) + 2 * (nb % 2));
+        lo = pack_bf16(kb & 1u ? p0 : 0.f, kb & 2u ? p1 : 0.f);
+        hi = pack_bf16(kb & 16u ? p2 : 0.f, kb & 32u ? p3 : 0.f);
+      } else {
+        lo = pack_bf16(p0, p1);
+        hi = pack_bf16(p2, p3);
       }
-      pa[nb / 2][(nb % 2) * 2 + 0] = pack_bf16(d0, d1);
-      pa[nb / 2][(nb % 2) * 2 + 1] = pack_bf16(d2, d3);
     }
-    if (kDrop && a.keep_min && a.keep_words != nullptr)
-      store_keep_words<kMmaBK>(a.keep_words, tile_bits,
-                               (static_cast<long long>(b) * a.heads + h) * a.lq, r0, r1, k0,
-                               a.lq, a.lk, t);
+    if (kDrop && a.keep_words != nullptr)
+      store_keep_words<BK>(a.keep_words, bits, row_base, r0, r1, k0, a.lq, a.lk, t);
 #pragma unroll
     for (int off = 1; off < 4; off <<= 1) {
       s0 += __shfl_xor_sync(0xffffffffu, s0, off);
@@ -205,40 +236,57 @@ __device__ __forceinline__ void attn_tile_mma(const AttnArgs& a, int b, int h,
     l0 = l0 * al0 + s0;
     l1 = l1 * al1 + s1;
 #pragma unroll
-    for (int db = 0; db < kDBlocks; ++db) {
+    for (int db = 0; db < kDB; ++db) {
       o[db][0] *= al0;
       o[db][1] *= al0;
       o[db][2] *= al1;
       o[db][3] *= al1;
     }
-    // O += P V: 4 k-steps of 16 keys, kDBlocks n-blocks of 8 columns
-#pragma unroll
-    for (int kk = 0; kk < kMmaBK / 16; ++kk) {
-#pragma unroll
-      for (int db = 0; db < kDBlocks; ++db) {
-        const __nv_bfloat16* vr = &s.vt[db * 8 + g][kk * 16 + 2 * t];
-        mma_bf16(o[db], pa[kk], ld32(vr), ld32(vr + 8));
-      }
-    }
-  }
+    mma_over_rows<D, kNB>(o, pa, s.v[st], lane, nlive);   // O += P V
+  };
 
-  __nv_bfloat16* out = static_cast<__nv_bfloat16*>(a.out) + b * a.o_sb + h * a.o_sh;
-  const float ks = kDrop && a.keep_min ? a.keep_scale : 1.f;
+  for (int it = 0; it < tiles; ++it) {
+    const int st = it & 1, k0 = it * BK;
+    if (it + 1 < tiles) {
+      issue(st ^ 1, k0 + BK);   // that stage was consumed before the last barrier
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    if (live) {
+      if (k0 + BK <= a.lk)
+        step(st, k0, Flag<false>{});
+      else
+        step(st, k0, Flag<true>{});
+    }
+    __syncthreads();   // stage st is consumed
+  }
+  if (!live) return;
+
+  // the output through this warp's own Q rows (no other warp reads them)
+  __nv_bfloat16(*stage)[D + kPad] = s.q + row0;
+  __syncwarp();
+  const float ks = kDrop ? a.keep_scale : 1.f;
   const float inv0 = ks / l0, inv1 = ks / l1;
 #pragma unroll
-  for (int db = 0; db < kDBlocks; ++db) {
+  for (int db = 0; db < kDB; ++db) {
     const int c = db * 8 + 2 * t;
-    if (r0 < a.lq)
-      *reinterpret_cast<uint32_t*>(out + r0 * a.o_sl + c) =
-          pack_bf16(o[db][0] * inv0, o[db][1] * inv0);
-    if (r1 < a.lq)
-      *reinterpret_cast<uint32_t*>(out + r1 * a.o_sl + c) =
-          pack_bf16(o[db][2] * inv1, o[db][3] * inv1);
+    *reinterpret_cast<uint32_t*>(&stage[g][c]) = pack_bf16(o[db][0] * inv0, o[db][1] * inv0);
+    *reinterpret_cast<uint32_t*>(&stage[g + 8][c]) = pack_bf16(o[db][2] * inv1, o[db][3] * inv1);
+  }
+  __syncwarp();
+  __nv_bfloat16* out = static_cast<__nv_bfloat16*>(a.out) + b * a.o_sb + h * a.o_sh;
+#pragma unroll
+  for (int i = lane; i < 16 * kDB; i += 32) {
+    const int rr = i / kDB, d = (i % kDB) * 8, r = q0 + row0 + rr;
+    if (r < a.lq)
+      *reinterpret_cast<uint4*>(out + r * a.o_sl + d) =
+          *reinterpret_cast<const uint4*>(&stage[rr][d]);
   }
   if (a.lse != nullptr && t == 0) {
-    float* lse = a.lse + (static_cast<long long>(b) * a.heads + h) * a.lq;
-    if (r0 < a.lq) lse[r0] = m0 + logf(l0);
-    if (r1 < a.lq) lse[r1] = m1 + logf(l1);
+    if (r0 < a.lq) a.lse[row_base + r0] = m0 * kLn2 + logf(l0);
+    if (r1 < a.lq) a.lse[row_base + r1] = m1 * kLn2 + logf(l1);
   }
 }
 

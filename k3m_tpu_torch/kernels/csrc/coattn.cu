@@ -10,11 +10,14 @@
 //
 // Bound on the H100: like the self-attention kernel, reading the six
 // projections once and writing both contexts once; the arithmetic is small.
-// Design: one grid over (query tile of either direction, head, batch); the
-// first ceil(L2/16) tiles along x serve direction 1, the rest direction 2,
-// so both directions share one launch and one wave of CTAs. Each CTA runs
-// the same device code as the self-attention kernel: the tensor-core tile
-// of attention_mma.cuh in bf16, the scalar tile of attention.cuh in fp32.
+// Design: both directions share one launch. In bf16 a one-dimensional grid
+// holds every 64-row query tile of both directions, those of the direction
+// with the longer key walk first (at 37<->256, the 37 queries over 256 keys:
+// each of their CTAs walks 4 key tiles, the other direction's one), and
+// each CTA runs the self-attention kernel's tensor-core tile
+// (attention_mma.cuh), which skips the warps of padding rows (Lq 37, 50)
+// and the n-blocks past Lk. fp32 runs the scalar tile of attention.cuh over
+// a grid of (query tile of either direction, head, batch).
 // The head dim is a template parameter, so D = 96 (c_layer_pv_t: 8 heads
 // over 768) needs no padding to a power of two.
 #include "attention_mma.cuh"
@@ -32,32 +35,71 @@ biattn_fwd_kernel(k3m::AttnArgs dir1, k3m::AttnArgs dir2, int tiles1) {
     k3m::attn_tile<T, D>(dir2, blockIdx.z, blockIdx.y, (t - tiles1) * k3m::kBQ, s);
 }
 
-// One instantiation, dropout compiled in (the tile applies it where
-// keep_min is set): without it the two inlined directions measured slower
-// at D 96 and 128, while the self-attention kernel gained
-template <int D>
-__global__ void __launch_bounds__(k3m::kMmaThreads, k3m::fwd_min_blocks<D>())
-biattn_fwd_mma_kernel(k3m::AttnArgs dir1, k3m::AttnArgs dir2, int tiles1) {
-  __shared__ k3m::MmaSmem<D> s;
-  const int t = blockIdx.x;
-  if (t < tiles1)
-    k3m::attn_tile_mma<D, true>(dir1, blockIdx.z, blockIdx.y, t * k3m::kMmaBQ, s);
-  else
-    k3m::attn_tile_mma<D, true>(dir2, blockIdx.z, blockIdx.y, (t - tiles1) * k3m::kMmaBQ, s);
+// The two directions of one launch. dir[0], whose CTAs walk more key
+// tiles, takes the lower block indices, so its CTAs start first and the
+// short ones fill the tail; ctas0 = B H ceil(Lq0 / 64) of them.
+struct BiDirs {
+  k3m::AttnArgs dir[2];
+  int ctas0;
+};
+
+// A CTA of 4 warps serves 64 query rows of either direction; a warp of
+// padding rows only loads and waits (at Lq 37 the fourth, so that 37 rows
+// compute as 48). The parameter is __grid_constant__, so that the direction
+// is picked by index without a local copy and the tile is inlined once.
+// At D 64 (not a shape of the model) it compiles for 3 CTAs per SM: under
+// the 128-register cap of 4 the direction's parameters would spill.
+template <int D, bool kDrop>
+__global__ void __launch_bounds__(k3m::kMmaThreads, D <= 64 ? 3 : k3m::fwd_min_blocks<D>())
+biattn_fwd_mma_kernel(const __grid_constant__ BiDirs dirs) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int second = static_cast<int>(blockIdx.x) >= dirs.ctas0;
+  const k3m::AttnArgs& a = dirs.dir[second];
+  const int i = static_cast<int>(blockIdx.x) - (second ? dirs.ctas0 : 0);
+  const int tiles = (a.lq + k3m::kMmaBQ - 1) / k3m::kMmaBQ;
+  const int bh = i / tiles;
+  k3m::attn_tile_mma<D, kDrop>(a, bh / a.heads, bh % a.heads, (i % tiles) * k3m::kMmaBQ,
+                               *reinterpret_cast<k3m::FwdSmem<D>*>(smem));
+}
+
+// Shared memory is raised past the 48 KB default at every launch, as in
+// attention.cu.
+template <int D, bool kDrop>
+int launch_mma_d(const BiDirs& dirs, int B, int H, cudaStream_t stream) {
+  constexpr int bytes = sizeof(k3m::FwdSmem<D>);
+  const cudaError_t e = cudaFuncSetAttribute(biattn_fwd_mma_kernel<D, kDrop>,
+                                             cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const long long ctas = static_cast<long long>(B) * H *
+                         ((dirs.dir[0].lq + k3m::kMmaBQ - 1) / k3m::kMmaBQ +
+                          (dirs.dir[1].lq + k3m::kMmaBQ - 1) / k3m::kMmaBQ);
+  if (ctas > 0x7fffffffLL) return cudaErrorInvalidValue;
+  biattn_fwd_mma_kernel<D, kDrop><<<static_cast<unsigned>(ctas), k3m::kMmaThreads, bytes,
+                                    stream>>>(dirs);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The copy compiled with dropout where either direction drops, else the
+// one without (the serving path).
+template <bool kDrop>
+int launch_mma_drop(const BiDirs& dirs, int B, int H, int d, cudaStream_t stream) {
+  switch (d) {
+    case 64: return launch_mma_d<64, kDrop>(dirs, B, H, stream);
+    case 96: return launch_mma_d<96, kDrop>(dirs, B, H, stream);
+    case 128: return launch_mma_d<128, kDrop>(dirs, B, H, stream);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 int launch_mma(const k3m::AttnArgs& dir1, const k3m::AttnArgs& dir2, int B, int H,
                int d, cudaStream_t stream) {
-  const int tiles1 = (dir1.lq + k3m::kMmaBQ - 1) / k3m::kMmaBQ;
-  const int tiles2 = (dir2.lq + k3m::kMmaBQ - 1) / k3m::kMmaBQ;
-  const dim3 grid(tiles1 + tiles2, H, B);
-  switch (d) {
-    case 64: biattn_fwd_mma_kernel<64><<<grid, k3m::kMmaThreads, 0, stream>>>(dir1, dir2, tiles1); break;
-    case 96: biattn_fwd_mma_kernel<96><<<grid, k3m::kMmaThreads, 0, stream>>>(dir1, dir2, tiles1); break;
-    case 128: biattn_fwd_mma_kernel<128><<<grid, k3m::kMmaThreads, 0, stream>>>(dir1, dir2, tiles1); break;
-    default: return cudaErrorInvalidValue;
-  }
-  return static_cast<int>(cudaGetLastError());
+  BiDirs dirs;
+  const bool swap = dir2.lk > dir1.lk;   // the longer key walk first
+  dirs.dir[0] = swap ? dir2 : dir1;
+  dirs.dir[1] = swap ? dir1 : dir2;
+  dirs.ctas0 = B * H * ((dirs.dir[0].lq + k3m::kMmaBQ - 1) / k3m::kMmaBQ);
+  return dir1.keep_min || dir2.keep_min ? launch_mma_drop<true>(dirs, B, H, d, stream)
+                                        : launch_mma_drop<false>(dirs, B, H, d, stream);
 }
 
 template <typename T>
@@ -95,7 +137,8 @@ extern "C" int k3m_biattention_fwd(const void* q1, const void* k1, const void* v
                                    unsigned keep_min1, float keep_scale1,
                                    unsigned keep_min2, float keep_scale2,
                                    void* stream_ptr) {
-  if (B <= 0 || H <= 0 || l1 <= 0 || l2 <= 0 || B > 65535 || H > 65535)
+  if (B <= 0 || H <= 0 || l1 <= 0 || l2 <= 0 || B > 65535 || H > 65535 ||
+      keep_min1 >= k3m::kKeepMinLimit || keep_min2 >= k3m::kKeepMinLimit)
     return cudaErrorInvalidValue;
   // direction 1: stream-2 queries over stream-1 keys/values, bias1
   const long long s1[13] = {st[9], st[10], st[11], st[3], st[4], st[5],

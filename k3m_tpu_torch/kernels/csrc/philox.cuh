@@ -22,18 +22,29 @@
 
 namespace k3m {
 
-__device__ __forceinline__ uint4 philox4x32_10(uint4 c, uint2 key) {
+// N Philox4x32-10 calls under one key, round by round, so that each round
+// key is formed once for all N.
+template <int N>
+__device__ __forceinline__ void philox4x32_10_n(uint4 (&c)[N], uint2 key) {
   constexpr uint32_t kM0 = 0xD2511F53u, kM1 = 0xCD9E8D57u;
   constexpr uint32_t kW0 = 0x9E3779B9u, kW1 = 0xBB67AE85u;
 #pragma unroll
   for (int r = 0; r < 10; ++r) {
-    const uint32_t hi0 = __umulhi(kM0, c.x), lo0 = kM0 * c.x;
-    const uint32_t hi1 = __umulhi(kM1, c.z), lo1 = kM1 * c.z;
-    c = make_uint4(hi1 ^ c.y ^ key.x, lo1, hi0 ^ c.w ^ key.y, lo0);
+#pragma unroll
+    for (int i = 0; i < N; ++i) {
+      const uint32_t hi0 = __umulhi(kM0, c[i].x), lo0 = kM0 * c[i].x;
+      const uint32_t hi1 = __umulhi(kM1, c[i].z), lo1 = kM1 * c[i].z;
+      c[i] = make_uint4(hi1 ^ c[i].y ^ key.x, lo1, hi0 ^ c[i].w ^ key.y, lo0);
+    }
     key.x += kW0;
     key.y += kW1;
   }
-  return c;
+}
+
+__device__ __forceinline__ uint4 philox4x32_10(uint4 c, uint2 key) {
+  uint4 cs[1] = {c};
+  philox4x32_10_n<1>(cs, key);
+  return cs[0];
 }
 
 // The four random words of keys [4 * (k / 4), 4 * (k / 4) + 4) of query row q.
@@ -42,41 +53,34 @@ __device__ __forceinline__ uint4 dropout_bits(uint32_t seed, uint32_t bh, int q,
                        make_uint2(seed, bh));
 }
 
+// keep_min is below 2^24 (keep_threshold; the launchers check it), so
+// (bits >> 8) >= keep_min is bits >= keep_min * 2^8, one compare a word.
+constexpr uint32_t kKeepMinLimit = 1u << 24;
+
+// Keep bits of the four words of one Philox call: bit i keeps word i.
+__device__ __forceinline__ uint32_t keep_nibble(uint4 w, uint32_t keep_min) {
+  const uint32_t thr = keep_min << 8;
+  return static_cast<uint32_t>(w.x >= thr)
+         | static_cast<uint32_t>(w.y >= thr) << 1
+         | static_cast<uint32_t>(w.z >= thr) << 2
+         | static_cast<uint32_t>(w.w >= thr) << 3;
+}
+
 // Keep bits of keys [k4, k4 + 4) of query row q (k4 a multiple of 4) from
 // one Philox call: bit i is key k4 + i.
 __device__ __forceinline__ uint32_t keep_bits4(uint32_t seed, uint32_t bh, int q, int k4,
                                                uint32_t keep_min) {
-  const uint4 w = dropout_bits(seed, bh, q, k4);
-  return static_cast<uint32_t>((w.x >> 8) >= keep_min)
-         | static_cast<uint32_t>((w.y >> 8) >= keep_min) << 1
-         | static_cast<uint32_t>((w.z >> 8) >= keep_min) << 2
-         | static_cast<uint32_t>((w.w >> 8) >= keep_min) << 3;
+  return keep_nibble(dropout_bits(seed, bh, q, k4), keep_min);
 }
 
-// The mask of an mma.sync m16n8k16 accumulator whose rows are queries and
-// whose columns are keys: the thread (g = lane / 4, t = lane % 4) holds
-// rows r0 = g and r1 = g + 8 of the 16-row block, keys k8 + 2t and
-// k8 + 2t + 1 of the 8-key block at k8; bit e is its element e (rows r0,
-// r0, r1, r1). Lanes t and t ^ 1 hold keys k8 + 4 (t / 2) + [0, 4) of both
-// rows between them: the even lane draws row r0's four words, the odd lane
-// row r1's, and one shuffle swaps them, so one Philox call serves four
-// elements. The whole warp must call it.
-__device__ __forceinline__ uint32_t keep_bits_qk(uint32_t seed, uint32_t bh, int r0, int r1,
-                                                 int k8, uint32_t keep_min, int t) {
-  const bool odd = t & 1;
-  const uint32_t mine = keep_bits4(seed, bh, odd ? r1 : r0, k8 + 4 * (t >> 1), keep_min);
-  const uint32_t other = __shfl_xor_sync(0xffffffffu, mine, 1);
-  const uint32_t row0 = odd ? other : mine, row1 = odd ? mine : other;
-  const int sh = odd ? 2 : 0;     // keys 2t, 2t + 1 within the group of 4
-  return ((row0 >> sh) & 3u) | (((row1 >> sh) & 3u) << 2);
-}
-
-// The keep bits of one tile of BK keys at k0 (bit 4 nb + e is element e of
-// n-block nb, as keep_bits_qk gives them) stored as the mask's words: bit
-// k % 32 of word [b, h, q, k / 32] keeps (q, k), `row_base` the index of
-// row (b, h, 0). Each lane has 2 keys of rows r0 and r1 in every n-block,
-// the 4 lanes of a row OR theirs together, and lane 0 (row r0) and lane 1
-// (row r1) store. The whole warp must call it.
+// The keep bits of one tile of BK keys at k0 as the bf16 forward tile holds
+// them (attention_mma.cuh), where the thread of column pair t holds keys
+// k0 + 16 m + 4 t + [0, 4) of its rows r0 and r1 in each 16-key group m:
+// bits 8 m + [0, 4) are those of row r0, bits 8 m + [4, 8) those of row
+// r1. Stored as the mask's words: bit k % 32 of word [b, h, q, k / 32]
+// keeps (q, k), `row_base` the index of row (b, h, 0). The 4 lanes of a row
+// OR their nibbles together, and lane 0 (row r0) and lane 1 (row r1) store.
+// The whole warp must call it.
 template <int BK>
 __device__ __forceinline__ void store_keep_words(uint32_t* words, uint32_t bits,
                                                  long long row_base, int r0, int r1, int k0,
@@ -84,13 +88,9 @@ __device__ __forceinline__ void store_keep_words(uint32_t* words, uint32_t bits,
   const int nwords = (lk + 31) / 32;
 #pragma unroll
   for (int w = 0; w < BK / 32; ++w) {
-    uint32_t w0 = 0, w1 = 0;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const uint32_t b4 = bits >> (4 * (4 * w + j));
-      w0 |= (b4 & 3u) << (8 * j + 2 * t);
-      w1 |= ((b4 >> 2) & 3u) << (8 * j + 2 * t);
-    }
+    const uint32_t lo = bits >> (16 * w), hi = bits >> (16 * w + 8);   // groups 2w, 2w + 1
+    uint32_t w0 = (lo & 15u) << (4 * t) | (hi & 15u) << (16 + 4 * t);
+    uint32_t w1 = (lo >> 4 & 15u) << (4 * t) | (hi >> 4 & 15u) << (16 + 4 * t);
 #pragma unroll
     for (int off = 1; off < 4; off <<= 1) {
       w0 |= __shfl_xor_sync(0xffffffffu, w0, off);

@@ -16,6 +16,8 @@ from k3m_tpu_torch.kernels import (
     layernorm_bwd, layernorm_bwd_plain, layernorm_plain, philox_keep_mask_plain,
 )
 
+EDGE_LENGTHS = (1, 16, 37, 50, 64, 65, 129, 256)
+
 
 @pytest.fixture
 def cuda_device():
@@ -198,3 +200,72 @@ def test_cuda_dropout_mask_is_the_plain_mask(cuda_device):
         got2 = (out2.float() > 0).permute(0, 2, 1, 3)
         assert torch.equal(got2, philox_keep_mask_plain(seed, B, H, L, L, rate, 7919,
                                                         cuda_device))
+
+
+def _packed(B, L, H, D, dtype, g, device):
+    """q, k, v as strided [B, L, H, D] views of one packed projection."""
+    qkv = torch.randn(B, L, 3, H, D, generator=g, device=device).to(dtype)
+    return qkv.unbind(2)
+
+
+def _ragged(B, L, g, device):
+    lengths = torch.randint(1, L + 1, (B,), generator=g, device=device)
+    lengths[0] = L
+    return (torch.arange(L, device=device)[None, :] >= lengths[:, None]).float() * -10000.0
+
+
+def _check_kept(lse, words, q, k, bias, keep):
+    """lse within 1e-5 of max(1, |lse|) of attention_lse_plain; the mask
+    words bit for bit those of philox_keep_mask_plain (where it drops)."""
+    ref = attention_lse_plain(q, k, bias)
+    assert bool(((lse - ref).abs() <= 1e-5 * ref.abs().clamp(min=1.0)).all())
+    if keep is not None:
+        bits = torch.arange(32, device=words.device, dtype=torch.int32)
+        mask = ((words[..., None] >> bits) & 1).bool().reshape(*words.shape[:-1], -1)
+        assert torch.equal(mask[..., :keep.shape[-1]], keep)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("D", [64, 96, 128])
+def test_cuda_attention_forward_edges(cuda_device, D, rate, dtype):
+    """The self-attention forward at the edges of its tile, every Lq x Lk
+    over one query row or key, a key tile and one more, a 64-row CTA and
+    one more row, 8-warp CTAs: output, lse and mask words."""
+    g = torch.Generator(device=cuda_device).manual_seed(6)
+    B, H, seed = 2, 3, 31
+    for Lq in EDGE_LENGTHS:
+        for Lk in EDGE_LENGTHS:
+            q = _packed(B, Lq, H, D, dtype, g, cuda_device)[0]
+            k, v = _packed(B, Lk, H, D, dtype, g, cuda_device)[1:]
+            bias = _ragged(B, Lk, g, cuda_device)
+            keep = philox_keep_mask_plain(seed, B, H, Lq, Lk, rate, 0, cuda_device) \
+                if rate else None
+            out, lse, words = attention._forward(q, k, v, bias, rate, seed, for_backward=True)
+            _check(out, attention_plain(q, k, v, bias, keep, rate), _share(dtype))
+            _check_kept(lse, words, q, k, bias, keep)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("L1,L2,D", [(37, 50, 128), (37, 256, 128), (256, 50, 96),
+                                     (1, 65, 64)])
+def test_cuda_biattention_forward_edges(cuda_device, L1, L2, D, rate, dtype):
+    """The bi-attention forward at the model's three shapes and at one row
+    against 65 keys: both directions' outputs, lse and mask words."""
+    g = torch.Generator(device=cuda_device).manual_seed(7)
+    B, H, seed = 2, 3, 37
+    q1, k1, v1 = _packed(B, L1, H, D, dtype, g, cuda_device)
+    q2, k2, v2 = _packed(B, L2, H, D, dtype, g, cuda_device)
+    b1, b2 = _ragged(B, L1, g, cuda_device), _ragged(B, L2, g, cuda_device)
+    args = (q1, k1, v1, b1, q2, k2, v2, b2)
+    m1 = philox_keep_mask_plain(seed, B, H, L2, L1, rate, 0, cuda_device) if rate else None
+    m2 = philox_keep_mask_plain(seed, B, H, L1, L2, rate, 7919, cuda_device) if rate else None
+    c1, c2, (lse1, w1), (lse2, w2) = coattn._forward(*args, rate, rate, seed,
+                                                     for_backward=True)
+    for got, want in zip((c1, c2), biattention_plain(*args, m1, m2, rate, rate)):
+        _check(got, want, _share(dtype))
+    _check_kept(lse1, w1, q2, k1, b1, m1)
+    _check_kept(lse2, w2, q1, k2, b2, m2)

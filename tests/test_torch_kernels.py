@@ -120,6 +120,9 @@ def _pallas_attention(q, k, v, bias):
     (2, 2, 50, 50, 64),       # text stream
     (2, 2, 37, 37, 128),      # image stream
     (2, 2, 19, 11, 96),       # D = 96 (8 heads over 768)
+    (2, 2, 1, 37, 64),        # one query row
+    (2, 2, 50, 1, 128),       # one key
+    (2, 2, 65, 65, 64),       # a 64-row tile and one more row and key
 ])
 def test_attention_matches_pallas(B, H, Lq, Lk, D):
     q, k, v, bias = _attn_inputs(B, H, Lq, Lk, D, seed=B * Lq + D)
@@ -129,7 +132,8 @@ def test_attention_matches_pallas(B, H, Lq, Lk, D):
                                **F32_TOL)
 
 
-@pytest.mark.parametrize("L1,L2,D", [(11, 19, 8), (37, 50, 128), (50, 13, 96)])
+@pytest.mark.parametrize("L1,L2,D", [(11, 19, 8), (37, 50, 128), (50, 13, 96),
+                                     (1, 65, 64), (65, 1, 128)])
 def test_biattention_matches_pallas(L1, L2, D):
     B, H = 2, 2
     q1, k1, v1, b1 = _attn_inputs(B, H, L1, L1, D, seed=1)

@@ -4,8 +4,8 @@
     package (e.g. `trunk/encoder/layer_0/attention/query/kernel`) -> the
     port's state-dict names (`encoder.layer.0.attention.self.query.weight`),
     with Dense kernels transposed to torch's [out, in].
-  * `load_reference_bin(path)`: a reference torch checkpoint (.bin) as a
-    state dict the port's modules load, minus the reference's dead keys.
+  * `load_pretrained(model, path, strict=...)`: a reference or HF
+    checkpoint into a model, with the JAX package's strict-load decision.
 
 The port's module names are the reference torch names, so the mapping
 table is the JAX package's reference_to_flat (k3m_tpu/train/convert.py:
@@ -15,11 +15,14 @@ table is the JAX package's reference_to_flat (k3m_tpu/train/convert.py:
 from __future__ import annotations
 
 import functools
+import logging
 import re
-from typing import Dict
+from typing import Dict, Set, Tuple
 
 import numpy as np
 import torch
+
+logger = logging.getLogger(__name__)
 
 
 class _Sym:
@@ -208,28 +211,61 @@ def from_jax_params(flat: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
     return out
 
 
-# Reference keys with no counterpart in the port's modules: dead reference
-# parameters (poolers, q_dense*, map_individual_to_bi, the twin NSP head),
-# loss buffers, HF bookkeeping and the tied MLM-decoder alias.
-_DEAD_RE = re.compile("|".join((
+# Source keys a strict load may leave unconsumed, a copy of the JAX
+# package's _IGNORABLE_SOURCE_RE (k3m_tpu/train/convert.py:281-295): dead
+# reference parameters (poolers, q_dense*, map_individual_to_bi, the twin
+# NSP head), loss buffers, HF bookkeeping, the tied MLM-decoder alias and
+# pre-2019 HF LayerNorm names.
+_IGNORABLE_SOURCE_RE = re.compile("|".join((
     r"(^|\.)t_pooler\.", r"(^|\.)v_pooler\.", r"(^|\.)pooler\.", r"q_dense\d",
     r"map_individual_to_bi", r"bi_seq_relationship", r"vis_criterion",
     r"(^|\.)position_ids$", r"cls\.predictions\.decoder\.weight$",
+    r"cls\.seq_relationship_", r"(^|\.)LayerNorm\.gamma$", r"(^|\.)LayerNorm\.beta$",
 )))
 
 
-def load_reference_bin(path: str) -> Dict[str, torch.Tensor]:
-    """A reference torch checkpoint as a state dict for the port: the
-    `module.` (DDP) and `bert.`/`roberta.`/`model.` prefixes stripped and
-    the dead keys dropped."""
+def load_pretrained(model: torch.nn.Module, path: str, *, strict: bool = False,
+                    allowed_unconsumed: Tuple[str, ...] = (r"cls\.seq_relationship\.",)
+                    ) -> Set[str]:
+    """Load a reference or HF torch checkpoint into `model`, deciding as the
+    JAX package's load_pretrained_into_params (k3m_tpu/train/convert.py:
+    316-363) decides: a source tensor is consumed when reference_to_flat
+    maps it to a weight the model has, with the same shape; a model weight
+    the checkpoint does not set keeps its value (a partial HF load, a head
+    the checkpoint lacks) and is logged, never raised. Under `strict`, a
+    source tensor left unconsumed (a renamed key, a rogue extra, a shape
+    mismatch) raises ValueError, before the model is touched, unless
+    `_IGNORABLE_SOURCE_RE` or one of `allowed_unconsumed` matches it.
+    Returns the names of the weights set."""
     sd = torch.load(path, map_location="cpu", weights_only=True)
     if isinstance(sd, dict) and "model_state_dict" in sd:
         sd = sd["model_state_dict"]
-    out = {}
-    for k, v in sd.items():
-        if k.startswith("module."):
-            k = k[len("module."):]
-        k = _strip_prefix(k)
-        if not _DEAD_RE.search(k):
-            out[k] = v.float()
-    return out
+    sd = {k[len("module."):] if k.startswith("module.") else k: v for k, v in sd.items()}
+    own = model.state_dict()
+    table = _flax_to_torch()
+    loaded, consumed = {}, set()
+    for flax_path, src in reference_to_flat({k: _Sym(k) for k in sd}).items():
+        sym = table.get(flax_path)
+        value = sd[src.name]
+        if sym is None or sym.name not in own:
+            continue
+        if own[sym.name].shape != value.shape:
+            logger.warning("shape mismatch %s: model %s, checkpoint %s", sym.name,
+                           tuple(own[sym.name].shape), tuple(value.shape))
+            continue
+        loaded[sym.name] = value.float()
+        consumed.add(src.name)
+    if strict:
+        allow = re.compile("|".join(allowed_unconsumed)) if allowed_unconsumed else None
+        leftovers = sorted(k for k in sd if k not in consumed
+                           and not _IGNORABLE_SOURCE_RE.search(k)
+                           and not (allow and allow.search(k)))
+        if leftovers:
+            raise ValueError(f"strict load of {path}: {len(leftovers)} source tensors not "
+                             f"consumed (renamed key / layout drift / shape mismatch): "
+                             f"{leftovers[:8]}")
+    model.load_state_dict(loaded, strict=False)
+    missing = [k for k in own if k not in loaded]
+    logger.info("loaded %d tensors from %s; %d model weights keep their values%s",
+                len(loaded), path, len(missing), f" (e.g. {missing[:3]})" if missing else "")
+    return set(loaded)

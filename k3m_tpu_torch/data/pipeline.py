@@ -141,10 +141,11 @@ class AlignmentLoader(_LoaderBase):
 
     def __init__(self, record_path: str, tokenizer: WordPieceTokenizer,
                  shapes: Optional[ShapeSpec] = None, batch_size: int = 32,
-                 shuffle: bool = False, seed: int = 0, drop_last: bool = True,
-                 prefetch: int = 4):
+                 shuffle: bool = False, seed: int = 0, visual_target: int = 0,
+                 drop_last: bool = True, prefetch: int = 4):
         super().__init__(record_path, batch_size, shuffle, seed, drop_last, prefetch)
-        self.preprocessor = PairPreprocessor(tokenizer, shapes or ShapeSpec())
+        self.preprocessor = PairPreprocessor(tokenizer, shapes or ShapeSpec(),
+                                             visual_target=visual_target)
 
     def _map(self, i: int):
         return self.preprocessor(self.reader[i])

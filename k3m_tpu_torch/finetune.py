@@ -1,15 +1,21 @@
-"""Item-alignment eval / predict CLI of the PyTorch port.
+"""Item-alignment finetune / eval / predict CLI of the PyTorch port.
 
     python -m k3m_tpu_torch.finetune --data_dir D --output_dir O \\
-        --use_image --with_coattention --do_pred --bf16 [--device cuda]
+        --use_image --with_coattention --do_train --do_eval --bf16 \\
+        --loss_type inner --if_pre_sampling 1 --train_batch_size 32 [--device cpu]
 
-Flag-compatible with the root `finetune.py` for the flags of its eval and
-predict paths (`run_pred.sh`): the record files, `--config_file`,
-`--pretrained_model_path`, `--bf16`, `--if_pre_sampling`, `--loss_type`,
-the shapes and `--eval_batch_size`. Runs on the CUDA device unless
-`--device cpu` is passed. `--do_train` is refused: training comes with a
-later slice. Without `--pretrained_model_path` the weights are random from
-`--seed`.
+Flag-compatible with the root `finetune.py` (its :22-115, behaviour
+:116-243): the record files (`--file_train/valid/test`, or `--file_name`'s
+split pattern), the config overrides, `AlignmentLoader` batches (the train
+loader shuffled from `--seed` and dropping the remainder, the eval and test
+loaders keeping it) into `AlignmentTrainer`, the step count and warmup as
+the root CLI computes them, per-epoch checkpoints and the threshold sweep in
+`--output_dir`; `--file_checkpoint` resumes training's full state, or gives
+eval and predict its weights. Runs on the CUDA device unless `--device cpu`
+is given. Without `--pretrained_model_path`, `--file_state_dict` or
+`--file_checkpoint` the weights are random from `--seed`. Flags the JAX package accepts only for parity are accepted with
+no effect; options the port does not have yet are refused by name
+(ROADMAP.md Queue 1).
 """
 
 from __future__ import annotations
@@ -17,7 +23,6 @@ from __future__ import annotations
 import argparse
 import logging
 import os
-import re
 from pathlib import Path
 
 logger = logging.getLogger(__name__)
@@ -29,23 +34,46 @@ def get_parser():
     p = argparse.ArgumentParser(prog="python -m k3m_tpu_torch.finetune")
     p.add_argument("--data_dir", required=True, type=str)
     p.add_argument("--output_dir", required=True, type=str)
+    p.add_argument("--file_train", default="train_item_alignment.k3mr", type=str)
     p.add_argument("--file_valid", default="valid_item_alignment.k3mr", type=str)
     p.add_argument("--file_test", default="test_item_alignment.k3mr", type=str)
+    p.add_argument("--file_name", default=None, type=str,
+                   help="record-name pattern, e.g. '{}_item_alignment.k3mr'; "
+                        "overrides --file_train/valid/test")
     p.add_argument("--model_name", default="bert-base-chinese", type=str)
     p.add_argument("--config_file", default="bert_base_6layer_6conect.json", type=str)
     p.add_argument("--pretrained_model_path", default=None, type=str,
-                   help="reference torch checkpoint (.bin) to load")
+                   help="reference or HF torch checkpoint (.bin) to start from")
+    p.add_argument("--file_state_dict", default="", type=str,
+                   help="a model state dict saved by torch.save (or a checkpoint's "
+                        "state.pt) to start from")
+    p.add_argument("--file_checkpoint", default="", type=str,
+                   help="checkpoint dir: training resumes its full state after its "
+                        "epoch; eval and predict use its weights")
     p.add_argument("--strict_load", action="store_true",
-                   help="fail if the checkpoint leaves a model weight unset or "
-                        "holds a weight the model does not have")
+                   help="fail if a checkpoint tensor is not consumed (as the JAX "
+                        "package's strict load decides)")
     p.add_argument("--fix_reference_bugs", action="store_true")
+    p.add_argument("--skip_nonfinite", action="store_true")
+    p.add_argument("--micro_steps", default=1, type=int)
+    p.add_argument("--device_cache", action="store_true")
+    p.add_argument("--wire", default="fp", choices=["fp", "int8", "exact"])
     p.add_argument("--vocab_file", default=None, type=str)
     p.add_argument("--log_steps", default=10, type=int)
     p.add_argument("--do_train", action="store_true")
     p.add_argument("--do_eval", action="store_true")
     p.add_argument("--do_pred", action="store_true")
     p.add_argument("--seed", default=42, type=int)
+    p.add_argument("--train_batch_size", default=32, type=int)
     p.add_argument("--eval_batch_size", default=32, type=int)
+    p.add_argument("--learning_rate", default=5e-5, type=float)
+    p.add_argument("--num_train_epochs", default=10.0, type=float)
+    p.add_argument("--warmup_proportion", default=0.3, type=float)
+    p.add_argument("--gradient_accumulation_steps", default=1, type=int)
+    p.add_argument("--adam_epsilon", default=1e-8, type=float)
+    p.add_argument("--start_epoch", default=0, type=int)
+    p.add_argument("--cache", default=5000, type=int,
+                   help="loader prefetch depth in pairs (ref per-rank cache :131)")
     p.add_argument("--if_pre_sampling", default=1, type=int)
     p.add_argument("--loss_type", default="ce", type=str,
                    choices=["inner", "cosine", "ce"])
@@ -55,13 +83,43 @@ def get_parser():
     p.add_argument("--max_num_pv", default=30, type=int)
     p.add_argument("--max_region_length", default=36, type=int)
     p.add_argument("--dynamic_attention", action="store_true")
+    p.add_argument("--visual_target", default=0, type=int)
+    p.add_argument("--num_negative_image", default=128, type=int)
     p.add_argument("--use_image", action="store_true")
     p.add_argument("--with_coattention", action="store_true")
     p.add_argument("--shared_prefix", action="store_true")
     p.add_argument("--bf16", action="store_true")
+    p.add_argument("--n_model", default=1, type=int)
     p.add_argument("--device", default="cuda", type=str,
                    help="cuda (default) or cpu")
+    # accepted with no effect, as the JAX package accepts them
+    p.add_argument("--objective", default=2, type=int)
+    p.add_argument("--loss_img_weight", default=1.0, type=float)
+    p.add_argument("--num_workers", default=2, type=int)
+    p.add_argument("--do_lower_case", default=True, type=bool)
+    p.add_argument("--loss_scale", default=0, type=float)
+    p.add_argument("--no_cuda", action="store_true")
+    p.add_argument("--freeze", default=-1, type=int)
+    p.add_argument("--pretrained_model_weights", default=None, type=str)
+    p.add_argument("--no_remat", action="store_true",
+                   help="accepted; the port keeps every activation")
+    p.add_argument("--fp16", action="store_true",
+                   help="accepted; as in the JAX package, --bf16 sets the precision")
     return p
+
+
+def refuse_unported(args) -> None:
+    """Options of the JAX package the port does not have yet."""
+    refused = {
+        "--device_cache": args.device_cache,
+        "--wire int8": args.wire == "int8",
+        "--n_model > 1": args.n_model > 1,
+        "multi-process training (WORLD_SIZE > 1)":
+            int(os.environ.get("WORLD_SIZE", "1")) > 1,
+    }
+    for name, hit in refused.items():
+        if hit:
+            raise NotImplementedError(f"{name} is not ported yet (ROADMAP.md Queue 1)")
 
 
 def _find_config(args):
@@ -72,47 +130,35 @@ def _find_config(args):
     raise FileNotFoundError(f"config {args.config_file} not found")
 
 
-def load_pretrained(model, path: str, strict: bool) -> None:
-    """Load a reference checkpoint into `model`. The NSP and pretraining
-    heads of an HF checkpoint have no place in the alignment model and are
-    skipped; under `strict` anything else left over, or missing, raises."""
-    from k3m_tpu_torch.convert import load_reference_bin
-    sd = load_reference_bin(path)
-    own = model.state_dict()
-    skip = re.compile(r"^cls\.")
-    extra = [k for k in sd if k not in own and not skip.match(k)]
-    missing = [k for k in own if k not in sd]
-    if strict and (extra or missing):
-        raise KeyError(f"checkpoint mismatch: unused {extra[:8]}, missing {missing[:8]}")
-    if extra or missing:
-        logger.warning("checkpoint: %d unused, %d missing weights (e.g. %s / %s)",
-                       len(extra), len(missing), extra[:3], missing[:3])
-    model.load_state_dict({k: v for k, v in sd.items() if k in own}, strict=False)
-
-
 def main(argv=None):
     args = get_parser().parse_args(argv)
-    if args.do_train:
-        raise NotImplementedError("--do_train is not ported yet; the port "
-                                  "runs --do_eval and --do_pred")
+    refuse_unported(args)
+    import torch
+
     from k3m_tpu_torch.config import K3MConfig
+    from k3m_tpu_torch.convert import load_pretrained
     from k3m_tpu_torch.data.pipeline import AlignmentLoader
     from k3m_tpu_torch.data.preprocess import ShapeSpec
     from k3m_tpu_torch.device import resolve_device
     from k3m_tpu_torch.model.alignment import build_model
     from k3m_tpu_torch.tokenization import get_tokenizer
     from k3m_tpu_torch.train import alignment_loop
+    from k3m_tpu_torch.train.state import CheckpointManager
 
     device = resolve_device(args.device)
     os.makedirs(args.output_dir, exist_ok=True)
     config = K3MConfig.from_json_file(str(_find_config(args))).replace(
         fix_reference_bugs=args.fix_reference_bugs,
         if_pre_sampling=args.if_pre_sampling, loss_type=args.loss_type,
-        dynamic_attention=args.dynamic_attention,
+        dynamic_attention=args.dynamic_attention, visual_target=args.visual_target,
         use_image=args.use_image, with_coattention=args.with_coattention,
+        num_negative_image=args.num_negative_image,
         dtype="bfloat16" if args.bf16 else "float32",
         shared_prefix=args.shared_prefix,
         model="roberta" if "roberta" in (args.model_name or "") else "bert")
+    if args.file_name:                       # split pattern (ref :223, :240)
+        args.file_train, args.file_valid, args.file_test = (
+            args.file_name.format(split) for split in ("train", "valid", "test"))
     tokenizer = get_tokenizer(args.vocab_file, config.vocab_size)
     shapes = ShapeSpec(max_seq_len=args.max_seq_length,
                        max_seq_len_pv=args.max_seq_length_pv,
@@ -121,32 +167,77 @@ def main(argv=None):
                        v_feature_size=config.v_feature_size,
                        v_target_size=config.v_target_size)
 
-    def loader(name):
+    def loader(name, batch_size, shuffle, drop_last):
         path = os.path.join(args.data_dir, name)
         if not os.path.exists(path):
             return None
-        # eval and predict see every pair: the remainder batch is kept
-        return AlignmentLoader(path, tokenizer, shapes,
-                               batch_size=args.eval_batch_size, drop_last=False)
+        return AlignmentLoader(path, tokenizer, shapes, batch_size=batch_size,
+                               shuffle=shuffle, seed=args.seed,
+                               visual_target=args.visual_target, drop_last=drop_last,
+                               prefetch=min(16, max(2, args.cache // max(batch_size, 1))))
 
-    val_loader = loader(args.file_valid) if args.do_eval else None
-    test_loader = loader(args.file_test) if args.do_pred else None
-    if val_loader is None and test_loader is None:
+    # eval and predict see every pair: their remainder batch is kept
+    train_loader = loader(args.file_train, args.train_batch_size, True, True) \
+        if args.do_train else None
+    val_loader = loader(args.file_valid, args.eval_batch_size, False, False) \
+        if args.do_eval else None
+    test_loader = loader(args.file_test, args.eval_batch_size, False, False) \
+        if args.do_pred else None
+    if args.do_train and train_loader is None:
+        raise FileNotFoundError(f"no train record file {args.file_train} in {args.data_dir}")
+    if train_loader is None and val_loader is None and test_loader is None:
         raise FileNotFoundError("no alignment record file found for --do_eval/--do_pred")
 
-    model = build_model(config, seed=args.seed, device=device)
-    if args.pretrained_model_path:
-        load_pretrained(model, args.pretrained_model_path, args.strict_load)
-
     result = {}
-    if val_loader is not None:
-        result["sweep"] = alignment_loop.evaluate(model, val_loader)
+    if args.do_train:
+        # ref finetune.py:315: the schedule spans num_train_epochs - start_epoch
+        total_steps = int(max(len(train_loader), 1)
+                          * max(args.num_train_epochs - args.start_epoch, 1))
+        trainer = alignment_loop.AlignmentTrainer(
+            config, learning_rate=args.learning_rate,
+            warmup_steps=int(args.warmup_proportion * total_steps),
+            total_steps=total_steps, grad_accum_steps=args.gradient_accumulation_steps,
+            micro_steps=args.micro_steps, adam_eps=args.adam_epsilon, seed=args.seed,
+            device=device, wire=args.wire, skip_nonfinite=args.skip_nonfinite)
+        model = trainer.model
+    else:
+        model = build_model(config, seed=args.seed, device=device)
+    if args.pretrained_model_path:
+        # every weight trains at the full LR, as in the JAX trainer
+        load_pretrained(model, args.pretrained_model_path, strict=args.strict_load)
+    if args.file_state_dict:
+        state = torch.load(args.file_state_dict, map_location=device, weights_only=True)
+        # a trainer checkpoint's state.pt holds the model's under "model"
+        model.load_state_dict(state.get("model", state))
+    start_epoch = args.start_epoch
+    # the checkpoint last, so that it supersedes the weights above; read
+    # whatever the mode, as the JAX CLI reads it: the full state for
+    # training, the model's weights for --do_eval / --do_pred
+    if args.file_checkpoint and os.path.exists(args.file_checkpoint):
+        cm = CheckpointManager(args.file_checkpoint)
+        state = cm.restore(map_location=device)
+        if state is not None:
+            epoch = int(cm.latest()["epoch"])
+            if args.do_train:
+                trainer.load_state_dict(state)
+                start_epoch = max(start_epoch, epoch + 1)
+            else:
+                model.load_state_dict(state["model"])
+            logger.info("restored %s (epoch %d)", args.file_checkpoint, epoch)
+    if args.do_train:
+        result["history"] = trainer.fit(train_loader, val_loader,
+                                        num_epochs=int(args.num_train_epochs),
+                                        start_epoch=start_epoch, log_steps=args.log_steps,
+                                        checkpoint_dir=args.output_dir)
+        result["trainer"] = trainer
+    elif val_loader is not None:
+        result["sweep"] = alignment_loop.evaluate(model, val_loader, wire=args.wire)
     if test_loader is not None:
         out = os.path.join(args.output_dir,
                            f"deepAI_result_threshold={args.threshold}.jsonl")
         result.update(alignment_loop.predict(model, test_loader, out,
                                              threshold=args.threshold,
-                                             log_steps=args.log_steps))
+                                             log_steps=args.log_steps, wire=args.wire))
     return result
 
 

@@ -1,4 +1,4 @@
-"""K3M item-alignment model (twin tower), inference forward.
+"""K3M item-alignment model (twin tower).
 
 Port of k3m_tpu/model/alignment.py (reference K3MForItemAlignment,
 vilbert_k3m/vilbert_k3m.py:2862-3454). Each item runs the same trunk and
@@ -14,7 +14,7 @@ compared by `loss_type`:
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 import torch.nn.functional as F
@@ -22,6 +22,7 @@ from torch import nn
 
 from k3m_tpu_torch.config import K3MConfig
 from k3m_tpu_torch.device import resolve_device
+from k3m_tpu_torch.model import random as k3m_random
 from k3m_tpu_torch.model.heads import ClassificationHead
 from k3m_tpu_torch.model.layers import (
     adopt, cast_linears, compute_dtype, init_weights, set_compute_dtype,
@@ -59,16 +60,20 @@ class K3MForItemAlignment(nn.Module):
             item.get("segment_ids_pv"), item.get("input_mask_pv"),
             deterministic=deterministic)
         c_final, _ = self.structure(out["c_initial"], out["seq_pv"],
-                                    item["index_p"], item["index_v"])
+                                    item["index_p"], item["index_v"],
+                                    deterministic=deterministic)
         return out["c_initial"], c_final
 
-    def forward(self, labels, item1, item2, *, deterministic: bool = True):
-        if not deterministic:
-            raise NotImplementedError("training the alignment model (--do_train) "
-                                      "is not ported yet")
+    def forward(self, labels, item1, item2, *, deterministic: bool = True,
+                rng: Optional[k3m_random.StepRandom] = None):
+        """(emb1, emb2, probs, loss); training draws from `rng`."""
+        with k3m_random.use(rng):
+            return self._forward(labels, item1, item2, deterministic)
+
+    def _forward(self, labels, item1, item2, deterministic: bool):
         cfg = self.cfg
-        _, emb1 = self.item_embedding(item1)
-        _, emb2 = self.item_embedding(item2)
+        _, emb1 = self.item_embedding(item1, deterministic=deterministic)
+        _, emb2 = self.item_embedding(item2, deterministic=deterministic)
         labels_f = labels.float()
         if cfg.loss_type == "inner":
             logits = (emb1.float() * emb2.float()).sum(-1)
@@ -84,7 +89,8 @@ class K3MForItemAlignment(nn.Module):
             else:
                 probs = (cosine_similarity(emb1, emb1) + 1.0) / 2.0   # ref :3443
         else:
-            logits = self.classifier(torch.cat([emb1, emb2], dim=1))
+            logits = self.classifier(torch.cat([emb1, emb2], dim=1),
+                                     deterministic=deterministic)
             logp = F.log_softmax(logits, dim=-1)
             loss = -logp.gather(1, labels.long()[:, None])[:, 0].mean()
             probs_full = torch.softmax(logits, dim=-1)
@@ -93,11 +99,17 @@ class K3MForItemAlignment(nn.Module):
         return emb1, emb2, probs, loss
 
 
-def build_model(cfg: K3MConfig, *, seed: int = 42, device="cuda") -> K3MForItemAlignment:
-    """An eval-mode K3MForItemAlignment with random weights from `seed`, on
-    `device`, its Linear layers in the compute dtype."""
+def build_model(cfg: K3MConfig, *, seed: int = 42, device="cuda",
+                train: bool = False) -> K3MForItemAlignment:
+    """K3MForItemAlignment with random weights from `seed`, on `device`.
+    For serving (the default) its Linear weights are cast to the compute
+    dtype once and it is in eval mode; for training its parameters stay
+    fp32 and each Linear casts to the compute dtype at each use, as in
+    pretraining."""
     dev = resolve_device(device)
     model = init_weights(K3MForItemAlignment(cfg), seed, cfg.initializer_range)
     model.to(dev)
+    if train:
+        return model.train()
     cast_linears(model, compute_dtype(cfg))
     return model.eval()

@@ -135,16 +135,18 @@ class PreTrainingHeads(nn.Module):
 
 
 class ClassificationHead(nn.Module):
-    """Item-alignment CE head (ref :2164-2183): Dense(h) -> tanh ->
-    Dense(2), over the concat of the two item embeddings. Dropout is
-    inference-inactive."""
+    """Item-alignment CE head (ref :2164-2183; k3m_tpu/model/heads.py:
+    179-198): dropout -> Dense(h) -> tanh -> dropout -> Dense(2), over the
+    concat of the two item embeddings; the dropouts act in training only,
+    at hidden_dropout_prob, with bits from the step's generator."""
 
     def __init__(self, cfg: K3MConfig):
         super().__init__()
-        self.dtype = compute_dtype(cfg)
+        self.rate = cfg.hidden_dropout_prob
         self.dense = Linear(2 * cfg.hidden_size, cfg.hidden_size)
         self.out_proj = Linear(cfg.hidden_size, 2)
 
-    def forward(self, features):
-        x = torch.tanh(self.dense(features.to(self.dtype)))
+    def forward(self, features, deterministic: bool = True):
+        x = dropout(features, self.rate, deterministic)
+        x = dropout(torch.tanh(self.dense(x)), self.rate, deterministic)
         return self.out_proj(x).float()

@@ -4,7 +4,10 @@ The JAX package draws its dropout bits, attention-kernel seeds, Gumbel
 noise and LPM negatives from `fold_in(base_rng, step)` (k3m_tpu/train/
 pretrain_loop.py:202-209), so a resumed run redraws the same noise. Here
 one `StepRandom` per step holds a `torch.Generator` for each stream, all
-keyed by (seed, step) through numpy's SeedSequence. The model's modules
+keyed by (seed, step) through numpy's SeedSequence, or by (seed, step,
+3 + i) for microbatch i of an in-step microbatched step (the JAX trainers'
+fold_in(rng, 3 + i); SeedSequence pads its entropy with zeros, so a third
+word of 0 would repeat the whole step's draws). The model's modules
 take them from the `StepRandom` made active by `use(...)` for the span of
 one forward; `deterministic=False` without one raises. The bits are not
 the JAX package's: the tests inject noise where they compare the two.
@@ -28,9 +31,10 @@ class StepRandom:
     for the attention kernels' Philox seeds, so that drawing a seed never
     waits for the card."""
 
-    def __init__(self, seed: int, step: int, device="cpu"):
+    def __init__(self, seed: int, step: int, device="cpu", micro: Optional[int] = None):
         dev = torch.device(device)
-        states = np.random.SeedSequence([int(seed), int(step)]).generate_state(4, np.uint64)
+        key = [int(seed), int(step)] + ([] if micro is None else [3 + int(micro)])
+        states = np.random.SeedSequence(key).generate_state(4, np.uint64)
         seeds = [int(s) & (2 ** 63 - 1) for s in states]
         self.dropout = torch.Generator(device=dev).manual_seed(seeds[0])
         self.gumbel = torch.Generator(device=dev).manual_seed(seeds[1])

@@ -41,7 +41,9 @@ def get_parser():
                    help="checkpoint dir to resume the full state from")
     p.add_argument("--file_state_dict", default="", type=str,
                    help="a model state dict saved by torch.save to start from")
-    p.add_argument("--strict_load", action="store_true")
+    p.add_argument("--strict_load", action="store_true",
+                   help="fail if a checkpoint tensor is not consumed (as the JAX "
+                        "package's strict load decides)")
     p.add_argument("--fix_reference_bugs", action="store_true")
     p.add_argument("--skip_nonfinite", action="store_true")
     p.add_argument("--save_steps", default=0, type=int)
@@ -92,7 +94,6 @@ def get_parser():
 def refuse_unported(args) -> None:
     """Options of the JAX package the port does not have yet."""
     refused = {
-        "--micro_steps > 1": args.micro_steps > 1,
         "--device_cache": args.device_cache,
         "--wire int8": args.wire == "int8",
         "--data_backend grain": args.data_backend == "grain",
@@ -115,31 +116,13 @@ def find_config(args) -> Path:
     raise FileNotFoundError(f"config {args.config_file} not found")
 
 
-def load_pretrained(model, path: str, strict: bool):
-    """Load a reference checkpoint; returns the names it set. An HF NSP head
-    (cls.seq_relationship, sized for plain BERT) is skipped."""
-    import re
-
-    from k3m_tpu_torch.convert import load_reference_bin
-    sd = load_reference_bin(path)
-    own = model.state_dict()
-    skip = re.compile(r"^cls\.seq_relationship\.")
-    extra = [k for k in sd if k not in own and not skip.match(k)]
-    if strict and extra:
-        raise KeyError(f"checkpoint holds weights the model does not have: {extra[:8]}")
-    loaded = {k: v for k, v in sd.items()
-              if k in own and not skip.match(k) and v.shape == own[k].shape}
-    model.load_state_dict(loaded, strict=False)
-    logger.info("loaded %d pretrained tensors from %s", len(loaded), path)
-    return set(loaded)
-
-
 def main(argv=None):
     args = get_parser().parse_args(argv)
     refuse_unported(args)
     import torch
 
     from k3m_tpu_torch.config import K3MConfig
+    from k3m_tpu_torch.convert import load_pretrained
     from k3m_tpu_torch.data.pipeline import PretrainLoader
     from k3m_tpu_torch.data.preprocess import ShapeSpec
     from k3m_tpu_torch.device import resolve_device
@@ -192,7 +175,8 @@ def main(argv=None):
     model = build_pretraining_model(config, seed=args.seed, device=device)
     pretrained = None
     if args.pretrained_model_path:
-        pretrained = load_pretrained(model, args.pretrained_model_path, args.strict_load)
+        pretrained = load_pretrained(model, args.pretrained_model_path,
+                                     strict=args.strict_load)
     if args.file_state_dict:
         model.load_state_dict(torch.load(args.file_state_dict, map_location=device,
                                          weights_only=True))
@@ -200,7 +184,8 @@ def main(argv=None):
         config, learning_rate=args.learning_rate,
         warmup_steps=int(args.warmup_proportion * total_steps),
         total_steps=total_steps, grad_accum_steps=args.gradient_accumulation_steps,
-        adam_eps=args.adam_epsilon, loss_img_weight=args.loss_img_weight,
+        micro_steps=args.micro_steps, adam_eps=args.adam_epsilon,
+        loss_img_weight=args.loss_img_weight,
         objective=args.objective, seed=args.seed, wire=args.wire,
         skip_nonfinite=args.skip_nonfinite, pretrained=pretrained, model=model)
 

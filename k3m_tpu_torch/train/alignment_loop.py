@@ -1,10 +1,15 @@
-"""Item-alignment evaluation and prediction on one device.
+"""Item-alignment finetune on one device: train loop, threshold-sweep
+eval, prediction.
 
-Port of the inference half of k3m_tpu/train/alignment_loop.py (reference
-finetune.py: eval threshold sweep :1092-1096, predict jsonl dump
-:1116-1212). Batches come from `k3m_tpu_torch.data.pipeline.AlignmentLoader`
-as numpy arrays, are copied to the model's device and run under
-`torch.inference_mode()`. The train loop comes with a later slice.
+Port of k3m_tpu/train/alignment_loop.py (reference finetune.py: train
+:850-984, eval threshold sweep :1092-1096, predict jsonl dump :1116-1212).
+Batches come from `k3m_tpu_torch.data.pipeline.AlignmentLoader` as numpy
+arrays. `AlignmentTrainer` stages them on the device (ahead of their use,
+in `fit`) and trains K3MForItemAlignment with the step's dropout, attention
+dropout and Gumbel draws (`StepRandom(seed, step)`, as pretraining draws
+them), in-step microbatches, gradient accumulation and AdamW with every
+weight at the full LR (the JAX trainer passes no pretrained set).
+`evaluate` and `predict` run a model under `torch.inference_mode()`.
 """
 
 from __future__ import annotations
@@ -13,10 +18,15 @@ import json
 import logging
 import os
 import time
-from typing import Dict, Iterable
+from typing import Dict, Iterable, Optional
 
 import numpy as np
 import torch
+
+from k3m_tpu_torch.config import K3MConfig
+from k3m_tpu_torch.model.alignment import build_model
+from k3m_tpu_torch.train.state import CheckpointManager
+from k3m_tpu_torch.train.trainer import Trainer, batch_rows, stage_array
 
 logger = logging.getLogger(__name__)
 
@@ -35,24 +45,19 @@ def precision_recall_f1(labels: np.ndarray, preds: np.ndarray):
     return p, r, f1
 
 
-def item_to_device(item: Dict[str, np.ndarray], device) -> Dict[str, torch.Tensor]:
-    """The model inputs of one item on `device`: integer arrays as int64
-    (embedding and gather indices), float arrays as they are (the model
-    casts the image features to its compute dtype on the device)."""
-    out = {}
-    for k in ITEM_KEYS:
-        if k in item:
-            t = torch.from_numpy(np.ascontiguousarray(item[k]))
-            if not t.is_floating_point():
-                t = t.long()
-            out[k] = t.to(device)
-    return out
-
-
-def batch_to_device(batch: Dict, device) -> Dict:
-    return dict(label=torch.from_numpy(np.asarray(batch["label"], np.float32)).to(device),
-                item1=item_to_device(batch["item1"], device),
-                item2=item_to_device(batch["item2"], device))
+def batch_to_device(batch: Dict, device, config=None, wire: str = "exact") -> Dict:
+    """A host pair batch's model inputs on `device`, as the trainer, the
+    sweep and predict stage them (`stage_array`): labels fp32, integer
+    arrays int64, float arrays as they are or, under the `fp` wire and a
+    bf16 `config`, image_feat in bf16. A batch already there passes
+    through."""
+    device = torch.device(device)
+    if isinstance(batch.get("label"), torch.Tensor) and batch["label"].device == device:
+        return batch
+    return dict(label=stage_array("label", np.asarray(batch["label"], np.float32), device),
+                **{side: {k: stage_array(k, batch[side][k], device, config, wire)
+                          for k in ITEM_KEYS if k in batch[side]}
+                   for side in ("item1", "item2")})
 
 
 def forward(model, device_batch: Dict):
@@ -66,12 +71,13 @@ def _device_of(model) -> torch.device:
     return next(model.parameters()).device
 
 
-def evaluate(model, loader: Iterable, epoch: int = 0):
+def evaluate(model, loader: Iterable, epoch: int = 0, wire: str = "fp"):
     """Threshold sweep 0.1..0.9 P/R/F1 (ref :1092-1096)."""
     device = _device_of(model)
+    model.eval()
     all_probs, all_labels = [], []
     for batch in loader:
-        _, _, probs, _ = forward(model, batch_to_device(batch, device))
+        _, _, probs, _ = forward(model, batch_to_device(batch, device, model.cfg, wire))
         all_probs.append(probs.float().cpu().numpy())
         all_labels.append(np.asarray(batch["label"]))
     probs = np.concatenate(all_probs)
@@ -90,7 +96,7 @@ def _fmt(e: np.ndarray) -> str:
 
 
 def predict(model, loader: Iterable, output_path: str, threshold: float = 0.5,
-            log_steps: int = 100) -> Dict:
+            log_steps: int = 100, wire: str = "fp") -> Dict:
     """Embedding dump in the JAX package's jsonl format (ref :1119-1212).
 
     Returns the output path and, per batch, its pairs and the host seconds
@@ -102,7 +108,7 @@ def predict(model, loader: Iterable, output_path: str, threshold: float = 0.5,
     t_prev = time.perf_counter()
     with open(output_path, "w", encoding="utf-8") as w:
         for step, batch in enumerate(loader):
-            e1, e2, _, _ = forward(model, batch_to_device(batch, device))
+            e1, e2, _, _ = forward(model, batch_to_device(batch, device, model.cfg, wire))
             e1 = e1.float().cpu().numpy()
             e2 = e2.float().cpu().numpy()
             t_now = time.perf_counter()
@@ -120,3 +126,84 @@ def predict(model, loader: Iterable, output_path: str, threshold: float = 0.5,
                 logger.info("[Prediction] %d batches processed", step)
     logger.info("[Prediction] finished -> %s", output_path)
     return dict(output=output_path, batch_seconds=seconds, batch_pairs=pairs)
+
+
+class AlignmentTrainer(Trainer):
+    """The counterpart of the JAX AlignmentTrainer (alignment_loop.py:
+    59-356) on one device; `model` defaults to a training
+    K3MForItemAlignment with random weights from `seed`."""
+
+    def __init__(self, config: K3MConfig, *, learning_rate: float = 5e-5,
+                 warmup_steps: int = 0, total_steps: int = 1000,
+                 grad_accum_steps: int = 1, micro_steps: int = 1,
+                 adam_eps: float = 1e-8, seed: int = 42, device="cuda",
+                 wire: str = "fp", skip_nonfinite: bool = False, model=None):
+        model = model if model is not None else build_model(
+            config, seed=seed, device=device, train=True)
+        super().__init__(config, model, learning_rate=learning_rate,
+                         warmup_steps=warmup_steps, total_steps=total_steps,
+                         grad_accum_steps=grad_accum_steps, micro_steps=micro_steps,
+                         adam_eps=adam_eps, seed=seed, wire=wire,
+                         skip_nonfinite=skip_nonfinite)
+
+    def stage(self, batch: Dict) -> Dict:
+        return batch_to_device(batch, self.device, self.config, self.wire)
+
+    def train_step(self, batch: Dict):
+        """One step; returns (loss, probs) on the device (no sync)."""
+        staged = self.stage(batch)
+        self.model.train()
+        losses, probs = [], []
+        for rows, rng in self.micro_slices(staged["label"].shape[0]):
+            part = batch_rows(staged, rows)
+            _, _, p, loss = self.model(part["label"], part["item1"], part["item2"],
+                                       deterministic=False, rng=rng)
+            (loss / (self.micro_steps * self.grad_accum_steps)).backward()
+            losses.append(loss.detach())
+            probs.append(p.detach())
+        self.update()
+        loss = losses[0] if len(losses) == 1 else torch.stack(losses).mean()
+        return loss, torch.cat(probs)
+
+    def fit(self, train_loader: Iterable, val_loader: Optional[Iterable] = None,
+            num_epochs: int = 1, start_epoch: int = 0, log_steps: int = 20,
+            checkpoint_dir: Optional[str] = None):
+        """Train epochs [start_epoch, num_epochs); after each, the threshold
+        sweep on `val_loader` (`sweep`) and a checkpoint into
+        `checkpoint_dir` (`checkpoint_seconds`: the write's host time). Each
+        step ends with a device synchronisation so that its host time
+        (`step_seconds`) is the step's; every step's loss is kept
+        (`step_losses`)."""
+        ckpt = CheckpointManager(checkpoint_dir, self.config) if checkpoint_dir else None
+        sync = torch.cuda.synchronize if self.device.type == "cuda" else (lambda: None)
+        history = []
+        for epoch in range(start_epoch, num_epochs):
+            if hasattr(train_loader, "epoch"):
+                # the true epoch keys the shuffle, so a resumed run sees the
+                # uninterrupted run's order
+                train_loader.epoch = epoch
+            t_epoch = t_prev = time.perf_counter()
+            seconds, pairs, losses = [], [], []
+            for batch in self.prefetch(train_loader):
+                loss, _ = self.train_step(batch)
+                sync()
+                t_now = time.perf_counter()
+                seconds.append(t_now - t_prev)
+                t_prev = t_now
+                pairs.append(int(batch["label"].shape[0]))
+                losses.append(loss)
+                if log_steps and len(seconds) % log_steps == 0:
+                    logger.info("epoch %d step %d loss %.4f (%.3f s)", epoch, len(seconds),
+                                float(loss), seconds[-1])
+            dt = time.perf_counter() - t_epoch
+            summary = dict(epoch=epoch, seconds=dt, samples_per_sec=sum(pairs) / max(dt, 1e-9),
+                           step_seconds=seconds, step_pairs=pairs,
+                           step_losses=[float(x) for x in losses])
+            if val_loader is not None:
+                summary["sweep"] = evaluate(self.model, val_loader, epoch, self.wire)
+            if ckpt is not None:
+                t_save = time.perf_counter()
+                summary["checkpoint_path"] = ckpt.save(self.state_dict(), epoch)
+                summary["checkpoint_seconds"] = time.perf_counter() - t_save
+            history.append(summary)
+        return history

@@ -1,11 +1,12 @@
 """Pretraining driver on one device: the train step and the epoch loop.
 
 Port of k3m_tpu/train/pretrain_loop.py (reference train_concap_struc.py:
-466-705, pretrain.py:390-711). One step: stage the batch on the device,
-apply the objective's label zeroing, run K3MForPretraining with dropout and
-Gumbel/LPM draws from the step's generators, backpropagate the summed loss,
-and update with AdamW once every `grad_accum_steps` steps (the k gradients
-averaged, as optax.MultiSteps does).
+466-705, pretrain.py:390-711). One step: stage the batch on the device
+(ahead of its use, on a producer thread, in `fit`), apply the objective's
+label zeroing, run K3MForPretraining with dropout and Gumbel/LPM draws from
+the step's generators, backpropagate the summed loss (over `micro_steps`
+slices of the batch where asked), and update with AdamW once every
+`grad_accum_steps` steps (train/trainer.py).
 
 Loss composition (ref :481-533):
   objective == 1: zero lm/image labels of rows whose is_next labels are not 0
@@ -32,8 +33,8 @@ import torch
 from k3m_tpu_torch.config import K3MConfig
 from k3m_tpu_torch.model.pretrain import build_pretraining_model
 from k3m_tpu_torch.model.random import StepRandom
-from k3m_tpu_torch.train.optim import make_optimizer
 from k3m_tpu_torch.train.state import CheckpointManager
+from k3m_tpu_torch.train.trainer import Trainer, batch_rows
 
 logger = logging.getLogger(__name__)
 
@@ -81,50 +82,28 @@ def total_loss(out: Dict[str, torch.Tensor], loss_img_weight: float,
     return loss, {k: v.detach() for k, v in metrics.items()}
 
 
-class PretrainTrainer:
+class PretrainTrainer(Trainer):
     def __init__(self, config: K3MConfig, *, learning_rate: float = 1e-4,
                  warmup_steps: int = 0, total_steps: int = 1000,
                  weight_decay: float = 0.01, grad_accum_steps: int = 1,
-                 adam_eps: float = 1e-8, loss_img_weight: float = 1.0,
-                 objective: int = 0, seed: int = 42, device="cuda",
-                 wire: str = "fp", skip_nonfinite: bool = False,
+                 micro_steps: int = 1, adam_eps: float = 1e-8,
+                 loss_img_weight: float = 1.0, objective: int = 0, seed: int = 42,
+                 device="cuda", wire: str = "fp", skip_nonfinite: bool = False,
                  pretrained: Optional[Set[str]] = None, model=None):
-        if wire not in ("fp", "exact"):
-            raise NotImplementedError(f"wire {wire!r} is not ported yet (fp, exact)")
-        self.config = config
-        self.model = model if model is not None else build_pretraining_model(
+        # slices see a smaller pool of in-batch negatives (JAX :124-132)
+        if micro_steps > 1 and (config.visual_target == 2 or config.in_batch_pairs):
+            raise ValueError(
+                "micro_steps > 1 changes the in-batch negative pool of "
+                "visual_target=2 / in_batch_pairs; use micro_steps=1")
+        model = model if model is not None else build_pretraining_model(
             config, seed=seed, device=device)
-        self.device = next(self.model.parameters()).device
-        self.seed = seed
-        self.wire = wire
+        super().__init__(config, model, learning_rate=learning_rate,
+                         warmup_steps=warmup_steps, total_steps=total_steps,
+                         weight_decay=weight_decay, grad_accum_steps=grad_accum_steps,
+                         micro_steps=micro_steps, adam_eps=adam_eps, seed=seed, wire=wire,
+                         skip_nonfinite=skip_nonfinite, pretrained=pretrained)
         self.loss_img_weight = loss_img_weight
         self.objective = objective
-        self.grad_accum_steps = grad_accum_steps
-        self.skip_nonfinite = skip_nonfinite
-        self.opt, self.sched = make_optimizer(
-            self.model, learning_rate, warmup_steps, total_steps,
-            weight_decay=weight_decay, adam_eps=adam_eps, pretrained=pretrained)
-        self.step = 0        # train_step calls so far (the JAX state.step)
-        self._micro = 0      # steps accumulated since the last update
-
-    # ------------------------------------------------------------ staging
-
-    def _to_device(self, key: str, value):
-        t = torch.from_numpy(np.ascontiguousarray(value)) \
-            if isinstance(value, np.ndarray) else torch.as_tensor(value)
-        if self.wire == "fp" and self.config.dtype == "bfloat16":
-            # halve the two largest host->device tensors: image_feat goes
-            # to the compute dtype (its first use casts it anyway), the
-            # soft labels in [0, 1] to fp16 (:336-353)
-            if key == "image_feat":
-                t = t.to(torch.bfloat16)
-            elif key == "image_target" and self.config.visual_target == 0:
-                t = t.to(torch.float16)
-        if self.device.type == "cuda":
-            t = t.pin_memory().to(self.device, non_blocking=True)
-        else:
-            t = t.to(self.device)
-        return t if t.is_floating_point() else t.long()
 
     def stage(self, batch: Dict) -> Dict[str, torch.Tensor]:
         """The model's inputs (and injected draws) of a host batch on the
@@ -154,50 +133,27 @@ class PretrainTrainer:
     def train_step(self, batch: Dict) -> Dict[str, torch.Tensor]:
         """One step; returns its metrics as device scalars (no sync)."""
         staged = self.stage(batch)
+        if self.micro_steps > 1 and any(k in staged for k in INJECT_KEYS):
+            # injected draws index rows of the whole batch (JAX :232-235)
+            raise ValueError("RNG-replay injection requires micro_steps=1")
         self.model.train()
-        rng = StepRandom(self.seed, self.step, self.device)
-        loss, metrics = self.losses(staged, deterministic=False, rng=rng)
-        (loss / self.grad_accum_steps).backward()
-        self.step += 1
-        self._micro += 1
-        if self._micro == self.grad_accum_steps:
-            self._micro = 0
-            if self.skip_nonfinite and not self._grads_finite():
-                metrics["nonfinite_skipped"] = torch.ones((), device=self.device)
-            else:
-                # optax decays a parameter whose gradient is zero; torch's
-                # AdamW skips one without a gradient, so the parameters the
-                # loss does not reach (the NSP head under objective 2, frozen
-                # layers) get a zero gradient
-                for p in self.model.parameters():
-                    if p.grad is None:
-                        p.grad = torch.zeros_like(p)
-                self.opt.step()
-                self.sched.step()
-            self.opt.zero_grad(set_to_none=True)
+        parts = []
+        for rows, rng in self.micro_slices(staged["input_ids"].shape[0]):
+            loss, metrics = self.losses(batch_rows(staged, rows), deterministic=False,
+                                        rng=rng)
+            (loss / (self.micro_steps * self.grad_accum_steps)).backward()
+            parts.append(metrics)
+        metrics = parts[0] if len(parts) == 1 else {
+            k: torch.stack([m[k] for m in parts]).mean() for k in parts[0]}
+        skipped = self.update()
+        if skipped is not None:
+            metrics["nonfinite_skipped"] = skipped
         return metrics
-
-    def _grads_finite(self) -> bool:
-        grads = [p.grad for p in self.model.parameters() if p.grad is not None]
-        return bool(torch.stack([g.isfinite().all() for g in grads]).all())
 
     @torch.no_grad()
     def eval_step(self, batch: Dict) -> Dict[str, torch.Tensor]:
         self.model.eval()
         return self.losses(self.stage(batch), deterministic=True)[1]
-
-    # ---------------------------------------------------------- checkpoint
-
-    def state_dict(self) -> dict:
-        return dict(model=self.model.state_dict(), optimizer=self.opt.state_dict(),
-                    scheduler=self.sched.state_dict(), step=self.step,
-                    micro=self._micro)
-
-    def load_state_dict(self, state: dict) -> None:
-        self.model.load_state_dict(state["model"])
-        self.opt.load_state_dict(state["optimizer"])
-        self.sched.load_state_dict(state["scheduler"])
-        self.step, self._micro = int(state["step"]), int(state["micro"])
 
     # ---------------------------------------------------------------- fit
 
@@ -221,13 +177,13 @@ class PretrainTrainer:
             t_epoch = time.perf_counter()
             seconds, samples, step_metrics = [], [], []
             t_prev = time.perf_counter()
-            for batch in train_loader:
+            for batch in self.prefetch(train_loader):
                 metrics = self.train_step(batch)
                 sync()
                 t_now = time.perf_counter()
                 seconds.append(t_now - t_prev)
                 t_prev = t_now
-                samples.append(int(np.shape(batch["input_ids"])[0]))
+                samples.append(int(batch["input_ids"].shape[0]))
                 step_metrics.append(metrics)
                 if log_steps and len(seconds) % log_steps == 0:
                     m = {k: float(v) for k, v in metrics.items()}

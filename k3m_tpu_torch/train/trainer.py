@@ -1,0 +1,149 @@
+"""What the port's two trainers share (PretrainTrainer, AlignmentTrainer).
+
+  * staging (`stage_array`): a host batch's arrays copied to the device
+    from pinned memory, with the `fp` wire's casts under bf16;
+    `staged_prefetch` runs it ahead on a producer thread;
+  * in-step microbatching (`micro_steps`, k3m_tpu/train/pretrain_loop.py:
+    116-132, alignment_loop.py:152-202): the batch cut into M slices, each
+    backpropagated with its own generators (`StepRandom(seed, step,
+    micro=i)`) at 1/M of its loss, so the gradients and losses are the
+    slices' means;
+  * the update: AdamW once every `grad_accum_steps` train steps (the k
+    gradients averaged, as optax.MultiSteps does), skipped under
+    `skip_nonfinite` when a gradient is not finite;
+  * the state a checkpoint holds.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Iterable, Iterator, Optional, Set
+
+import numpy as np
+import torch
+
+from k3m_tpu_torch.model.random import StepRandom
+from k3m_tpu_torch.train.optim import make_optimizer
+from k3m_tpu_torch.train.prefetch import staged_prefetch
+
+
+def batch_rows(tree, rows: slice):
+    """The rows `rows` of every tensor of a (nested) staged batch."""
+    if isinstance(tree, dict):
+        return {k: batch_rows(v, rows) for k, v in tree.items()}
+    return tree[rows]
+
+
+def stage_array(key: str, value, device: torch.device, config=None,
+                wire: str = "exact") -> torch.Tensor:
+    """One host array of a batch on `device`, from pinned memory on a CUDA
+    device; integers as int64 (embedding and gather indices). Under the
+    `fp` wire and a bf16 `config` the two largest host->device tensors are
+    halved: image_feat goes to the compute dtype (its first use casts it
+    anyway), the soft labels in [0, 1] to fp16 (k3m_tpu/train/pretrain_loop.py:336-353)."""
+    t = torch.from_numpy(np.ascontiguousarray(value)) \
+        if isinstance(value, np.ndarray) else torch.as_tensor(value)
+    if wire == "fp" and config is not None and config.dtype == "bfloat16":
+        if key == "image_feat":
+            t = t.to(torch.bfloat16)
+        elif key == "image_target" and config.visual_target == 0:
+            t = t.to(torch.float16)
+    if device.type == "cuda":
+        t = t.pin_memory().to(device, non_blocking=True)
+    else:
+        t = t.to(device)
+    return t if t.is_floating_point() else t.long()
+
+
+class Trainer:
+    def __init__(self, config, model: torch.nn.Module, *, learning_rate: float,
+                 warmup_steps: int, total_steps: int, weight_decay: float = 0.01,
+                 grad_accum_steps: int = 1, micro_steps: int = 1, adam_eps: float = 1e-8,
+                 seed: int = 42, wire: str = "fp", skip_nonfinite: bool = False,
+                 pretrained: Optional[Set[str]] = None):
+        if wire not in ("fp", "exact"):
+            raise NotImplementedError(f"wire {wire!r} is not ported yet (fp, exact)")
+        if micro_steps < 1 or grad_accum_steps < 1:
+            raise ValueError("micro_steps and grad_accum_steps must be at least 1")
+        self.config = config
+        self.model = model
+        self.device = next(model.parameters()).device
+        self.seed = seed
+        self.wire = wire
+        self.grad_accum_steps = grad_accum_steps
+        self.micro_steps = micro_steps
+        self.skip_nonfinite = skip_nonfinite
+        self.opt, self.sched = make_optimizer(
+            model, learning_rate, warmup_steps, total_steps,
+            weight_decay=weight_decay, adam_eps=adam_eps, pretrained=pretrained)
+        self.step = 0        # train_step calls so far (the JAX state.step)
+        self._micro = 0      # steps accumulated since the last update
+
+    # ------------------------------------------------------------ staging
+
+    def _to_device(self, key: str, value) -> torch.Tensor:
+        return stage_array(key, value, self.device, self.config, self.wire)
+
+    def stage(self, batch: Dict) -> Dict:
+        raise NotImplementedError
+
+    def prefetch(self, loader: Iterable, depth: Optional[int] = None) -> Iterator[Dict]:
+        """The loader's batches staged on the device ahead of their use."""
+        return staged_prefetch(loader, self.stage, depth, self.device)
+
+    # -------------------------------------------------------------- steps
+
+    def micro_slices(self, batch_size: int):
+        """(rows, StepRandom) of each slice of this step; one slice of all
+        rows with the step's generators when micro_steps is 1."""
+        m = self.micro_steps
+        if batch_size % m:
+            raise ValueError(f"batch {batch_size} not divisible by micro_steps {m}")
+        if m == 1:
+            yield slice(None), StepRandom(self.seed, self.step, self.device)
+            return
+        size = batch_size // m
+        for i in range(m):
+            yield (slice(i * size, (i + 1) * size),
+                   StepRandom(self.seed, self.step, self.device, micro=i))
+
+    def update(self) -> Optional[torch.Tensor]:
+        """Count the step whose gradients were just accumulated and, once
+        every grad_accum_steps steps, apply them. Returns 1.0 (a device
+        scalar) where skip_nonfinite skipped the update, else None."""
+        self.step += 1
+        self._micro += 1
+        if self._micro < self.grad_accum_steps:
+            return None
+        self._micro = 0
+        skipped = None
+        if self.skip_nonfinite and not self._grads_finite():
+            skipped = torch.ones((), device=self.device)
+        else:
+            # optax decays a parameter whose gradient is zero; torch's AdamW
+            # skips one without a gradient, so the parameters the loss does
+            # not reach (the NSP head under objective 2, frozen layers) get
+            # a zero gradient
+            for p in self.model.parameters():
+                if p.grad is None:
+                    p.grad = torch.zeros_like(p)
+            self.opt.step()
+            self.sched.step()
+        self.opt.zero_grad(set_to_none=True)
+        return skipped
+
+    def _grads_finite(self) -> bool:
+        grads = [p.grad for p in self.model.parameters() if p.grad is not None]
+        return bool(torch.stack([g.isfinite().all() for g in grads]).all())
+
+    # ---------------------------------------------------------- checkpoint
+
+    def state_dict(self) -> dict:
+        return dict(model=self.model.state_dict(), optimizer=self.opt.state_dict(),
+                    scheduler=self.sched.state_dict(), step=self.step,
+                    micro=self._micro)
+
+    def load_state_dict(self, state: dict) -> None:
+        self.model.load_state_dict(state["model"])
+        self.opt.load_state_dict(state["optimizer"])
+        self.sched.load_state_dict(state["scheduler"])
+        self.step, self._micro = int(state["step"]), int(state["micro"])

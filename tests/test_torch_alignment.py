@@ -116,16 +116,19 @@ def test_from_jax_params_refuses_unknown_paths():
 
 def test_reference_bin_loads(tmp_path):
     """A reference-style .bin (bare names plus the dead poolers and q_dense
-    weights) loads into the port's model."""
-    from k3m_tpu_torch.convert import load_reference_bin
+    weights) loads strictly into the port's model, every weight set."""
+    from k3m_tpu_torch.convert import load_pretrained
     tcfg = TorchConfig.from_dict(MICRO.replace(loss_type="ce").to_dict())
+    want = K3MForItemAlignment(tcfg).state_dict()
     sd = {f"bert.{k}" if k.startswith(("embeddings", "encoder")) else k: v.clone()
-          for k, v in K3MForItemAlignment(tcfg).state_dict().items()}
+          for k, v in want.items()}
     sd["t_pooler.dense.weight"] = torch.zeros(2, 2)
     sd["encoder.c_layer.0.biOutput.q_dense1.weight"] = torch.zeros(2, 2)
     torch.save(sd, tmp_path / "ref.bin")
-    K3MForItemAlignment(tcfg).load_state_dict(load_reference_bin(str(tmp_path / "ref.bin")),
-                                              strict=True)
+    model = K3MForItemAlignment(tcfg)
+    assert load_pretrained(model, str(tmp_path / "ref.bin"), strict=True) == set(want)
+    for k, v in model.state_dict().items():
+        assert torch.equal(v, want[k]), k
 
 
 def test_entry_points_refuse_a_missing_card():

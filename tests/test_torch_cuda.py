@@ -6,6 +6,7 @@ no JAX it runs on its own:
     python -m pytest tests/test_torch_cuda.py -q --noconftest
 """
 
+import numpy as np
 import pytest
 import torch
 
@@ -269,3 +270,49 @@ def test_cuda_biattention_forward_edges(cuda_device, L1, L2, D, rate, dtype):
         _check(got, want, _share(dtype))
     _check_kept(lse1, w1, q2, k1, b1, m1)
     _check_kept(lse2, w2, q1, k2, b2, m2)
+
+
+def _pair_item(rng, B, L, Lpv, R, P, vocab, feat):
+    return dict(
+        input_ids=rng.integers(1, vocab, (B, L)), input_mask=np.ones((B, L), np.int64),
+        segment_ids=np.zeros((B, L), np.int64),
+        input_ids_pv=rng.integers(1, vocab, (B, Lpv)),
+        input_mask_pv=np.ones((B, Lpv), np.int64), segment_ids_pv=np.zeros((B, Lpv), np.int64),
+        index_p=rng.integers(1, Lpv, (B, P, 2)), index_v=rng.integers(1, Lpv, (B, P, 2)),
+        image_feat=rng.random((B, R, feat), dtype=np.float32),
+        image_loc=rng.random((B, R, 5), dtype=np.float32), image_mask=np.ones((B, R), np.int64))
+
+
+@pytest.mark.cuda
+def test_cuda_finetune_train_step(cuda_device):
+    """One bf16 finetune train step of the bert_base_6layer_6conect model
+    at batch 4 and the main path's lengths (run_finetune_item_alignment.sh:
+    inner loss, fusion strategy 1, dropout 0.1): the loss is finite and
+    every kernel ran its count, forward and backward: per item the
+    serving forward's launches, a backward for each LayerNorm and attention
+    and two for each bi-attention."""
+    from pathlib import Path
+
+    from k3m_tpu_torch.config import K3MConfig
+    from k3m_tpu_torch.train.alignment_loop import AlignmentTrainer
+    cfg = K3MConfig.from_json_file(str(
+        Path(kernels.__file__).parents[1] / "configs" / "bert_base_6layer_6conect.json")
+    ).replace(use_image=True, with_coattention=True, loss_type="inner", if_pre_sampling=1,
+              dtype="bfloat16")
+    rng = np.random.default_rng(0)
+    B = 4
+    shape = (B, 50, 256, 37, 30, cfg.vocab_size, cfg.v_feature_size)
+    batch = dict(label=(np.arange(B) % 2).astype(np.float32),
+                 item1=_pair_item(rng, *shape), item2=_pair_item(rng, *shape))
+    trainer = AlignmentTrainer(cfg, seed=3, device=cuda_device)
+    kernels.reset_launch_counts()
+    loss, probs = trainer.train_step(batch)
+    torch.cuda.synchronize()
+    assert torch.isfinite(loss) and probs.shape == (B,)
+    text, image, conn = 4 * cfg.num_hidden_layers, 2 * cfg.v_num_hidden_layers, \
+        3 * cfg.num_coattention_layers
+    ln = 3 + 2 * (text + image) + 4 * conn
+    assert kernels.launch_counts() == {
+        "fused_layernorm": 2 * ln, "layernorm_bwd": 2 * ln,
+        "fused_attention": 2 * (text + image), "attention_bwd": 2 * (text + image + 2 * conn),
+        "fused_biattention": 2 * conn}

@@ -3,7 +3,8 @@ package's, on the CPU.
 
   * three train steps of the port's PretrainTrainer and of the JAX
     PretrainTrainer from the same initial weights on the same batches, with
-    dropout 0 and injected draws: losses and parameters agree within 1e-3,
+    dropout 0 and injected draws, and with micro_steps=2 and no draws:
+    losses and parameters agree within 1e-3,
     the drift tests/test_trainer_trajectory.py allows, and each tensor's
     change within 1e-3 of the JAX change;
   * PretrainLoader batches are byte-identical to the JAX loader's
@@ -15,7 +16,9 @@ package's, on the CPU.
 import json
 import re
 
+import jax
 import numpy as np
+import optax
 import pytest
 import torch
 
@@ -50,13 +53,29 @@ SOFTMAX_SHIFT = re.compile(r"(\.key[12]?\.bias|^struc_w2\.bias)$")
 DECAY_ONLY = ("cls.seq_relationship.weight",)
 
 
-def test_three_train_steps_match_jax_trainer():
-    cfg = NANO.replace(num_negative_pv=4, **NO_DROPOUT)
-    batches = []
-    for seed in range(3):
-        batch, inject = _model_inputs(cfg, seed=seed)
-        batches.append({**batch, **inject})
-    kw = dict(learning_rate=1e-3, warmup_steps=1, total_steps=10, seed=0)
+def assert_adam_moments_match(jt, pt, rel=1e-2):
+    """Adam's first moments, the trainers' gradients averaged over the
+    updates, agree within `rel` of each tensor's norm. The parameters cannot
+    show a wrong gradient scale (Adam divides it out); the moments do."""
+    (adam,) = [s for s in jax.tree_util.tree_leaves(
+        jt.state.opt_state, is_leaf=lambda x: isinstance(x, optax.ScaleByAdamState))
+        if isinstance(s, optax.ScaleByAdamState)]
+    flat = {k: np.asarray(v) for k, v in _flatten(adam.mu["params"]).items()}
+    named = dict(pt.model.named_parameters())
+    for name, want in from_jax_params(flat).items():
+        if SOFTMAX_SHIFT.search(name):
+            continue
+        got = pt.opt.state[named[name]]["exp_avg"]
+        err = float(torch.linalg.vector_norm(got - want))
+        norm = float(torch.linalg.vector_norm(want))
+        assert err <= rel * norm + 1e-9, (name, err, norm)
+
+
+def _three_steps_against_jax(cfg, batches, **kw):
+    """Train the JAX and the port's PretrainTrainer from the same initial
+    weights on `batches`: the losses of each step, then the parameters and
+    each tensor's change."""
+    kw = dict(learning_rate=1e-3, warmup_steps=1, total_steps=10, seed=0, **kw)
     jt = JaxTrainer(cfg, mesh=single_mesh(), sample_batch=batches[0], **kw)
     flat = {k: np.array(v) for k, v in _flatten(jt.state.params["params"]).items()}
     init = from_jax_params(flat)
@@ -87,8 +106,33 @@ def test_three_train_steps_match_jax_trainer():
             else 1e-2 * kw["learning_rate"] * d_want.numel() ** 0.5
         assert err <= 1e-3 * norm + floor, name
         off, total = off + err ** 2, total + norm ** 2
-    assert off ** 0.5 <= 1e-3 * total ** 0.5
+    assert total > 0 and off ** 0.5 <= 1e-3 * total ** 0.5
     assert pt.step == 3 and pt.sched.last_epoch == 3
+    assert_adam_moments_match(jt, pt)
+
+
+def test_three_train_steps_match_jax_trainer():
+    cfg = NANO.replace(num_negative_pv=4, **NO_DROPOUT)
+    batches = []
+    for seed in range(3):
+        batch, inject = _model_inputs(cfg, seed=seed)
+        batches.append({**batch, **inject})
+    _three_steps_against_jax(cfg, batches)
+
+
+def test_micro_steps_train_steps_match_jax_trainer():
+    """micro_steps=2 against the JAX trainer's micro_step_fn. Injected
+    draws index the whole batch, so both refuse them under microbatches:
+    this run's draws decide nothing. Dropout is 0 and fusion strategy 0;
+    each slice has 2 items of 2 valid pairs, so the one LPM entity negative
+    (the other item) and the one value negative (the other pair) are the
+    only candidates. So the slices' gradients, their 1/M scale and the
+    averaged losses are held to JAX's."""
+    cfg = NANO.replace(num_negative_pv=2, if_pre_sampling=0, visual_target=0, **NO_DROPOUT)
+    batches = [_model_inputs(cfg, seed=seed)[0] for seed in range(3)]
+    for b in batches:
+        assert ((b["index_p"][..., 0] != 0).sum(1) == 2).all()
+    _three_steps_against_jax(cfg, batches, micro_steps=2)
 
 
 def _records(path, n, seed=0):
@@ -156,7 +200,7 @@ def test_cli_trains_checkpoints_and_resumes(tmp_path):
     assert again["trainer"].step == 4
 
 
-@pytest.mark.parametrize("flag", [["--micro_steps", "2"], ["--device_cache"],
+@pytest.mark.parametrize("flag", [["--device_cache"],
                                   ["--wire", "int8"], ["--data_backend", "grain"],
                                   ["--n_model", "2"], ["--save_steps", "5"]])
 def test_cli_refuses_unported_options_by_name(tmp_path, flag):

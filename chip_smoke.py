@@ -15,7 +15,8 @@ a failure:
      card, in fp32 and bf16, at every main-path shape (forward kernels at
      the serving batch 64 and the pretraining batch 96, backward kernels at
      96; the attention kernels also in bf16 at rate 0.1 at the finetune
-     batch 32, as finetune training calls them),
+     batch 32, as finetune training calls them, and both LN kernels there
+     on the pv rows in bf16),
      forward kernels at dropout 0 and 0.1, backward kernels at 0 and 0.1
      under the plain version's Philox mask, each (batch, head) of a
      gradient within a share of its own scale, and show that this
@@ -61,7 +62,39 @@ a failure:
   9. finetune cross-check: one fp32 finetune train step at batch 2, dropout
      off, fusion strategy 2, for loss inner and ce, on the card and on the
      CPU: the loss and every parameter's gradient;
- 10. print the kernel summary line and the final device line.
+ 10. native producer: the C++ record reader and batch producer of
+     k3m_tpu_torch/runtime (built with g++ at first use, alongside the CUDA
+     build; its build seconds and g++'s version printed): both full-width
+     loaders (pretraining at batch 96, pairs at batch 32, on the records of
+     phases 6 and 8) must run it, their batches must equal the Python
+     producer's byte for byte, and each producer's seconds per batch are
+     printed. Phases 6 and 8 train on the native producer (the CLIs'
+     default) and then train one more epoch on the Python producer, so
+     that samples/s and pairs/s of both stand side by side in one run;
+ 11. preemption and resume: `k3m_tpu_torch.pretrain` at full width, batch
+     96, under torch.use_deterministic_algorithms: an uninterrupted epoch;
+     the same epoch with --save_steps, SIGTERM delivered mid-epoch (a step
+     checkpoint, then the run returns); a run resumed from latest.json;
+     every parameter and AdamW moment of the resumed run against the
+     uninterrupted run's, bit for bit unless an op on the path has no
+     deterministic implementation (then named, with the tolerance);
+ 12. pretrain -> finetune: `k3m_tpu_torch.finetune --do_train` starts from
+     phase 6's model file (`epoch_0/pytorch_model.bin`, k3m_roberta_base)
+     with loss inner at learning rate 0: every weight of the alignment
+     model equal to the file's, bit for bit;
+ 13. int8 wire: one full-width bf16 train step with the int8 wire against
+     the exact wire (losses within rtol 2e-2), and the host->card bytes of
+     one batch under fp, int8 and exact;
+ 14. device cache: two full-width epochs of `k3m_tpu_torch.pretrain
+     --device_cache`: the second replayed from the cache, whose batches
+     equal, bit for bit, the first epoch's streamed ones; the cached bytes
+     against the budget;
+ 15. print the kernel summary line and the final device line.
+
+Phases 11, 12 and 14 hold the kernel launch counts of their runs to what
+the config gives, as phases 6 and 8 do. Each phase's wall seconds are
+printed and kept. Every checkpoint is written under build/chip_smoke/ and
+deleted once checked.
 
 Exits non-zero without a result when CUDA is not available. Writes its
 data under build/chip_smoke/ and its detailed results to
@@ -70,10 +103,14 @@ chiprun_out/chip_smoke.json.
 
 from __future__ import annotations
 
+import concurrent.futures
 import json
+import logging
 import math
+import os
 import re
 import shutil
+import signal
 import subprocess
 import sys
 import time
@@ -293,9 +330,14 @@ def kernel_phase_layernorm(card, rows_out):
     from k3m_tpu_torch.kernels import fused_layernorm, layernorm_plain
     f32, bf16 = torch.float32, torch.bfloat16
     g = torch.Generator(device="cuda").manual_seed(0)
-    for batch, (rows, n, what) in ((b, s) for b in FWD_BATCHES for s in ln_shapes(b)):
+    # every shape of the serving and pretraining batches; at the finetune
+    # batch the pv rows in bf16, the summary's row
+    cases = [(b, shape, ((f32, f32), (bf16, bf16), (f32, bf16)))
+             for b in FWD_BATCHES for shape in ln_shapes(b)]
+    cases.append((FT_BATCH, ln_shapes(FT_BATCH)[1], ((bf16, bf16),)))
+    for batch, (rows, n, what), dtypes in cases:
         for with_res in (False, True):
-            for xd, od in ((f32, f32), (bf16, bf16), (f32, bf16)):
+            for xd, od in dtypes:
                 x = (torch.randn(rows, n, generator=g, device="cuda") * 2 + 1).to(xd)
                 res = torch.randn(rows, n, generator=g, device="cuda").to(xd) \
                     if with_res else None
@@ -331,9 +373,13 @@ def kernel_phase_layernorm_bwd(card, rows_out):
     from k3m_tpu_torch.kernels.layernorm import _forward
     f32 = torch.float32
     g = torch.Generator(device="cuda").manual_seed(3)
-    for rows, n, what in ln_shapes(TRAIN_BATCH):
+    # every shape of the pretraining batch; at the finetune batch the pv
+    # rows in bf16, the summary's row
+    cases = [(TRAIN_BATCH, shape, (f32, torch.bfloat16)) for shape in ln_shapes(TRAIN_BATCH)]
+    cases.append((FT_BATCH, ln_shapes(FT_BATCH)[1], (torch.bfloat16,)))
+    for batch, (rows, n, what), dtypes in cases:
         for with_res in (False, True):
-            for dt in (f32, torch.bfloat16):
+            for dt in dtypes:
                 x = (torch.randn(rows, n, generator=g, device="cuda") * 2 + 1).to(dt)
                 res = torch.randn(rows, n, generator=g, device="cuda").to(dt) \
                     if with_res else None
@@ -352,13 +398,13 @@ def kernel_phase_layernorm_bwd(card, rows_out):
                 _, mean, rstd_l = torch.ops.aten.native_layer_norm(xin, [n], w, b, 1e-12)
                 lib = graph_ms(lambda: torch.ops.aten.native_layer_norm_backward(
                     dy, xin, [n], mean, rstd_l, w, b, [True, True, True]))
-                if what == "pv" and not with_res:
+                if what == "pv" and not with_res and batch == TRAIN_BATCH:
                     _same_twice("layernorm_bwd", f"[{rows},{n}] {_dt_name(dt)}", got,
                                 lambda: layernorm_bwd(y, rstd, scale, bias, dy, dt), card)
                 esz = y.element_size()
                 bound, by = _bound(3 * rows * n * esz + 4 * rows + 16 * n, 16 * rows * n, f32)
                 _record(rows_out, card, kernel="layernorm_bwd", shape=f"[{rows},{n}] {what}",
-                        batch=TRAIN_BATCH, residual=with_res, dtype=_dt_name(dt),
+                        batch=batch, residual=with_res, dtype=_dt_name(dt),
                         max_abs_err=err, tol=tol,
                         ms=graph_ms(lambda: layernorm_bwd(y, rstd, scale, bias, dy, dt)),
                         plain_ms=graph_ms(lambda: layernorm_bwd_plain(y, rstd, scale, bias,
@@ -982,16 +1028,23 @@ def phase_slice(card, profile=False):
                 **device)
 
 
-def _loader(path, cfg, batch_size):
-    from k3m_tpu_torch.data.pipeline import AlignmentLoader
+def _shapes():
     from k3m_tpu_torch.data.preprocess import ShapeSpec
+    return ShapeSpec(max_seq_len=SHAPES["max_seq_length"],
+                     max_seq_len_pv=SHAPES["max_seq_length_pv"],
+                     max_num_pv=SHAPES["max_num_pv"],
+                     max_region_len=SHAPES["max_region_length"])
+
+
+def _loader(path, cfg, batch_size, native=True, shuffle=False, drop_last=False):
+    """The pair loader (native producer unless `native` is False), as
+    finetune's eval loader (or, shuffled and dropping the remainder, its
+    train loader) makes it."""
+    from k3m_tpu_torch.data.pipeline import AlignmentLoader
     from k3m_tpu_torch.tokenization import get_tokenizer
-    shapes = ShapeSpec(max_seq_len=SHAPES["max_seq_length"],
-                       max_seq_len_pv=SHAPES["max_seq_length_pv"],
-                       max_num_pv=SHAPES["max_num_pv"],
-                       max_region_len=SHAPES["max_region_length"])
-    return AlignmentLoader(str(path), get_tokenizer(None, cfg.vocab_size), shapes,
-                           batch_size=batch_size, drop_last=False)
+    return AlignmentLoader(str(path), get_tokenizer(None, cfg.vocab_size), _shapes(),
+                           batch_size=batch_size, shuffle=shuffle, seed=SEED,
+                           drop_last=drop_last, native_preprocess=native)
 
 
 def _load_batch(path, cfg, batch_size):
@@ -1001,11 +1054,12 @@ def _load_batch(path, cfg, batch_size):
 def loader_rate(cfg, path, card, batch=BATCH, what="slice"):
     """Seconds per batch of the pair loader alone (read, tokenize,
     preprocess, collate on its producer thread), over the whole file."""
+    loader = _loader(path, cfg, batch)
     t0 = time.perf_counter()
-    n = sum(1 for _ in _loader(path, cfg, batch))
+    n = sum(1 for _ in loader)
     s_per_batch = (time.perf_counter() - t0) / n
-    log(f"{what}: loader alone {s_per_batch:.4f} s per batch of {batch} pairs "
-        f"over {n} batches (host) | {card}")
+    log(f"{what}: loader alone ({loader.producer} producer) {s_per_batch:.4f} s per batch "
+        f"of {batch} pairs over {n} batches (host) | {card}")
     return s_per_batch
 
 
@@ -1173,12 +1227,24 @@ def phase_crosscheck(card):
 ROBERTA = ROOT / "k3m_tpu_torch" / "configs" / "k3m_roberta_base.json"
 
 
-def write_pretrain_records(path, n):
+def write_pretrain_records(path, n, seed=SEED + 1):
     from k3m_tpu_torch.data.records import write_records
     from k3m_tpu_torch.tokenization import build_synthetic_vocab
-    rng = np.random.default_rng(SEED + 1)
+    rng = np.random.default_rng(seed)
     vocab = build_synthetic_vocab()
     return write_records(str(path), (_synthetic_item(rng, vocab, i) for i in range(n)))
+
+
+def _pretrain_argv(data_dir, out_dir, *extra, epochs=1):
+    """`k3m_tpu_torch.pretrain` at full width: bf16, image on, batch 96,
+    the full shapes, random weights from SEED."""
+    argv = ["--data_dir", str(data_dir), "--output_dir", str(out_dir),
+            "--file_name", "{}_feat.k3mr", "--bf16", "--use_image",
+            "--train_batch_size", str(TRAIN_BATCH), "--num_train_epochs", str(epochs),
+            "--seed", str(SEED), "--log_steps", "1", *extra]
+    for k, v in SHAPES.items():
+        argv += [f"--{k}", str(v)]
+    return argv
 
 
 def expected_train_launches(cfg, steps, head_lns=3):
@@ -1197,27 +1263,41 @@ def expected_train_launches(cfg, steps, head_lns=3):
                 fused_biattention=steps * conn)
 
 
-def _pretrain_loader(path, cfg, batch_size):
+def _pretrain_loader(path, cfg, batch_size, native=True, shuffle=False):
+    """The pretraining loader (native producer unless `native` is False);
+    shuffled, it is the one the pretraining CLI makes."""
     from k3m_tpu_torch.data.pipeline import PretrainLoader
-    from k3m_tpu_torch.data.preprocess import ShapeSpec
     from k3m_tpu_torch.tokenization import get_tokenizer
-    shapes = ShapeSpec(max_seq_len=SHAPES["max_seq_length"],
-                       max_seq_len_pv=SHAPES["max_seq_length_pv"],
-                       max_num_pv=SHAPES["max_num_pv"],
-                       max_region_len=SHAPES["max_region_length"])
-    return PretrainLoader(str(path), get_tokenizer(None, cfg.vocab_size), shapes,
-                          batch_size=batch_size, shuffle=False, seed=SEED)
+    return PretrainLoader(str(path), get_tokenizer(None, cfg.vocab_size), _shapes(),
+                          batch_size=batch_size, shuffle=shuffle, seed=SEED,
+                          native_preprocess=native)
 
 
-def pretrain_loader_rate(cfg, path, card):
-    """Seconds per batch of the pretraining loader alone (read, tokenize,
-    mask, collate on its producer thread), over the whole file."""
-    t0 = time.perf_counter()
-    n = sum(1 for _ in _pretrain_loader(path, cfg, TRAIN_BATCH))
-    s_per_batch = (time.perf_counter() - t0) / n
-    log(f"train: loader alone {s_per_batch:.4f} s per batch of {TRAIN_BATCH} "
-        f"over {n} batches (host) | {card}")
-    return s_per_batch
+def _require_native(run, what):
+    """The CLI run `run` trained on the native producer."""
+    if run["producer"] != "native":
+        raise AssertionError(f"{what}: the train loader ran the {run['producer']} producer")
+
+
+def producer_comparison(trainer, loader, what, native_rate, unit, card):
+    """One more epoch of `trainer` on the Python producer's batches (the
+    same loader otherwise), no checkpoint: its rate over the steps after
+    the first beside the native producer's rate of the CLI run."""
+    if loader.producer != "python":
+        raise AssertionError(f"{what}: the comparison loader is not the Python producer")
+    (hist,) = trainer.fit(loader, num_epochs=1, log_steps=0)
+    n = hist.get("step_samples", hist.get("step_pairs"))
+    rate = sum(n[1:]) / sum(hist["step_seconds"][1:])
+    log(f"{what}: native producer {native_rate:.2f} {unit}/s, Python producer {rate:.2f} "
+        f"{unit}/s (one more epoch of the same trainer, steps 2-{len(n)} each, same run; "
+        f"no gain is claimed across runs) | {card}")
+    return rate
+
+
+def checkpoint_sizes(path):
+    """GiB of an epoch checkpoint's state.pt and pytorch_model.bin."""
+    return tuple(Path(path, name).stat().st_size / 2 ** 30
+                 for name in ("state.pt", "pytorch_model.bin"))
 
 
 def phase_train(card):
@@ -1229,13 +1309,7 @@ def phase_train(card):
     n = write_pretrain_records(data_dir / "train_feat.k3mr", TRAIN_STEPS * TRAIN_BATCH)
     log(f"train: wrote {n} pretraining records in {time.perf_counter() - t0:.1f} s")
     cfg = K3MConfig.from_json_file(str(ROBERTA))
-    loader_s = pretrain_loader_rate(cfg, data_dir / "train_feat.k3mr", card)
-    argv = ["--data_dir", str(data_dir), "--output_dir", str(out_dir),
-            "--file_name", "{}_feat.k3mr", "--bf16", "--use_image",
-            "--train_batch_size", str(TRAIN_BATCH), "--num_train_epochs", "1",
-            "--seed", str(SEED), "--log_steps", "1"]
-    for k, v in SHAPES.items():
-        argv += [f"--{k}", str(v)]
+    argv = _pretrain_argv(data_dir, out_dir)
 
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -1245,6 +1319,7 @@ def phase_train(card):
     counts = kernels.launch_counts()
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
 
+    _require_native(run, "train")
     (hist,) = run["history"]
     steps = len(hist["step_seconds"])
     expected = expected_train_launches(cfg, steps)
@@ -1266,15 +1341,16 @@ def phase_train(card):
         f"{sum(step_ms) / len(step_ms):.2f} min {min(step_ms):.2f} max {max(step_ms):.2f} "
         f"(first {1e3 * hist['step_seconds'][0]:.2f}); peak memory {peak:.2f} GiB "
         f"(bf16, k3m_roberta_base, loader included) | {card}")
-    ckpt = Path(hist["checkpoint_path"]) / "state.pt"
-    ckpt_gib = ckpt.stat().st_size / 2 ** 30
-    log(f"train: epoch checkpoint {ckpt_gib:.2f} GiB written in "
-        f"{hist['checkpoint_seconds']:.2f} s (torch.save of model, AdamW and step; "
-        f"outside step ms) | {card}")
+    ckpt_gib, model_gib = checkpoint_sizes(hist["checkpoint_path"])
+    log(f"train: epoch checkpoint {ckpt_gib:.2f} GiB (state.pt: model, AdamW and step) and "
+        f"{model_gib:.2f} GiB (pytorch_model.bin: the model) written in "
+        f"{hist['checkpoint_seconds']:.2f} s (outside step ms) | {card}")
+    # phase 12 starts a finetune run from the model file; the full state goes
+    Path(hist["checkpoint_path"], "state.pt").unlink()
     res = dict(launches=counts, expected=expected, samples_per_s=samples_per_s,
                step_ms=step_ms, first_step_ms=1e3 * hist["step_seconds"][0],
-               peak_gib=peak, loader_s_per_batch=loader_s,
-               checkpoint_s=hist["checkpoint_seconds"], checkpoint_gib=ckpt_gib,
+               peak_gib=peak, checkpoint_s=hist["checkpoint_seconds"],
+               checkpoint_gib=ckpt_gib, model_file_gib=model_gib,
                step_losses=hist["step_losses"])
     trainer = run["trainer"]
     batch = trainer.stage(next(iter(_pretrain_loader(
@@ -1282,7 +1358,11 @@ def phase_train(card):
     res["profile"] = profile_device(lambda: trainer.train_step(batch), card,
                                     f"bf16 train step of {TRAIN_BATCH}", n=1)
     log_busy_share("train", res["profile"]["busy_ms"], step_ms, card)
-    del run, trainer
+    res["python_producer_samples_per_s"] = producer_comparison(
+        trainer, _pretrain_loader(data_dir / "train_feat.k3mr", cfg, TRAIN_BATCH,
+                                  native=False, shuffle=True),
+        "train", samples_per_s, "samples", card)
+    del run, trainer, batch
     torch.cuda.empty_cache()
     return res
 
@@ -1416,8 +1496,6 @@ def phase_finetune(card):
     log(f"finetune: wrote {n_train} train and {n_valid} validation pair records in "
         f"{time.perf_counter() - t0:.1f} s")
     cfg = K3MConfig.from_json_file(str(BERT))
-    loader_s = loader_rate(cfg, data_dir / "train_item_alignment.k3mr", card, FT_BATCH,
-                           "finetune")
     argv = ["--data_dir", str(data_dir), "--output_dir", str(out_dir),
             "--config_file", "bert_base_6layer_6conect.json", "--use_image",
             "--with_coattention", "--do_train", "--do_eval", "--bf16", "--loss_type", "inner",
@@ -1436,6 +1514,7 @@ def phase_finetune(card):
     counts = kernels.launch_counts()
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
 
+    _require_native(run, "finetune")
     (hist,) = run["history"]
     steps = len(hist["step_seconds"])
     expected = expected_finetune_launches(cfg, steps, math.ceil(FT_VALID / FT_BATCH))
@@ -1457,7 +1536,8 @@ def phase_finetune(card):
     latest = json.loads((out_dir / "latest.json").read_text())
     if not ckpt.exists() or latest["epoch"] != 0:
         raise AssertionError(f"finetune: no epoch checkpoint ({ckpt}, {latest})")
-    ckpt_gib = ckpt.stat().st_size / 2 ** 30
+    ckpt_gib, model_gib = checkpoint_sizes(hist["checkpoint_path"])
+    shutil.rmtree(out_dir)
     timed = hist["step_seconds"][1:]
     pairs_per_s = sum(hist["step_pairs"][1:]) / sum(timed)
     step_ms = [1e3 * t for t in timed]
@@ -1466,21 +1546,26 @@ def phase_finetune(card):
         f"mean {sum(step_ms) / len(step_ms):.2f} min {min(step_ms):.2f} max {max(step_ms):.2f} "
         f"(first {1e3 * hist['step_seconds'][0]:.2f}); peak memory {peak:.2f} GiB (bf16, "
         f"bert_base_6layer_6conect, loss inner, loader and sweep included) | {card}")
-    log(f"finetune: sweep at 0.5 {sweep[0.5]}; epoch checkpoint {ckpt_gib:.2f} GiB written "
-        f"in {hist['checkpoint_seconds']:.2f} s (outside step ms) | {card}")
+    log(f"finetune: sweep at 0.5 {sweep[0.5]}; epoch checkpoint {ckpt_gib:.2f} + "
+        f"{model_gib:.2f} GiB (state.pt, pytorch_model.bin) written in "
+        f"{hist['checkpoint_seconds']:.2f} s (outside step ms) | {card}")
     trainer = run["trainer"]
     prefetch = check_staged_prefetch(trainer, data_dir / "valid_item_alignment.k3mr", cfg,
                                       card)
     res = dict(launches=counts, expected=expected, pairs_per_s=pairs_per_s, step_ms=step_ms,
                first_step_ms=1e3 * hist["step_seconds"][0], peak_gib=peak,
-               loader_s_per_batch=loader_s, checkpoint_s=hist["checkpoint_seconds"],
-               checkpoint_gib=ckpt_gib, step_losses=losses, sweep=sweep, prefetch=prefetch)
+               checkpoint_s=hist["checkpoint_seconds"], checkpoint_gib=ckpt_gib,
+               model_file_gib=model_gib, step_losses=losses, sweep=sweep, prefetch=prefetch)
     batch = trainer.stage(_load_batch(data_dir / "train_item_alignment.k3mr", cfg,
                                       FT_BATCH))
     res["profile"] = profile_device(lambda: trainer.train_step(batch), card,
                                     f"bf16 finetune train step of {FT_BATCH} pairs", n=1)
     log_busy_share("finetune", res["profile"]["busy_ms"], step_ms, card)
-    del run, trainer
+    res["python_producer_pairs_per_s"] = producer_comparison(
+        trainer, _loader(data_dir / "train_item_alignment.k3mr", cfg, FT_BATCH, native=False,
+                         shuffle=True, drop_last=True),
+        "finetune", pairs_per_s, "pairs", card)
+    del run, trainer, batch
     torch.cuda.empty_cache()
     return res
 
@@ -1554,6 +1639,367 @@ def phase_finetune_crosscheck(card):
     return out
 
 
+# ------------------------------------------------- native producer phase
+
+def phase_native_build(card):
+    """Build the native library (g++) and the unicode tables it reads;
+    runs beside the CUDA build."""
+    from k3m_tpu_torch import runtime
+    from k3m_tpu_torch.runtime.unicode_tables import get_tables
+    gxx = subprocess.run(["g++", "--version"], capture_output=True, text=True,
+                         check=True).stdout.splitlines()[0]
+    t0 = time.perf_counter()
+    path = runtime.build()
+    runtime.library()
+    build_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    get_tables()
+    tables_s = time.perf_counter() - t0
+    log(f"native: {path} built in {build_s:.2f} s by {gxx}; unicode tables in "
+        f"{tables_s:.2f} s (host) | {card}")
+    return dict(path=str(path), build_s=build_s, tables_s=tables_s, gxx=gxx)
+
+
+def _same_batch(a, b, where):
+    if isinstance(a, dict):
+        if a.keys() != b.keys():
+            raise AssertionError(f"{where}: keys {sorted(a)} != {sorted(b)}")
+        for k in a:
+            _same_batch(a[k], b[k], f"{where}/{k}")
+    elif isinstance(a, list):
+        if a != b:
+            raise AssertionError(f"{where} differs")
+    elif not (a.dtype == b.dtype and a.shape == b.shape and a.tobytes() == b.tobytes()):
+        raise AssertionError(f"{where} differs ({a.dtype}{a.shape} vs {b.dtype}{b.shape})")
+
+
+def phase_native(card):
+    """Both full-width loaders run the native producer; its batches equal the
+    Python producer's byte for byte over the whole file; seconds per batch
+    of each producer alone (read, tokenize, mask, collate on the loader's
+    thread)."""
+    from k3m_tpu_torch.config import K3MConfig
+    cases = (("pretraining", TRAIN_BATCH, lambda native: _pretrain_loader(
+                 WORK / "pretrain_data" / "train_feat.k3mr", K3MConfig.from_json_file(
+                     str(ROBERTA)), TRAIN_BATCH, native=native, shuffle=True)),
+             ("pairs", FT_BATCH, lambda native: _loader(
+                 WORK / "finetune_data" / "train_item_alignment.k3mr",
+                 K3MConfig.from_json_file(str(BERT)), FT_BATCH, native=native, shuffle=True,
+                 drop_last=True)))
+    out = {}
+    for what, batch, make in cases:
+        seconds, batches = {}, {}
+        for native in (True, False):
+            loader = make(native)
+            want = "native" if native else "python"
+            if loader.producer != want:
+                raise AssertionError(f"native: the {what} loader runs the {loader.producer} "
+                                     f"producer, not the {want} one: {loader.native_error}")
+            t0 = time.perf_counter()
+            batches[want] = list(loader)
+            seconds[want] = (time.perf_counter() - t0) / len(batches[want])
+        if len(batches["native"]) != len(batches["python"]) or not batches["native"]:
+            raise AssertionError(f"native: {what}: {len(batches['native'])} native batches, "
+                                 f"{len(batches['python'])} Python batches")
+        for i, (a, b) in enumerate(zip(batches["native"], batches["python"])):
+            _same_batch(a, b, f"native: {what} batch {i}")
+        log(f"native: {what} at batch {batch}: {len(batches['native'])} batches of the "
+            f"native producer byte for byte the Python producer's; native "
+            f"{seconds['native']:.4f} s per batch, Python {seconds['python']:.4f} s per batch "
+            f"(host, the loader alone, {seconds['python'] / seconds['native']:.1f}x) | {card}")
+        out[what] = dict(batches=len(batches["native"]), native_s_per_batch=seconds["native"],
+                         python_s_per_batch=seconds["python"])
+    return out
+
+
+# ------------------------------------------------- preemption and resume
+
+RESUME_SAVE_STEPS = 4      # the cut run's --save_steps
+RESUME_SIGTERM_AT = 5      # SIGTERM while the cut run logs this step
+
+
+class _SigtermAtStep(logging.Handler):
+    """Delivers SIGTERM to this process when the pretraining loop logs step
+    `step` of epoch 0: a preemption notice that arrives mid-epoch. The
+    loop's handler then finishes the next step, checkpoints and returns."""
+
+    def __init__(self, step):
+        super().__init__()
+        self.tag = f"epoch 0 step {step} "
+
+    def emit(self, record):
+        if record.getMessage().startswith(self.tag):
+            os.kill(os.getpid(), signal.SIGTERM)
+
+
+def _run_preempted(argv, step):
+    from k3m_tpu_torch import pretrain
+    loop_log = logging.getLogger("k3m_tpu_torch.train.pretrain_loop")
+    handler, level = _SigtermAtStep(step), loop_log.level
+    loop_log.addHandler(handler)
+    loop_log.setLevel(logging.INFO)
+    try:
+        return pretrain.main(argv)
+    finally:
+        loop_log.removeHandler(handler)
+        loop_log.setLevel(level)
+
+
+def _state_diff(a, b):
+    """(tensors compared, tensors not bit for bit equal, largest abs
+    difference) over the parameters and AdamW moments of two trainers."""
+    n = unequal = 0
+    worst = 0.0
+    named_b = dict(b.model.named_parameters())
+    for name, p in a.model.named_parameters():
+        q = named_b[name]
+        pairs = [(p, q)] + [(a.opt.state[p][k], b.opt.state[q][k])
+                            for k in ("exp_avg", "exp_avg_sq")]
+        for x, y in pairs:
+            n += 1
+            if not torch.equal(x, y):
+                unequal += 1
+                worst = max(worst, float((x.float() - y.float()).abs().max()))
+    return n, unequal, worst
+
+
+def phase_resume(card):
+    """Preemption and resume at full width (batch 96, k3m_roberta_base, bf16)
+    on phase 6's records, under torch.use_deterministic_algorithms (and the
+    CUBLAS_WORKSPACE_CONFIG main sets): an uninterrupted epoch of
+    TRAIN_STEPS steps; the same epoch cut by SIGTERM, with --save_steps; the
+    run resumed from the cut run's latest.json. The resumed run's parameters
+    and AdamW moments must equal the uninterrupted run's bit for bit. Where
+    an op on the path has no deterministic implementation, it is named and
+    the run repeated with warn_only; the tolerance is then 4 Adam steps of
+    the learning rate (1e-4 each), since a last-bit difference in a gradient
+    can flip the sign of an update whose moments are near zero."""
+    from k3m_tpu_torch import kernels, pretrain
+    from k3m_tpu_torch.config import K3MConfig
+    from k3m_tpu_torch.train.state import CheckpointManager
+    cfg = K3MConfig.from_json_file(str(ROBERTA))
+    data_dir = WORK / "pretrain_data"
+    full_dir, cut_dir, resumed_dir = (WORK / f"resume_{k}" for k in ("full", "cut", "resumed"))
+    nondeterministic = None
+    kernels.reset_launch_counts()
+    torch.use_deterministic_algorithms(True)
+    try:
+        try:
+            full = pretrain.main(_pretrain_argv(data_dir, full_dir))
+        except RuntimeError as e:
+            if "deterministic" not in str(e):
+                raise
+            nondeterministic = str(e).splitlines()[0]
+            log(f"resume: an op on the path has no deterministic implementation: "
+                f"{nondeterministic}; repeating with warn_only")
+            torch.use_deterministic_algorithms(True, warn_only=True)
+            kernels.reset_launch_counts()
+            full = pretrain.main(_pretrain_argv(data_dir, full_dir))
+        shutil.rmtree(full_dir)
+        cut = _run_preempted(_pretrain_argv(data_dir, cut_dir, "--save_steps",
+                                            str(RESUME_SAVE_STEPS)), RESUME_SIGTERM_AT)
+        last = cut["history"][-1]
+        done = last.get("preempted_at_step")
+        meta = CheckpointManager(str(cut_dir)).latest()
+        if done != RESUME_SIGTERM_AT + 1 or meta != {
+                "epoch": 0, "in_epoch_step": done, "dir": f"step_e0_s{done}"}:
+            raise AssertionError(f"resume: the cut run ended {last} with latest.json {meta}")
+        if not (cut_dir / f"step_e0_s{RESUME_SAVE_STEPS}" / "state.pt").exists():
+            raise AssertionError(f"resume: no --save_steps checkpoint step_e0_s{RESUME_SAVE_STEPS}")
+        step_gib = Path(last["checkpoint_path"], "state.pt").stat().st_size / 2 ** 30
+        resumed = pretrain.main(_pretrain_argv(data_dir, resumed_dir, "--file_checkpoint",
+                                               str(cut_dir)))
+    finally:
+        torch.use_deterministic_algorithms(False)
+    counts = kernels.launch_counts()
+    shutil.rmtree(cut_dir)
+    shutil.rmtree(resumed_dir)
+    (hist,) = resumed["history"]
+    if resumed["resumed"] is None or resumed["resumed"]["step"] != done \
+            or len(hist["step_seconds"]) != TRAIN_STEPS - done:
+        raise AssertionError(f"resume: resumed {resumed['resumed']} ran "
+                             f"{len(hist['step_seconds'])} steps")
+    expected = expected_train_launches(cfg, 2 * TRAIN_STEPS)
+    for name, want in expected.items():
+        if counts[name] != want:
+            raise AssertionError(f"resume: {name}: {counts[name]} launches, expected {want}")
+    a, b = full["trainer"], resumed["trainer"]
+    if (a.step, a._micro) != (b.step, b._micro):
+        raise AssertionError(f"resume: step {b.step} against {a.step}")
+    n, unequal, worst = _state_diff(a, b)
+    tol = 0.0 if nondeterministic is None else 4 * 1e-4
+    log(f"resume: SIGTERM while step {RESUME_SIGTERM_AT} logged; the cut run checkpointed "
+        f"after step {done} ({step_gib:.2f} GiB in {last['checkpoint_seconds']:.2f} s, "
+        f"--save_steps {RESUME_SAVE_STEPS} too) and returned; the resumed run restored it in "
+        f"{resumed['resumed']['seconds']:.2f} s and ran steps {done + 1}-{TRAIN_STEPS}: "
+        f"{n - unequal} of {n} parameters and AdamW moments bit for bit the uninterrupted "
+        f"run's, largest difference {worst:.3e} (tolerance {tol:.1e}, "
+        f"{'bit for bit under torch.use_deterministic_algorithms' if nondeterministic is None else 'an op without a deterministic implementation: ' + nondeterministic}) "
+        f"| {card}")
+    if worst > tol or (nondeterministic is None and unequal):
+        raise AssertionError(f"resume: {unequal} tensors differ, largest {worst:.3e} > {tol}")
+    res = dict(preempted_at_step=done, step_checkpoint_gib=step_gib,
+               step_checkpoint_s=last["checkpoint_seconds"],
+               restore_s=resumed["resumed"]["seconds"], tensors=n, unequal=unequal,
+               max_abs_diff=worst, tolerance=tol, nondeterministic_op=nondeterministic,
+               launches=counts)
+    del full, cut, resumed, a, b
+    torch.cuda.empty_cache()
+    return res
+
+
+# ------------------------------------------------- pretrain -> finetune
+
+def phase_chain(card):
+    """`finetune --do_train --loss_type inner --file_state_dict` phase 6's
+    model file (k3m_roberta_base), learning rate 0, on the validation pairs
+    of phase 8 (2 steps): every weight of the alignment model is the
+    file's, bit for bit; the pretraining heads are ignored."""
+    from k3m_tpu_torch import finetune, kernels
+    from k3m_tpu_torch.config import K3MConfig
+    model_file = WORK / "pretrain_out" / "epoch_0" / "pytorch_model.bin"
+    out_dir = WORK / "chain_out"
+    argv = ["--data_dir", str(WORK / "finetune_data"), "--output_dir", str(out_dir),
+            "--file_train", "valid_item_alignment.k3mr", "--config_file",
+            "bert_base_6layer_6conect.json", "--use_image", "--with_coattention",
+            "--do_train", "--bf16", "--loss_type", "inner", "--if_pre_sampling", "1",
+            "--train_batch_size", str(FT_BATCH), "--learning_rate", "0",
+            "--num_train_epochs", "1", "--seed", str(SEED), "--log_steps", "1",
+            "--file_state_dict", str(model_file)]
+    for k, v in SHAPES.items():
+        argv += [f"--{k}", str(v)]
+    kernels.reset_launch_counts()
+    run = finetune.main(argv)
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    (hist,) = run["history"]
+    steps = len(hist["step_seconds"])
+    expected = expected_finetune_launches(K3MConfig.from_json_file(str(BERT)), steps, 0)
+    for name, want in expected.items():
+        if counts[name] != want or counts[name] == 0:
+            raise AssertionError(f"chain: {name}: {counts[name]} launches, expected {want}")
+    if not all(math.isfinite(x) for x in hist["step_losses"]):
+        raise AssertionError(f"chain: non-finite losses {hist['step_losses']}")
+    want = torch.load(model_file, map_location="cpu", weights_only=True)
+    got = run["trainer"].model.state_dict()
+    missing = sorted(set(got) - set(want))
+    if missing:
+        raise AssertionError(f"chain: the model file lacks {missing[:4]}")
+    differ = [k for k, v in got.items() if not torch.equal(v.cpu(), want[k])]
+    if differ:
+        raise AssertionError(f"chain: {len(differ)} weights differ from the file: {differ[:4]}")
+    res = dict(weights=len(got), ignored=len(want) - len(got), launches=counts)
+    log(f"chain: finetune (loss inner, lr 0, {steps} steps of {FT_BATCH}) from phase 6's "
+        f"{model_file.stat().st_size / 2 ** 30:.2f} GiB model file: all {len(got)} weights bit "
+        f"for bit the file's, {res['ignored']} pretraining tensors ignored | {card}")
+    del run, got
+    shutil.rmtree(out_dir)
+    shutil.rmtree(WORK / "pretrain_out")
+    torch.cuda.empty_cache()
+    return res
+
+
+# ---------------------------------------------------------- int8 wire
+
+def phase_wire(card):
+    """One full-width bf16 train step with the int8 wire against the exact
+    wire: same weights, batch and draws; losses within rtol 2e-2 (the JAX
+    package's bound, tests/test_wire.py). The host->card bytes of the
+    batch under each wire."""
+    from k3m_tpu_torch import kernels
+    from k3m_tpu_torch.config import K3MConfig
+    from k3m_tpu_torch.train.pretrain_loop import BATCH_KEYS, PretrainTrainer
+    from k3m_tpu_torch.train.trainer import wire_batch
+    from k3m_tpu_torch.train.wire import wire_bytes
+    cfg = K3MConfig.from_json_file(str(ROBERTA)).replace(use_image=True, objective=2,
+                                                         dtype="bfloat16")
+    batch = next(iter(_pretrain_loader(WORK / "pretrain_data" / "train_feat.k3mr", cfg,
+                                       TRAIN_BATCH, shuffle=True)))
+    sizes = {m: wire_bytes(wire_batch(batch, BATCH_KEYS, cfg, m)) for m in ("fp", "int8",
+                                                                          "exact")}
+    losses = {}
+    kernels.reset_launch_counts()
+    for mode in ("exact", "int8"):
+        trainer = PretrainTrainer(cfg, device="cuda", seed=SEED, objective=2, wire=mode)
+        losses[mode] = {k: float(v) for k, v in trainer.train_step(batch).items()}
+        del trainer
+        torch.cuda.empty_cache()
+    counts = kernels.launch_counts()
+    expected = expected_train_launches(cfg, 2)
+    for name, want in expected.items():
+        if counts[name] != want:
+            raise AssertionError(f"wire: {name}: {counts[name]} launches, expected {want}")
+    got, want = losses["int8"]["loss"], losses["exact"]["loss"]
+    if not (math.isfinite(got) and abs(got - want) <= 2e-2 * abs(want)):
+        raise AssertionError(f"wire: loss int8 {got} against exact {want}")
+    rel = {k: abs(losses["int8"][k] - v) / max(abs(v), 1e-30)
+           for k, v in losses["exact"].items() if v}
+    log(f"wire: one train step of {TRAIN_BATCH}: loss int8 {got:.6f}, exact {want:.6f} "
+        f"(rtol 2e-2; each term's relative difference {({k: f'{v:.2e}' for k, v in rel.items()})}); host->card "
+        f"bytes per batch: fp {sizes['fp'] / 1e6:.2f} MB, int8 {sizes['int8'] / 1e6:.2f} MB, "
+        f"exact {sizes['exact'] / 1e6:.2f} MB | {card}")
+    return dict(losses=losses, wire_bytes=sizes, launches=counts)
+
+
+# -------------------------------------------------------- device cache
+
+CACHE_BATCHES = 3          # batches of the device-cache phase's epoch
+
+
+def phase_cache(card):
+    """`k3m_tpu_torch.pretrain --device_cache`, two epochs of CACHE_BATCHES
+    batches of 96 at full width: the first streams and keeps its staged
+    batches, the second replays them; the kept batches equal, bit for bit,
+    the first epoch's batches staged again from the loader."""
+    from k3m_tpu_torch import kernels, pretrain
+    from k3m_tpu_torch.config import K3MConfig
+    cfg = K3MConfig.from_json_file(str(ROBERTA))
+    data_dir, out_dir = WORK / "cache_data", WORK / "cache_out"
+    write_pretrain_records(data_dir / "train_feat.k3mr", CACHE_BATCHES * TRAIN_BATCH,
+                           seed=SEED + 3)
+    kernels.reset_launch_counts()
+    run = pretrain.main(_pretrain_argv(data_dir, out_dir, "--device_cache", epochs=2))
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    shutil.rmtree(out_dir)
+    expected = expected_train_launches(cfg, 2 * CACHE_BATCHES)
+    for name, want in expected.items():
+        if counts[name] != want:
+            raise AssertionError(f"cache: {name}: {counts[name]} launches, expected {want}")
+    first, second = run["history"]
+    if first["device_cache"]["from_cache"] or not second["device_cache"]["from_cache"]:
+        raise AssertionError(f"cache: epochs read from the cache: "
+                             f"{[h['device_cache'] for h in run['history']]}")
+    trainer = run["trainer"]
+    kept = trainer.epoch_cache._cache
+    loader = _pretrain_loader(data_dir / "train_feat.k3mr", cfg, TRAIN_BATCH, shuffle=True)
+    streamed = [trainer.stage(b) for b in loader]         # epoch 0 again
+    torch.cuda.synchronize()
+    if not len(kept) == len(streamed) == CACHE_BATCHES:
+        raise AssertionError(f"cache: {len(kept)} kept, {len(streamed)} streamed batches")
+    n = 0
+    for i, (a, b) in enumerate(zip(kept, streamed)):
+        if a.keys() != b.keys():
+            raise AssertionError(f"cache: batch {i} keys differ")
+        for k in a:
+            if not (a[k].device == trainer.device and a[k].dtype == b[k].dtype
+                    and torch.equal(a[k], b[k])):
+                raise AssertionError(f"cache: batch {i} {k} differs from the streamed one")
+            n += 1
+    rates = [sum(h["step_samples"][1:]) / sum(h["step_seconds"][1:]) for h in run["history"]]
+    info = second["device_cache"]
+    log(f"cache: epoch 2 replayed {len(kept)} batches ({n} tensors bit for bit the streamed "
+        f"epoch's) from {info['bytes'] / 1e6:.1f} MB on the card of a "
+        f"{info['budget_bytes'] / 1e6:.0f} MB budget; {rates[0]:.2f} samples/s streamed, "
+        f"{rates[1]:.2f} cached (steps 2-{CACHE_BATCHES} of each epoch) | {card}")
+    res = dict(cached_bytes=info["bytes"], budget_bytes=info["budget_bytes"],
+               samples_per_s=rates, tensors=n, launches=counts)
+    del run, trainer, kept, streamed
+    shutil.rmtree(data_dir)
+    torch.cuda.empty_cache()
+    return res
+
+
 # ------------------------------------------------------------------ main
 
 SUMMARY = {
@@ -1581,8 +2027,9 @@ def _row(krows, name, shape, dtype, rate, batch):
 def summarize(krows, paths):
     """One entry per kernel: the row of its heaviest main-path shape (the
     pretraining batch), `launches` from the pretraining run, the launches
-    of every path's run, and, where phase 3 has one, the row of the same
-    shape at the finetune batch."""
+    of every path's run (serving, pretraining, finetune, and phases 11-14),
+    and, where phase 3 has one, the row of the same shape at the finetune
+    batch."""
     summary = []
     for name, (src, replaces, shape, dtype, rate) in SUMMARY.items():
         row = _row(krows, name, shape, dtype, rate, TRAIN_BATCH)
@@ -1603,13 +2050,30 @@ def summarize(krows, paths):
 
 
 def main(argv):
+    # the cuBLAS workspace that torch.use_deterministic_algorithms asks for
+    # (phase 11); set before the first cuBLAS call of the process
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
+    kernels_only = "--kernels-only" in argv
     card = phase_env()
-    build_s, ptxas = phase_build()
-    krows, host_us, masks, edges = phase_kernels(card)
-    if "--kernels-only" in argv:       # quick check of a kernel change
+    seconds = {}
+
+    def run(name, fn, *args, **kw):
+        t0 = time.perf_counter()
+        out = fn(*args, **kw)
+        seconds[name] = time.perf_counter() - t0
+        log(f"{name}: phase took {seconds[name]:.1f} s")
+        return out
+
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        # g++ builds the native producer while nvcc builds the kernels
+        native_build = None if kernels_only else pool.submit(phase_native_build, card)
+        build_s, ptxas = run("build", phase_build)
+        native_built = native_build.result() if native_build else None
+    krows, host_us, masks, edges = run("kernels", phase_kernels, card)
+    if kernels_only:                   # quick check of a kernel change
         OUT_JSON.parent.mkdir(parents=True, exist_ok=True)
         OUT_JSON.write_text(json.dumps(dict(card=card, build_s=build_s, ptxas=ptxas,
                                             kernels=krows, dropout_masks=masks,
@@ -1619,13 +2083,19 @@ def main(argv):
     profile = "--profile" in argv
     if WORK.exists():
         shutil.rmtree(WORK)
-    slice_res = phase_slice(card, profile=profile)
-    cross = phase_crosscheck(card)
-    train_res = phase_train(card)
-    train_cross = phase_train_crosscheck(card)
-    ft_res = phase_finetune(card)
-    ft_cross = phase_finetune_crosscheck(card)
-    summary = summarize(krows, dict(serve=slice_res, pretrain=train_res, finetune=ft_res))
+    slice_res = run("slice", phase_slice, card, profile=profile)
+    cross = run("crosscheck", phase_crosscheck, card)
+    train_res = run("train", phase_train, card)
+    train_cross = run("train crosscheck", phase_train_crosscheck, card)
+    ft_res = run("finetune", phase_finetune, card)
+    ft_cross = run("finetune crosscheck", phase_finetune_crosscheck, card)
+    native = dict(build=native_built, **run("native", phase_native, card))
+    resume = run("resume", phase_resume, card)
+    chain = run("chain", phase_chain, card)
+    wire = run("wire", phase_wire, card)
+    cache = run("cache", phase_cache, card)
+    summary = summarize(krows, dict(serve=slice_res, pretrain=train_res, finetune=ft_res,
+                                    resume=resume, chain=chain, wire=wire, cache=cache))
     OUT_JSON.parent.mkdir(parents=True, exist_ok=True)
     OUT_JSON.write_text(json.dumps(dict(card=card, build_s=build_s, ptxas=ptxas,
                                         kernels=krows, dropout_masks=masks,
@@ -1633,7 +2103,11 @@ def main(argv):
                                         slice=slice_res, crosscheck_worst=cross,
                                         train=train_res, train_crosscheck=train_cross,
                                         finetune=ft_res, finetune_crosscheck=ft_cross,
+                                        native=native, resume=resume, chain=chain, wire=wire,
+                                        cache=cache, phase_seconds=seconds,
                                         summary=summary), indent=1))
+    log(f"phase seconds {({k: round(v, 1) for k, v in seconds.items()})}, "
+        f"{sum(seconds.values()):.1f} s in all")
     print(card, flush=True)
     print(json.dumps({"kernels": summary}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -5,7 +5,13 @@
     port's state-dict names (`encoder.layer.0.attention.self.query.weight`),
     with Dense kernels transposed to torch's [out, in].
   * `load_pretrained(model, path, strict=...)`: a reference or HF
-    checkpoint into a model, with the JAX package's strict-load decision.
+    checkpoint into a model, with the JAX package's strict-load decision;
+    `load_pretrained_bert_paths(path)`: the weights such a checkpoint
+    starts, which train at 0.1x the LR;
+  * `load_model_file(model, path)`: a model file the port wrote (a
+    checkpoint's `pytorch_model.bin`, or the `model` entry of its
+    `state.pt`) into a model, deciding as the JAX package's
+    `load_params_msgpack`.
 
 The port's module names are the reference torch names, so the mapping
 table is the JAX package's reference_to_flat (k3m_tpu/train/convert.py:
@@ -224,6 +230,70 @@ _IGNORABLE_SOURCE_RE = re.compile("|".join((
 )))
 
 
+def _is_full_state(sd) -> bool:
+    """A trainer's full state (Trainer.state_dict: model, optimizer,
+    scheduler, step, micro)."""
+    return isinstance(sd, dict) and "model" in sd and "optimizer" in sd
+
+
+def _read_reference(path: str) -> Dict[str, torch.Tensor]:
+    """A reference or HF torch checkpoint's tensors by name (`module.` and
+    a `model_state_dict` wrapper removed). A trainer's full state is
+    refused by name: its weights are under `model`, which no reference
+    name maps, so reading it as a reference checkpoint would set nothing."""
+    sd = torch.load(path, map_location="cpu", weights_only=True)
+    if _is_full_state(sd):
+        raise ValueError(
+            f"{path} is a trainer's full state (keys {sorted(sd)[:6]}), not a reference "
+            f"checkpoint: load its model with --file_state_dict (convert.load_model_file)")
+    if isinstance(sd, dict) and "model_state_dict" in sd:
+        sd = sd["model_state_dict"]
+    return {k[len("module."):] if k.startswith("module.") else k: v for k, v in sd.items()}
+
+
+def load_pretrained_bert_paths(path: str) -> Set[str]:
+    """The port's names of every weight a reference checkpoint maps, the
+    0.1x-LR set: a copy of the JAX package's load_pretrained_bert_paths
+    (k3m_tpu/train/convert.py:366-370, ref train_concap_struc.py:372-373),
+    which takes every source name reference_to_flat maps, whether or not
+    the model has that weight at that shape."""
+    sd = _read_reference(path)
+    table = _flax_to_torch()
+    return {table[p].name for p in reference_to_flat({k: _Sym(k) for k in sd})
+            if p in table}
+
+
+def load_model_file(model: torch.nn.Module, path: str) -> Set[str]:
+    """Load a model file the port wrote into `model`, deciding as the JAX
+    package's load_params_msgpack (k3m_tpu/train/state.py:94-96, flax's
+    from_bytes) decides: tensors of the file that the model lacks are
+    ignored (a pretraining file's heads in an alignment model) and counted
+    in the log; a weight the model needs that the file lacks raises
+    ValueError, as flax does, and so does a shape that differs. `path`
+    holds the model's state dict (`pytorch_model.bin`) or a trainer's full
+    state (`state.pt`, read through its `model` entry). Returns the names
+    of the file's tensors that were ignored."""
+    sd = torch.load(path, map_location="cpu", weights_only=True)
+    if _is_full_state(sd):
+        sd = sd["model"]
+    own = model.state_dict()
+    missing = sorted(k for k in own if k not in sd)
+    if missing:
+        raise ValueError(f"{path} lacks {len(missing)} weights the model needs: "
+                       f"{missing[:8]}")
+    reshaped = [(k, tuple(sd[k].shape), tuple(v.shape)) for k, v in own.items()
+                if sd[k].shape != v.shape]
+    if reshaped:
+        raise ValueError(f"{path}: {len(reshaped)} weights differ in shape (name, "
+                         f"file, model): {reshaped[:8]}")
+    model.load_state_dict({k: sd[k] for k in own}, strict=True)
+    ignored = set(sd) - set(own)
+    logger.info("loaded %d weights from %s; %d tensors of the file the model lacks were "
+                "ignored%s", len(own), path, len(ignored),
+                f" (e.g. {sorted(ignored)[:3]})" if ignored else "")
+    return ignored
+
+
 def load_pretrained(model: torch.nn.Module, path: str, *, strict: bool = False,
                     allowed_unconsumed: Tuple[str, ...] = (r"cls\.seq_relationship\.",)
                     ) -> Set[str]:
@@ -236,11 +306,9 @@ def load_pretrained(model: torch.nn.Module, path: str, *, strict: bool = False,
     source tensor left unconsumed (a renamed key, a rogue extra, a shape
     mismatch) raises ValueError, before the model is touched, unless
     `_IGNORABLE_SOURCE_RE` or one of `allowed_unconsumed` matches it.
+    A trainer's full state raises ValueError (`_read_reference`).
     Returns the names of the weights set."""
-    sd = torch.load(path, map_location="cpu", weights_only=True)
-    if isinstance(sd, dict) and "model_state_dict" in sd:
-        sd = sd["model_state_dict"]
-    sd = {k[len("module."):] if k.startswith("module.") else k: v for k, v in sd.items()}
+    sd = _read_reference(path)
     own = model.state_dict()
     table = _flax_to_torch()
     loaded, consumed = {}, set()

@@ -2,11 +2,19 @@
 
 The port's own copy of k3m_tpu/data/pipeline.py (reference
 ConceptCapLoaderTrain_struc and K3MDataLoader, concept_cap_dataset_struc.py:
-179-529) on one host, with the pure-Python producer: one background thread
-reads, preprocesses and collates batches ahead of the consumer. Epoch e
-visits the records in the permutation drawn from (seed, e, 1) and sample i
-is preprocessed with the Generator of (seed, e, i, 0), as the JAX
-package's loaders do (pipeline.py:121-136), so the two yield equal batches.
+179-529) on one host. One background thread produces batches ahead of the
+consumer, with one of two producers (`loader.producer`):
+  * "native": the C++ producer of k3m_tpu_torch/runtime (record decode,
+    tokenization, masking and collate of a whole batch in one call made
+    without the interpreter lock), the default, as in the JAX package;
+  * "python": read, preprocess and collate sample by sample in Python,
+    where `native_preprocess=False`, K3M_NATIVE_PREPROCESS=0, or the native
+    library cannot be built (logged with the compiler's error;
+    `native_error` says why).
+Epoch e visits the records in the permutation drawn from (seed, e, 1) and
+sample i is preprocessed with the Generator of (seed, e, i, 0), as the JAX
+package's loaders do (pipeline.py:121-136), so all of them yield equal
+batches.
 """
 
 from __future__ import annotations
@@ -21,6 +29,10 @@ from k3m_tpu_torch.data.preprocess import (
     PairPreprocessor, PretrainPreprocessor, ShapeSpec, add_global_image_token,
 )
 from k3m_tpu_torch.data.records import RecordReader
+from k3m_tpu_torch.runtime import (
+    get_native_pair_preprocessor, get_native_pretrain_preprocessor, get_native_reader,
+    native_enabled, unavailable_reason,
+)
 from k3m_tpu_torch.tokenization import WordPieceTokenizer
 
 
@@ -68,17 +80,37 @@ def collate_pretrain(samples) -> Dict[str, np.ndarray]:
 
 class _LoaderBase:
     """A seeded, threaded batch producer over one record file; subclasses
-    give `_map(i)` (one sample) and `_collate(samples)`."""
+    give `_map(i)` (one sample), `_collate(samples)` and, for the native
+    producer, `_native_batch(indices)`."""
 
     def __init__(self, record_path: str, batch_size: int, shuffle: bool,
                  seed: int, drop_last: bool, prefetch: int):
-        self.reader = RecordReader(record_path)
+        self.reader = get_native_reader(record_path) or RecordReader(record_path)
         self.batch_size = batch_size
         self.shuffle = shuffle
         self.seed = seed
         self.drop_last = drop_last
         self.prefetch = prefetch
         self.epoch = 0
+        self.native = None
+        self.native_error: Optional[str] = None
+
+    def _attach_native(self, make, native_preprocess: bool) -> None:
+        """The native producer `make()` gives, where it is wanted; else the
+        reason the Python producer runs (`native_error`)."""
+        if not native_preprocess:
+            self.native_error = "native_preprocess=False"
+        elif not native_enabled():
+            self.native_error = "K3M_NATIVE_PREPROCESS=0"
+        else:
+            self.native = make()
+            if self.native is None:
+                self.native_error = unavailable_reason()
+
+    @property
+    def producer(self) -> str:
+        """"native" or "python": which producer makes the batches."""
+        return "python" if self.native is None else "native"
 
     def __len__(self) -> int:
         n = len(self.reader)
@@ -93,18 +125,23 @@ class _LoaderBase:
     def _sample_rng(self, i: int) -> np.random.Generator:
         return np.random.default_rng((self.seed, self.epoch, i, 0))
 
+    def _batch(self, indices: np.ndarray):
+        if self.native is not None:
+            return self._native_batch(indices)
+        return self._collate([self._map(int(i)) for i in indices])
+
     def _produce(self, out_q: "queue.Queue", stop: threading.Event):
         try:
-            batch = []
-            for i in self._indices():
+            idx = self._indices()
+            B = self.batch_size
+            full = len(idx) - len(idx) % B
+            chunks = [idx[k:k + B] for k in range(0, full, B)]
+            if full < len(idx) and not self.drop_last:
+                chunks.append(idx[full:])
+            for chunk in chunks:
                 if stop.is_set():
                     return
-                batch.append(self._map(int(i)))
-                if len(batch) == self.batch_size:
-                    out_q.put(self._collate(batch))
-                    batch = []
-            if batch and not self.drop_last:
-                out_q.put(self._collate(batch))
+                out_q.put(self._batch(chunk))
         except Exception as e:      # handed to the consumer, raised there
             out_q.put(e)
         finally:
@@ -142,16 +179,21 @@ class AlignmentLoader(_LoaderBase):
     def __init__(self, record_path: str, tokenizer: WordPieceTokenizer,
                  shapes: Optional[ShapeSpec] = None, batch_size: int = 32,
                  shuffle: bool = False, seed: int = 0, visual_target: int = 0,
-                 drop_last: bool = True, prefetch: int = 4):
+                 drop_last: bool = True, prefetch: int = 4, native_preprocess: bool = True):
         super().__init__(record_path, batch_size, shuffle, seed, drop_last, prefetch)
-        self.preprocessor = PairPreprocessor(tokenizer, shapes or ShapeSpec(),
-                                             visual_target=visual_target)
+        shapes = shapes or ShapeSpec()
+        self.preprocessor = PairPreprocessor(tokenizer, shapes, visual_target=visual_target)
+        self._attach_native(lambda: get_native_pair_preprocessor(
+            record_path, tokenizer, shapes, visual_target=visual_target), native_preprocess)
 
     def _map(self, i: int):
         return self.preprocessor(self.reader[i])
 
     def _collate(self, samples):
         return collate_pairs(samples)
+
+    def _native_batch(self, indices):
+        return self.native.batch(indices)
 
 
 class PretrainLoader(_LoaderBase):
@@ -161,13 +203,19 @@ class PretrainLoader(_LoaderBase):
     def __init__(self, record_path: str, tokenizer: WordPieceTokenizer,
                  shapes: Optional[ShapeSpec] = None, batch_size: int = 32,
                  shuffle: bool = True, seed: int = 0, visual_target: int = 0,
-                 drop_last: bool = True, prefetch: int = 4):
+                 drop_last: bool = True, prefetch: int = 4, native_preprocess: bool = True):
         super().__init__(record_path, batch_size, shuffle, seed, drop_last, prefetch)
-        self.preprocessor = PretrainPreprocessor(tokenizer, shapes or ShapeSpec(),
+        shapes = shapes or ShapeSpec()
+        self.preprocessor = PretrainPreprocessor(tokenizer, shapes,
                                                  visual_target=visual_target)
+        self._attach_native(lambda: get_native_pretrain_preprocessor(
+            record_path, tokenizer, shapes, visual_target=visual_target), native_preprocess)
 
     def _map(self, i: int):
         return self.preprocessor(self.reader[i], self._sample_rng(i))
 
     def _collate(self, samples):
         return collate_pretrain(samples)
+
+    def _native_batch(self, indices):
+        return self.native.batch(indices, self.seed, self.epoch)

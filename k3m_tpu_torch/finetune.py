@@ -45,8 +45,9 @@ def get_parser():
     p.add_argument("--pretrained_model_path", default=None, type=str,
                    help="reference or HF torch checkpoint (.bin) to start from")
     p.add_argument("--file_state_dict", default="", type=str,
-                   help="a model state dict saved by torch.save (or a checkpoint's "
-                        "state.pt) to start from")
+                   help="a model file the port wrote (a checkpoint's pytorch_model.bin or "
+                        "state.pt, pretraining's too) to start from; its tensors the model "
+                        "lacks are ignored, a weight it lacks raises")
     p.add_argument("--file_checkpoint", default="", type=str,
                    help="checkpoint dir: training resumes its full state after its "
                         "epoch; eval and predict use its weights")
@@ -56,8 +57,11 @@ def get_parser():
     p.add_argument("--fix_reference_bugs", action="store_true")
     p.add_argument("--skip_nonfinite", action="store_true")
     p.add_argument("--micro_steps", default=1, type=int)
-    p.add_argument("--device_cache", action="store_true")
-    p.add_argument("--wire", default="fp", choices=["fp", "int8", "exact"])
+    p.add_argument("--device_cache", action="store_true",
+                   help="keep the first epoch's staged batches on the card and replay "
+                        "them in later epochs (K3M_DEVICE_CACHE=1)")
+    p.add_argument("--wire", default=None, choices=["fp", "int8", "exact"],
+                   help="host->card form of the image features; default K3M_WIRE, else fp")
     p.add_argument("--vocab_file", default=None, type=str)
     p.add_argument("--log_steps", default=10, type=int)
     p.add_argument("--do_train", action="store_true")
@@ -111,8 +115,6 @@ def get_parser():
 def refuse_unported(args) -> None:
     """Options of the JAX package the port does not have yet."""
     refused = {
-        "--device_cache": args.device_cache,
-        "--wire int8": args.wire == "int8",
         "--n_model > 1": args.n_model > 1,
         "multi-process training (WORLD_SIZE > 1)":
             int(os.environ.get("WORLD_SIZE", "1")) > 1,
@@ -133,10 +135,8 @@ def _find_config(args):
 def main(argv=None):
     args = get_parser().parse_args(argv)
     refuse_unported(args)
-    import torch
-
     from k3m_tpu_torch.config import K3MConfig
-    from k3m_tpu_torch.convert import load_pretrained
+    from k3m_tpu_torch.convert import load_model_file, load_pretrained
     from k3m_tpu_torch.data.pipeline import AlignmentLoader
     from k3m_tpu_torch.data.preprocess import ShapeSpec
     from k3m_tpu_torch.device import resolve_device
@@ -188,6 +188,10 @@ def main(argv=None):
     if train_loader is None and val_loader is None and test_loader is None:
         raise FileNotFoundError("no alignment record file found for --do_eval/--do_pred")
 
+    for name, ld in (("train", train_loader), ("valid", val_loader), ("test", test_loader)):
+        if ld is not None:
+            logger.info("%s loader: %s producer%s", name, ld.producer,
+                        f" ({ld.native_error})" if ld.native_error else "")
     result = {}
     if args.do_train:
         # ref finetune.py:315: the schedule spans num_train_epochs - start_epoch
@@ -198,7 +202,8 @@ def main(argv=None):
             warmup_steps=int(args.warmup_proportion * total_steps),
             total_steps=total_steps, grad_accum_steps=args.gradient_accumulation_steps,
             micro_steps=args.micro_steps, adam_eps=args.adam_epsilon, seed=args.seed,
-            device=device, wire=args.wire, skip_nonfinite=args.skip_nonfinite)
+            device=device, wire=args.wire, device_cache=args.device_cache or None,
+            skip_nonfinite=args.skip_nonfinite)
         model = trainer.model
     else:
         model = build_model(config, seed=args.seed, device=device)
@@ -206,9 +211,9 @@ def main(argv=None):
         # every weight trains at the full LR, as in the JAX trainer
         load_pretrained(model, args.pretrained_model_path, strict=args.strict_load)
     if args.file_state_dict:
-        state = torch.load(args.file_state_dict, map_location=device, weights_only=True)
-        # a trainer checkpoint's state.pt holds the model's under "model"
-        model.load_state_dict(state.get("model", state))
+        # decides as the JAX package's load_params_msgpack: a pretraining
+        # file's heads are ignored, a weight the file lacks raises
+        load_model_file(model, args.file_state_dict)
     start_epoch = args.start_epoch
     # the checkpoint last, so that it supersedes the weights above; read
     # whatever the mode, as the JAX CLI reads it: the full state for
@@ -230,6 +235,7 @@ def main(argv=None):
                                         start_epoch=start_epoch, log_steps=args.log_steps,
                                         checkpoint_dir=args.output_dir)
         result["trainer"] = trainer
+        result["producer"] = train_loader.producer
     elif val_loader is not None:
         result["sweep"] = alignment_loop.evaluate(model, val_loader, wire=args.wire)
     if test_loader is not None:

@@ -7,9 +7,12 @@
 Flag-compatible with the root `pretrain.py` (its :24-113; behaviour
 :116-268): the same config search order (output_dir, data_dir, the
 package's configs/, the literal path), the same flag overrides of the
-config, `PretrainLoader` batches into `PretrainTrainer`, per-epoch
-checkpoints in `--output_dir` and full-state resume with
-`--file_checkpoint`. Runs on the CUDA device unless `--device cpu` is
+config, `PretrainLoader` batches (native producer unless
+K3M_NATIVE_PREPROCESS=0) into `PretrainTrainer`, per-epoch checkpoints
+(`state.pt` and the model-only `pytorch_model.bin`) in `--output_dir`,
+step checkpoints every `--save_steps` batches and on SIGTERM, and resume
+with `--file_checkpoint` from an epoch or mid-epoch, as root
+`pretrain.py:241-262`. Runs on the CUDA device unless `--device cpu` is
 given. Without `--pretrained_model_path` the weights are random from
 `--seed`. Options of the JAX package that the port does not have yet are
 refused by name (ROADMAP.md Queue 1).
@@ -20,6 +23,7 @@ from __future__ import annotations
 import argparse
 import logging
 import os
+import time
 from pathlib import Path
 
 logger = logging.getLogger(__name__)
@@ -40,13 +44,15 @@ def get_parser():
     p.add_argument("--file_checkpoint", default="", type=str,
                    help="checkpoint dir to resume the full state from")
     p.add_argument("--file_state_dict", default="", type=str,
-                   help="a model state dict saved by torch.save to start from")
+                   help="a model file the port wrote (a checkpoint's pytorch_model.bin or "
+                        "state.pt) to start from; its tensors the model lacks are ignored")
     p.add_argument("--strict_load", action="store_true",
                    help="fail if a checkpoint tensor is not consumed (as the JAX "
                         "package's strict load decides)")
     p.add_argument("--fix_reference_bugs", action="store_true")
     p.add_argument("--skip_nonfinite", action="store_true")
-    p.add_argument("--save_steps", default=0, type=int)
+    p.add_argument("--save_steps", default=0, type=int,
+                   help="also checkpoint the full state every N batches (step_e<E>_s<N>)")
     p.add_argument("--log_steps", default=10, type=int)
     p.add_argument("--use_image", action="store_true")
     p.add_argument("--do_eval", action="store_true")
@@ -65,8 +71,11 @@ def get_parser():
     p.add_argument("--warmup_proportion", default=0.1, type=float)
     p.add_argument("--gradient_accumulation_steps", default=1, type=int)
     p.add_argument("--micro_steps", default=1, type=int)
-    p.add_argument("--device_cache", action="store_true")
-    p.add_argument("--wire", default="fp", choices=["fp", "int8", "exact"])
+    p.add_argument("--device_cache", action="store_true",
+                   help="keep the first epoch's staged batches on the card and replay "
+                        "them in later epochs (static masking; K3M_DEVICE_CACHE=1)")
+    p.add_argument("--wire", default=None, choices=["fp", "int8", "exact"],
+                   help="host->card form of the image tensors; default K3M_WIRE, else fp")
     p.add_argument("--no_remat", action="store_true",
                    help="accepted; the port keeps every activation")
     p.add_argument("--adam_epsilon", default=1e-8, type=float)
@@ -94,11 +103,8 @@ def get_parser():
 def refuse_unported(args) -> None:
     """Options of the JAX package the port does not have yet."""
     refused = {
-        "--device_cache": args.device_cache,
-        "--wire int8": args.wire == "int8",
         "--data_backend grain": args.data_backend == "grain",
         "--n_model > 1": args.n_model > 1,
-        "--save_steps (mid-epoch checkpoints and preemption)": args.save_steps > 0,
         "multi-process training (WORLD_SIZE > 1)":
             int(os.environ.get("WORLD_SIZE", "1")) > 1,
     }
@@ -119,10 +125,10 @@ def find_config(args) -> Path:
 def main(argv=None):
     args = get_parser().parse_args(argv)
     refuse_unported(args)
-    import torch
-
     from k3m_tpu_torch.config import K3MConfig
-    from k3m_tpu_torch.convert import load_pretrained
+    from k3m_tpu_torch.convert import (
+        load_model_file, load_pretrained, load_pretrained_bert_paths,
+    )
     from k3m_tpu_torch.data.pipeline import PretrainLoader
     from k3m_tpu_torch.data.preprocess import ShapeSpec
     from k3m_tpu_torch.device import resolve_device
@@ -170,16 +176,19 @@ def main(argv=None):
                                     batch_size=args.eval_batch_size, shuffle=False,
                                     seed=args.seed, visual_target=args.visual_target)
 
+    logger.info("train loader: %s producer%s", train_loader.producer,
+                f" ({train_loader.native_error})" if train_loader.native_error else "")
     steps_per_epoch = max(len(train_loader) // args.gradient_accumulation_steps, 1)
     total_steps = int(steps_per_epoch * args.num_train_epochs)
     model = build_pretraining_model(config, seed=args.seed, device=device)
     pretrained = None
     if args.pretrained_model_path:
-        pretrained = load_pretrained(model, args.pretrained_model_path,
-                                     strict=args.strict_load)
+        # every weight the checkpoint maps trains at 0.1x the LR, as root
+        # pretrain.py:206-209 takes it (load_pretrained_bert_paths)
+        pretrained = load_pretrained_bert_paths(args.pretrained_model_path)
+        load_pretrained(model, args.pretrained_model_path, strict=args.strict_load)
     if args.file_state_dict:
-        model.load_state_dict(torch.load(args.file_state_dict, map_location=device,
-                                         weights_only=True))
+        load_model_file(model, args.file_state_dict)
     trainer = PretrainTrainer(
         config, learning_rate=args.learning_rate,
         warmup_steps=int(args.warmup_proportion * total_steps),
@@ -187,24 +196,37 @@ def main(argv=None):
         micro_steps=args.micro_steps, adam_eps=args.adam_epsilon,
         loss_img_weight=args.loss_img_weight,
         objective=args.objective, seed=args.seed, wire=args.wire,
+        device_cache=args.device_cache or None,
         skip_nonfinite=args.skip_nonfinite, pretrained=pretrained, model=model)
 
-    start_epoch = int(args.start_epoch)
+    start_epoch, start_step, resumed = int(args.start_epoch), 0, None
     if args.file_checkpoint:
+        # full state of an epoch or of a step checkpoint (save_steps or
+        # preemption); a step checkpoint resumes mid-epoch
+        t_restore = time.perf_counter()
         cm = CheckpointManager(args.file_checkpoint)
         state = cm.restore(map_location=device)
         if state is not None:
             trainer.load_state_dict(state)
-            start_epoch = int(cm.latest()["epoch"]) + 1
-            logger.info("resumed from %s at epoch %d", args.file_checkpoint, start_epoch)
+            meta = cm.latest()
+            if "in_epoch_step" in meta:
+                start_epoch, start_step = int(meta["epoch"]), int(meta["in_epoch_step"])
+            else:
+                start_epoch = int(meta["epoch"]) + 1
+            resumed = dict(epoch=start_epoch, step=start_step,
+                           seconds=time.perf_counter() - t_restore)
+            logger.info("resumed from %s at epoch %d step %d (%.2f s)", args.file_checkpoint,
+                        start_epoch, start_step, resumed["seconds"])
 
     history = trainer.fit(train_loader, val_loader,
                           num_epochs=int(args.num_train_epochs),
-                          start_epoch=start_epoch, log_steps=args.log_steps,
+                          start_epoch=start_epoch, start_step=start_step,
+                          log_steps=args.log_steps, save_steps=args.save_steps or None,
                           checkpoint_dir=args.output_dir)
     logger.info("training history: %s", [
         {k: v for k, v in h.items() if not k.startswith("step_")} for h in history])
-    return dict(history=history, trainer=trainer)
+    return dict(history=history, trainer=trainer, producer=train_loader.producer,
+                resumed=resumed)
 
 
 if __name__ == "__main__":

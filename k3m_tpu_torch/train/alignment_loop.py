@@ -8,8 +8,11 @@ arrays. `AlignmentTrainer` stages them on the device (ahead of their use,
 in `fit`) and trains K3MForItemAlignment with the step's dropout, attention
 dropout and Gumbel draws (`StepRandom(seed, step)`, as pretraining draws
 them), in-step microbatches, gradient accumulation and AdamW with every
-weight at the full LR (the JAX trainer passes no pretrained set).
-`evaluate` and `predict` run a model under `torch.inference_mode()`.
+weight at the full LR (the JAX trainer passes no pretrained set). Under
+the `int8` wire each item's image features cross quantized and are decoded
+on the device; with the device cache (`device_cache`) the first epoch's
+staged batches are replayed after it. `evaluate` and `predict` run a model
+under `torch.inference_mode()`.
 """
 
 from __future__ import annotations
@@ -25,8 +28,10 @@ import torch
 
 from k3m_tpu_torch.config import K3MConfig
 from k3m_tpu_torch.model.alignment import build_model
+from k3m_tpu_torch.model.layers import compute_dtype
 from k3m_tpu_torch.train.state import CheckpointManager
-from k3m_tpu_torch.train.trainer import Trainer, batch_rows, stage_array
+from k3m_tpu_torch.train.trainer import Trainer, batch_rows, stage_array, stage_arrays
+from k3m_tpu_torch.train.wire import decode, wire_mode
 
 logger = logging.getLogger(__name__)
 
@@ -47,33 +52,41 @@ def precision_recall_f1(labels: np.ndarray, preds: np.ndarray):
 
 def batch_to_device(batch: Dict, device, config=None, wire: str = "exact") -> Dict:
     """A host pair batch's model inputs on `device`, as the trainer, the
-    sweep and predict stage them (`stage_array`): labels fp32, integer
-    arrays int64, float arrays as they are or, under the `fp` wire and a
-    bf16 `config`, image_feat in bf16. A batch already there passes
+    sweep and predict stage them (`stage_arrays`): labels fp32, integer
+    arrays int64, image_feat in the wire's form (bf16 under the `fp` wire
+    and a bf16 `config`, int8 and its row scales under `int8`, which
+    `decode_items` undoes on the device). A batch already there passes
     through."""
     device = torch.device(device)
     if isinstance(batch.get("label"), torch.Tensor) and batch["label"].device == device:
         return batch
     return dict(label=stage_array("label", np.asarray(batch["label"], np.float32), device),
-                **{side: {k: stage_array(k, batch[side][k], device, config, wire)
-                          for k in ITEM_KEYS if k in batch[side]}
+                **{side: stage_arrays(batch[side], ITEM_KEYS, device, config, wire)
                    for side in ("item1", "item2")})
+
+
+def decode_items(batch: Dict, config) -> Dict:
+    """A staged pair batch with each item's wire forms decoded on the
+    device, item by item (k3m_tpu/train/alignment_loop.py:206-222)."""
+    dt = compute_dtype(config)
+    return dict(batch, item1=decode(batch["item1"], dt), item2=decode(batch["item2"], dt))
 
 
 def forward(model, device_batch: Dict):
     """(emb1, emb2, probs, loss) of one batch already on the model's device."""
+    b = decode_items(device_batch, model.cfg)
     with torch.inference_mode():
-        return model(device_batch["label"], device_batch["item1"],
-                     device_batch["item2"], deterministic=True)
+        return model(b["label"], b["item1"], b["item2"], deterministic=True)
 
 
 def _device_of(model) -> torch.device:
     return next(model.parameters()).device
 
 
-def evaluate(model, loader: Iterable, epoch: int = 0, wire: str = "fp"):
-    """Threshold sweep 0.1..0.9 P/R/F1 (ref :1092-1096)."""
-    device = _device_of(model)
+def evaluate(model, loader: Iterable, epoch: int = 0, wire: Optional[str] = None):
+    """Threshold sweep 0.1..0.9 P/R/F1 (ref :1092-1096); `wire` defaults
+    to K3M_WIRE, else fp."""
+    device, wire = _device_of(model), wire_mode(wire)
     model.eval()
     all_probs, all_labels = [], []
     for batch in loader:
@@ -96,13 +109,14 @@ def _fmt(e: np.ndarray) -> str:
 
 
 def predict(model, loader: Iterable, output_path: str, threshold: float = 0.5,
-            log_steps: int = 100, wire: str = "fp") -> Dict:
+            log_steps: int = 100, wire: Optional[str] = None) -> Dict:
     """Embedding dump in the JAX package's jsonl format (ref :1119-1212).
 
     Returns the output path and, per batch, its pairs and the host seconds
     from the end of the previous batch to this batch's results on the host
-    (loader wait, copies and the forward)."""
-    device = _device_of(model)
+    (loader wait, copies and the forward). `wire` defaults to K3M_WIRE,
+    else fp."""
+    device, wire = _device_of(model), wire_mode(wire)
     os.makedirs(os.path.dirname(os.path.abspath(output_path)), exist_ok=True)
     seconds, pairs = [], []
     t_prev = time.perf_counter()
@@ -137,21 +151,22 @@ class AlignmentTrainer(Trainer):
                  warmup_steps: int = 0, total_steps: int = 1000,
                  grad_accum_steps: int = 1, micro_steps: int = 1,
                  adam_eps: float = 1e-8, seed: int = 42, device="cuda",
-                 wire: str = "fp", skip_nonfinite: bool = False, model=None):
+                 wire: Optional[str] = None, device_cache: Optional[bool] = None,
+                 skip_nonfinite: bool = False, model=None):
         model = model if model is not None else build_model(
             config, seed=seed, device=device, train=True)
         super().__init__(config, model, learning_rate=learning_rate,
                          warmup_steps=warmup_steps, total_steps=total_steps,
                          grad_accum_steps=grad_accum_steps, micro_steps=micro_steps,
                          adam_eps=adam_eps, seed=seed, wire=wire,
-                         skip_nonfinite=skip_nonfinite)
+                         device_cache=device_cache, skip_nonfinite=skip_nonfinite)
 
     def stage(self, batch: Dict) -> Dict:
         return batch_to_device(batch, self.device, self.config, self.wire)
 
     def train_step(self, batch: Dict):
         """One step; returns (loss, probs) on the device (no sync)."""
-        staged = self.stage(batch)
+        staged = decode_items(self.stage(batch), self.config)
         self.model.train()
         losses, probs = [], []
         for rows, rng in self.micro_slices(staged["label"].shape[0]):
@@ -175,16 +190,19 @@ class AlignmentTrainer(Trainer):
         (`step_seconds`) is the step's; every step's loss is kept
         (`step_losses`)."""
         ckpt = CheckpointManager(checkpoint_dir, self.config) if checkpoint_dir else None
+        source = self.epoch_source(train_loader)
         sync = torch.cuda.synchronize if self.device.type == "cuda" else (lambda: None)
         history = []
         for epoch in range(start_epoch, num_epochs):
-            if hasattr(train_loader, "epoch"):
+            if hasattr(source, "epoch"):
                 # the true epoch keys the shuffle, so a resumed run sees the
                 # uninterrupted run's order
-                train_loader.epoch = epoch
+                source.epoch = epoch
+            cache = self.epoch_cache if self.device_cache else None
+            from_cache = cache is not None and cache.cached
             t_epoch = t_prev = time.perf_counter()
             seconds, pairs, losses = [], [], []
-            for batch in self.prefetch(train_loader):
+            for batch in self.prefetch(source):
                 loss, _ = self.train_step(batch)
                 sync()
                 t_now = time.perf_counter()
@@ -199,6 +217,9 @@ class AlignmentTrainer(Trainer):
             summary = dict(epoch=epoch, seconds=dt, samples_per_sec=sum(pairs) / max(dt, 1e-9),
                            step_seconds=seconds, step_pairs=pairs,
                            step_losses=[float(x) for x in losses])
+            if cache is not None:
+                summary["device_cache"] = dict(from_cache=from_cache, cached=cache.cached,
+                                               bytes=cache.bytes, budget_bytes=cache.max_bytes)
             if val_loader is not None:
                 summary["sweep"] = evaluate(self.model, val_loader, epoch, self.wire)
             if ckpt is not None:

@@ -18,12 +18,23 @@ Per-step randomness comes from `StepRandom(seed, step)`, the counterpart of
 `fold_in(base_rng, step)` (:202-209), so a resumed run redraws the same
 noise. Randomness injected through the batch (`INJECT_KEYS`) replaces the
 model's own draws, as in the JAX trainer.
+
+Run control, as the JAX trainer's `fit` (:402-527): a full-state step
+checkpoint every `save_steps` batches, a mid-epoch start (`start_step`),
+SIGTERM handled at the next step boundary (checkpoint, then return with
+`preempted_at_step`), `metrics.jsonl` every `log_steps` steps, a warning
+where an update was skipped for non-finite gradients, and the device
+cache (`device_cache`).
 """
 
 from __future__ import annotations
 
+import contextlib
+import itertools
 import logging
 import math
+import signal
+import threading
 import time
 from typing import Dict, Iterable, Optional, Set
 
@@ -31,10 +42,13 @@ import numpy as np
 import torch
 
 from k3m_tpu_torch.config import K3MConfig
+from k3m_tpu_torch.model.layers import compute_dtype
 from k3m_tpu_torch.model.pretrain import build_pretraining_model
 from k3m_tpu_torch.model.random import StepRandom
 from k3m_tpu_torch.train.state import CheckpointManager
-from k3m_tpu_torch.train.trainer import Trainer, batch_rows
+from k3m_tpu_torch.train.trainer import Trainer, batch_rows, stage_arrays
+from k3m_tpu_torch.train.wire import decode
+from k3m_tpu_torch.utils.metrics import MetricsLogger
 
 logger = logging.getLogger(__name__)
 
@@ -88,7 +102,8 @@ class PretrainTrainer(Trainer):
                  weight_decay: float = 0.01, grad_accum_steps: int = 1,
                  micro_steps: int = 1, adam_eps: float = 1e-8,
                  loss_img_weight: float = 1.0, objective: int = 0, seed: int = 42,
-                 device="cuda", wire: str = "fp", skip_nonfinite: bool = False,
+                 device="cuda", wire: Optional[str] = None,
+                 device_cache: Optional[bool] = None, skip_nonfinite: bool = False,
                  pretrained: Optional[Set[str]] = None, model=None):
         # slices see a smaller pool of in-batch negatives (JAX :124-132)
         if micro_steps > 1 and (config.visual_target == 2 or config.in_batch_pairs):
@@ -101,31 +116,27 @@ class PretrainTrainer(Trainer):
                          warmup_steps=warmup_steps, total_steps=total_steps,
                          weight_decay=weight_decay, grad_accum_steps=grad_accum_steps,
                          micro_steps=micro_steps, adam_eps=adam_eps, seed=seed, wire=wire,
-                         skip_nonfinite=skip_nonfinite, pretrained=pretrained)
+                         device_cache=device_cache, skip_nonfinite=skip_nonfinite,
+                         pretrained=pretrained)
         self.loss_img_weight = loss_img_weight
         self.objective = objective
 
     def stage(self, batch: Dict) -> Dict[str, torch.Tensor]:
         """The model's inputs (and injected draws) of a host batch on the
-        device; a staged batch passes through."""
+        device, in the wire's form; a staged batch passes through."""
         if isinstance(batch.get("input_ids"), torch.Tensor) \
                 and batch["input_ids"].device == self.device:
             return batch
-        out = {}
-        for key in BATCH_KEYS + INJECT_KEYS:
-            if key not in batch:
-                continue
-            v = batch[key]
-            out[key] = ({k: self._to_device(key, x) for k, x in v.items()}
-                        if isinstance(v, dict) else self._to_device(key, v))
-        return out
+        return stage_arrays(batch, BATCH_KEYS + INJECT_KEYS, self.device, self.config,
+                            self.wire)
 
     # -------------------------------------------------------------- steps
 
     def losses(self, batch: Dict[str, torch.Tensor], *, deterministic: bool,
                rng: Optional[StepRandom] = None):
         """(loss, metrics) of a staged batch."""
-        batch = apply_objective(dict(batch), self.objective)
+        batch = decode(dict(batch), compute_dtype(self.config))
+        batch = apply_objective(batch, self.objective)
         inject = {k: batch.pop(k) for k in INJECT_KEYS if k in batch}
         out = self.model(batch, deterministic=deterministic, rng=rng, **inject)
         return total_loss(out, self.loss_img_weight, self.objective)
@@ -146,8 +157,9 @@ class PretrainTrainer(Trainer):
         metrics = parts[0] if len(parts) == 1 else {
             k: torch.stack([m[k] for m in parts]).mean() for k in parts[0]}
         skipped = self.update()
-        if skipped is not None:
-            metrics["nonfinite_skipped"] = skipped
+        if self.skip_nonfinite:     # 1.0 where the update was skipped, as in JAX
+            metrics["nonfinite_skipped"] = (skipped if skipped is not None
+                                            else torch.zeros((), device=self.device))
         return metrics
 
     @torch.no_grad()
@@ -159,25 +171,72 @@ class PretrainTrainer(Trainer):
 
     def fit(self, train_loader: Iterable, val_loader: Optional[Iterable] = None,
             num_epochs: int = 1, start_epoch: int = 0, log_steps: int = 20,
-            checkpoint_dir: Optional[str] = None):
-        """Train epochs [start_epoch, num_epochs), checkpointing after each
-        into `checkpoint_dir` (`checkpoint_seconds`: the write's host time).
-        Each step ends with a device synchronisation so that its host time
+            checkpoint_dir: Optional[str] = None, save_steps: Optional[int] = None,
+            start_step: int = 0, handle_preemption: bool = True):
+        """Train epochs [start_epoch, num_epochs), the first from its batch
+        `start_step` (the batches before it are drawn and skipped), with a
+        checkpoint after each epoch into `checkpoint_dir`
+        (`checkpoint_seconds`: the write's host time), a step checkpoint
+        every `save_steps` batches, and `metrics.jsonl` there every
+        `log_steps` steps. With `handle_preemption`, on the main thread,
+        SIGTERM ends the run after the step in flight with a step checkpoint;
+        the history's last entry is then {epoch, preempted_at_step} (and the
+        checkpoint's path and seconds). Each
+        step ends with a device synchronisation so that its host time
         (`step_seconds`) is the step's; every step's losses are kept
         (`step_losses`)."""
         ckpt = CheckpointManager(checkpoint_dir, self.config) if checkpoint_dir else None
+        mlog = MetricsLogger(checkpoint_dir) if checkpoint_dir else None
+        source = self.epoch_source(train_loader)
         sync = torch.cuda.synchronize if self.device.type == "cuda" else (lambda: None)
+        preempted = threading.Event()
+        old_handler = None
+        if handle_preemption and threading.current_thread() is threading.main_thread():
+            def on_sigterm(signum, frame):
+                logger.info("SIGTERM: checkpointing after the step in flight, then returning")
+                preempted.set()
+            old_handler = signal.signal(signal.SIGTERM, on_sigterm)
         history = []
-        for epoch in range(start_epoch, num_epochs):
-            for ld in (train_loader, val_loader):
-                if hasattr(ld, "epoch"):
-                    # the true epoch keys the shuffle and the masking draws,
-                    # so a resumed run sees the uninterrupted run's data
-                    ld.epoch = epoch
-            t_epoch = time.perf_counter()
-            seconds, samples, step_metrics = [], [], []
-            t_prev = time.perf_counter()
-            for batch in self.prefetch(train_loader):
+        try:
+            for epoch in range(start_epoch, num_epochs):
+                for ld in (source, val_loader):
+                    if hasattr(ld, "epoch"):
+                        # the true epoch keys the shuffle and the masking
+                        # draws, so a resumed run sees the uninterrupted
+                        # run's data
+                        ld.epoch = epoch
+                summary = self._epoch(source, epoch, start_step if epoch == start_epoch else 0,
+                                      ckpt, mlog, save_steps, log_steps, preempted, sync)
+                history.append(summary)
+                if "preempted_at_step" in summary:
+                    return history
+                if val_loader is not None:
+                    vals = [{k: float(v) for k, v in self.eval_step(b).items()}
+                            for b in val_loader]
+                    for k in LOSS_KEYS:
+                        summary[f"val_{k}"] = (float(np.mean([v[k] for v in vals]))
+                                               if vals else math.nan)
+                if ckpt is not None:
+                    t_save = time.perf_counter()
+                    summary["checkpoint_path"] = ckpt.save(self.state_dict(), epoch)
+                    summary["checkpoint_seconds"] = time.perf_counter() - t_save
+            return history
+        finally:
+            if old_handler is not None:
+                signal.signal(signal.SIGTERM, old_handler)
+            if mlog is not None:
+                mlog.close()
+
+    def _epoch(self, source, epoch, skip, ckpt, mlog, save_steps, log_steps, preempted,
+               sync) -> dict:
+        """One epoch's steps from batch `skip` on; its summary."""
+        cache = self.epoch_cache if self.device_cache else None
+        from_cache = cache is not None and cache.cached
+        batches = itertools.islice(source, skip, None) if skip else source
+        t_epoch = t_prev = time.perf_counter()
+        seconds, samples, step_metrics = [], [], []
+        with contextlib.closing(self.prefetch(batches)) as staged:
+            for step, batch in enumerate(staged, start=skip):
                 metrics = self.train_step(batch)
                 sync()
                 t_now = time.perf_counter()
@@ -185,27 +244,36 @@ class PretrainTrainer(Trainer):
                 t_prev = t_now
                 samples.append(int(batch["input_ids"].shape[0]))
                 step_metrics.append(metrics)
-                if log_steps and len(seconds) % log_steps == 0:
+                if save_steps and ckpt is not None and (step + 1) % save_steps == 0:
+                    ckpt.save_step(self.state_dict(), epoch, step + 1)
+                if preempted.is_set():
+                    out = dict(epoch=epoch, preempted_at_step=step + 1)
+                    if ckpt is not None:
+                        t_save = time.perf_counter()
+                        out["checkpoint_path"] = ckpt.save_step(self.state_dict(), epoch,
+                                                                step + 1)
+                        out["checkpoint_seconds"] = time.perf_counter() - t_save
+                        logger.info("preemption checkpoint: epoch %d after %d batches",
+                                    epoch, step + 1)
+                    return out
+                if log_steps and (step + 1) % log_steps == 0:
                     m = {k: float(v) for k, v in metrics.items()}
+                    if m.get("nonfinite_skipped"):
+                        logger.warning("epoch %d step %d: non-finite gradients, update "
+                                       "skipped", epoch, step + 1)
                     logger.info("epoch %d step %d loss %.3f t %.3f v %.3f pv %.3f "
-                                "tri %.3f align %.3f (%.3f s)", epoch, len(seconds),
+                                "tri %.3f align %.3f (%.3f s)", epoch, step + 1,
                                 m["loss"], m["masked_lm_loss"], m["masked_img_loss"],
                                 m["masked_lm_loss_pv"], m["loss_struc"],
                                 m["next_sentence_loss_t_v_pv"], seconds[-1])
-            dt = time.perf_counter() - t_epoch
-            summary = dict(epoch=epoch, seconds=dt, samples_per_sec=sum(samples) / max(dt, 1e-9),
-                           step_seconds=seconds, step_samples=samples,
-                           step_losses=[{k: float(v) for k, v in m.items()}
-                                        for m in step_metrics])
-            if val_loader is not None:
-                vals = [{k: float(v) for k, v in self.eval_step(b).items()}
-                        for b in val_loader]
-                for k in LOSS_KEYS:
-                    summary[f"val_{k}"] = (float(np.mean([v[k] for v in vals]))
-                                           if vals else math.nan)
-            if ckpt is not None:
-                t_save = time.perf_counter()
-                summary["checkpoint_path"] = ckpt.save(self.state_dict(), epoch)
-                summary["checkpoint_seconds"] = time.perf_counter() - t_save
-            history.append(summary)
-        return history
+                    if mlog is not None:
+                        mlog.log(self.step, m)
+        dt = time.perf_counter() - t_epoch
+        summary = dict(epoch=epoch, seconds=dt, samples_per_sec=sum(samples) / max(dt, 1e-9),
+                       step_seconds=seconds, step_samples=samples,
+                       step_losses=[{k: float(v) for k, v in m.items()}
+                                    for m in step_metrics])
+        if cache is not None:
+            summary["device_cache"] = dict(from_cache=from_cache, cached=cache.cached,
+                                           bytes=cache.bytes, budget_bytes=cache.max_bytes)
+        return summary

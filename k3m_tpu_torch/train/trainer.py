@@ -1,8 +1,10 @@
 """What the port's two trainers share (PretrainTrainer, AlignmentTrainer).
 
-  * staging (`stage_array`): a host batch's arrays copied to the device
-    from pinned memory, with the `fp` wire's casts under bf16;
-    `staged_prefetch` runs it ahead on a producer thread;
+  * staging (`stage_arrays`): a host batch's arrays in their wire form
+    (`wire_batch`, train/wire.py) copied to the device from pinned memory;
+    `staged_prefetch` runs it ahead on a producer thread, and with the
+    device cache (train/device_cache.py) the first epoch's staged batches
+    are kept on the card;
   * in-step microbatching (`micro_steps`, k3m_tpu/train/pretrain_loop.py:
     116-132, alignment_loop.py:152-202): the batch cut into M slices, each
     backpropagated with its own generators (`StepRandom(seed, step,
@@ -22,8 +24,12 @@ import numpy as np
 import torch
 
 from k3m_tpu_torch.model.random import StepRandom
+from k3m_tpu_torch.train.device_cache import DeviceEpochCache, cache_enabled
 from k3m_tpu_torch.train.optim import make_optimizer
 from k3m_tpu_torch.train.prefetch import staged_prefetch
+from k3m_tpu_torch.train.wire import (
+    FEAT_Q, TGT_Q, encode_pretrain, exact_targets, wire_mode,
+)
 
 
 def batch_rows(tree, rows: slice):
@@ -33,42 +39,77 @@ def batch_rows(tree, rows: slice):
     return tree[rows]
 
 
-def stage_array(key: str, value, device: torch.device, config=None,
-                wire: str = "exact") -> torch.Tensor:
-    """One host array of a batch on `device`, from pinned memory on a CUDA
-    device; integers as int64 (embedding and gather indices). Under the
-    `fp` wire and a bf16 `config` the two largest host->device tensors are
-    halved: image_feat goes to the compute dtype (its first use casts it
-    anyway), the soft labels in [0, 1] to fp16 (k3m_tpu/train/pretrain_loop.py:336-353)."""
+def wire_array(key: str, value, config=None, wire: str = "exact") -> torch.Tensor:
+    """One host array of a batch as it crosses to the device. Under the `fp`
+    wire and a bf16 `config` the two largest tensors are halved: image_feat
+    goes to the compute dtype (its first use casts it anyway), the soft
+    labels in [0, 1] to fp16 unless K3M_EXACT_TARGETS is set
+    (k3m_tpu/train/pretrain_loop.py:336-353)."""
     t = torch.from_numpy(np.ascontiguousarray(value)) \
         if isinstance(value, np.ndarray) else torch.as_tensor(value)
     if wire == "fp" and config is not None and config.dtype == "bfloat16":
         if key == "image_feat":
             t = t.to(torch.bfloat16)
-        elif key == "image_target" and config.visual_target == 0:
+        elif key == "image_target" and config.visual_target == 0 and not exact_targets():
             t = t.to(torch.float16)
+    return t
+
+
+def stage_array(key: str, value, device: torch.device, config=None,
+                wire: str = "exact") -> torch.Tensor:
+    """One host array of a batch on `device` in its wire form (`wire_array`),
+    copied from pinned memory to a CUDA device; integers as int64
+    (embedding and gather indices), the int8 wire's quantized arrays as
+    they are."""
+    t = wire_array(key, value, config, wire)
     if device.type == "cuda":
         t = t.pin_memory().to(device, non_blocking=True)
     else:
         t = t.to(device)
-    return t if t.is_floating_point() else t.long()
+    if t.is_floating_point() or key in (FEAT_Q, TGT_Q):
+        return t
+    return t.long()
+
+
+def wire_batch(arrays: Dict, keys, config=None, wire: str = "exact") -> Dict:
+    """The arrays of `keys` (those present) of one batch, or one item of a
+    pair batch, as they cross to the device: under the `int8` wire
+    image_feat (and, for visual_target 0 without K3M_EXACT_TARGETS,
+    image_target) in their quantized forms, which `wire.decode` undoes in
+    the step; `wire.wire_bytes` of it is the batch's host->device bytes."""
+    arrays = {k: arrays[k] for k in keys if k in arrays}
+    if wire == "int8":
+        quantize = (config is not None and config.visual_target == 0
+                    and "image_target" in arrays and not exact_targets())
+        arrays = encode_pretrain(arrays, quantize_target=quantize)
+    return {k: ({n: wire_array(k, x, config, wire) for n, x in v.items()}
+                if isinstance(v, dict) else wire_array(k, v, config, wire))
+            for k, v in arrays.items()}
+
+
+def stage_arrays(arrays: Dict, keys, device: torch.device, config=None,
+                 wire: str = "exact") -> Dict[str, torch.Tensor]:
+    """`wire_batch` of the arrays, on `device` (`stage_array`)."""
+    return {k: ({n: stage_array(k, x, device) for n, x in v.items()}
+                if isinstance(v, dict) else stage_array(k, v, device))
+            for k, v in wire_batch(arrays, keys, config, wire).items()}
 
 
 class Trainer:
     def __init__(self, config, model: torch.nn.Module, *, learning_rate: float,
                  warmup_steps: int, total_steps: int, weight_decay: float = 0.01,
                  grad_accum_steps: int = 1, micro_steps: int = 1, adam_eps: float = 1e-8,
-                 seed: int = 42, wire: str = "fp", skip_nonfinite: bool = False,
-                 pretrained: Optional[Set[str]] = None):
-        if wire not in ("fp", "exact"):
-            raise NotImplementedError(f"wire {wire!r} is not ported yet (fp, exact)")
+                 seed: int = 42, wire: Optional[str] = None, device_cache: Optional[bool] = None,
+                 skip_nonfinite: bool = False, pretrained: Optional[Set[str]] = None):
         if micro_steps < 1 or grad_accum_steps < 1:
             raise ValueError("micro_steps and grad_accum_steps must be at least 1")
         self.config = config
         self.model = model
         self.device = next(model.parameters()).device
         self.seed = seed
-        self.wire = wire
+        self.wire = wire_mode(wire)                   # K3M_WIRE when not given
+        self.device_cache = cache_enabled(device_cache)   # K3M_DEVICE_CACHE
+        self.epoch_cache: Optional[DeviceEpochCache] = None
         self.grad_accum_steps = grad_accum_steps
         self.micro_steps = micro_steps
         self.skip_nonfinite = skip_nonfinite
@@ -80,15 +121,22 @@ class Trainer:
 
     # ------------------------------------------------------------ staging
 
-    def _to_device(self, key: str, value) -> torch.Tensor:
-        return stage_array(key, value, self.device, self.config, self.wire)
-
     def stage(self, batch: Dict) -> Dict:
         raise NotImplementedError
 
     def prefetch(self, loader: Iterable, depth: Optional[int] = None) -> Iterator[Dict]:
         """The loader's batches staged on the device ahead of their use."""
         return staged_prefetch(loader, self.stage, depth, self.device)
+
+    def epoch_source(self, loader: Iterable) -> Iterable:
+        """What `fit` iterates: the loader, or with the device cache on, the
+        loader behind one DeviceEpochCache (kept as `epoch_cache`) that
+        stages the first epoch and replays it after."""
+        if not self.device_cache:
+            return loader
+        if self.epoch_cache is None or self.epoch_cache._loader is not loader:
+            self.epoch_cache = DeviceEpochCache(loader, self.stage, device=self.device)
+        return self.epoch_cache
 
     # -------------------------------------------------------------- steps
 

@@ -254,8 +254,7 @@ def test_cli_scores_with_its_own_finetuned_weights(nano_run):
         assert open(got["output"], encoding="utf-8").read() == want, extra[0]
 
 
-@pytest.mark.parametrize("flag", [["--wire", "int8"], ["--device_cache"],
-                                  ["--n_model", "2"], ["WORLD_SIZE", "2"]])
+@pytest.mark.parametrize("flag", [["--n_model", "2"], ["WORLD_SIZE", "2"]])
 def test_cli_refuses_unported_options_by_name(nano_run, monkeypatch, flag):
     from k3m_tpu_torch import finetune
     tmp_path, cfg_path = nano_run

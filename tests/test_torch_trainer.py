@@ -200,9 +200,7 @@ def test_cli_trains_checkpoints_and_resumes(tmp_path):
     assert again["trainer"].step == 4
 
 
-@pytest.mark.parametrize("flag", [["--device_cache"],
-                                  ["--wire", "int8"], ["--data_backend", "grain"],
-                                  ["--n_model", "2"], ["--save_steps", "5"]])
+@pytest.mark.parametrize("flag", [["--data_backend", "grain"], ["--n_model", "2"]])
 def test_cli_refuses_unported_options_by_name(tmp_path, flag):
     from k3m_tpu_torch import pretrain
     with pytest.raises(NotImplementedError, match=flag[0]):
@@ -231,8 +229,10 @@ def test_staging_wire_and_nonfinite_guard():
 
 
 def test_cli_starts_from_given_weights_and_evaluates(tmp_path):
-    """--pretrained_model_path loads a reference-style checkpoint (its
-    weights train at 0.1x the LR, an HF NSP head is skipped),
+    """--pretrained_model_path loads a reference-style checkpoint (every
+    weight it maps trains at 0.1x the LR, as JAX's
+    load_pretrained_bert_paths has it, the HF NSP head of another shape
+    too, though it is not loaded),
     --file_state_dict a saved state dict, and --do_eval reports finite
     validation losses."""
     from k3m_tpu_torch import pretrain
@@ -258,6 +258,6 @@ def test_cli_starts_from_given_weights_and_evaluates(tmp_path):
         assert np.isfinite(h["val_loss"]) and h["val_loss"] > 0
         lrs = sorted({g["initial_lr"] for g in trainer.opt.param_groups})
         if extra[0] == "--pretrained_model_path":
-            assert lrs == pytest.approx([1e-10, 1e-9])    # seq_relationship at 1x
+            assert lrs == pytest.approx([1e-10])     # seq_relationship at 0.1x too
         else:
             assert lrs == pytest.approx([1e-9])

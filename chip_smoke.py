@@ -89,7 +89,25 @@ a failure:
      --device_cache`: the second replayed from the cache, whose batches
      equal, bit for bit, the first epoch's streamed ones; the cached bytes
      against the budget;
- 15. print the kernel summary line and the final device line.
+ 15. extract: write a seeded detectron2-layout pkl (1600 classes) and 16
+     PPM images of five raw sizes (three canvases), run `python -m
+     k3m_tpu_torch.data.prepare --item_info --image_dir --extract_features
+     --extract_batch_size 4 --frcnn_weights` on the card (R101-C4, 600/1000,
+     6000 -> 300 proposals, 36 objects, fp32 with TF32 off); check every
+     record (0-36 boxes inside the raw image, at least half at 36, finite
+     [n, 2048] features, cls_prob rows summing to 1), that no image went
+     through the per-image fallback and that no port kernel ran; read a
+     batch through the port's PretrainLoader; report images/s over the
+     flushes after the first, then one batch of 4 images in one canvas:
+     stream ms and peak memory per stage beside each stage's bound, kernel
+     launches and busy share under the profiler;
+ 16. extract cross-check: one image at min/max size 240/400 through the
+     same weights on the card and on the CPU, stage by stage (backbone
+     map, RPN logits and deltas, pooled and box features, probabilities
+     within 1e-4 of their scale); the discrete stages (stable top-k, the
+     proposal NMS, the class NMS sweep) run on the CPU from the card's
+     continuous tensors equal the card's index for index;
+ 17. print the kernel summary line and the final device line.
 
 Phases 11, 12 and 14 hold the kernel launch counts of their runs to what
 the config gives, as phases 6 and 8 do. Each phase's wall seconds are
@@ -1077,6 +1095,8 @@ def _kernel_class(name):
         if key in name:
             return cls
     low = name.lower()
+    if any(k in low for k in ("fprop", "convolve", "cudnn", "winograd", "fft")):
+        return "conv"
     if any(k in low for k in ("gemm", "nvjet", "cutlass", "xmma", "cublas")):
         return "matmul"
     return "other"
@@ -2000,6 +2020,343 @@ def phase_cache(card):
     return res
 
 
+# ------------------------------------------------------ extraction phases
+
+EXTRACT_SIZES = ((480, 640), (640, 480), (375, 500), (1200, 1600), (500, 1500))
+EXTRACT_IMAGES = 16
+EXTRACT_BATCH = 4          # the CLI's --extract_batch_size default
+EXTRACT_CANVAS = (600, 800)  # the canvas of the stage-timed batch
+CROSS_MIN_MAX = (240, 400)   # the card-vs-CPU image's min/max size
+
+
+def write_ppm(path, bgr):
+    """Binary PPM (P6, RGB order) from a BGR uint8 image: the card's host
+    has no cv2, and the port reads PPM without it."""
+    h, w = bgr.shape[:2]
+    path.write_bytes(b"P6\n%d %d\n255\n" % (w, h) + bgr[:, :, ::-1].tobytes())
+
+
+def write_extract_inputs(d):
+    """The seeded detectron2-layout pkl at the published 1600 classes
+    (frcnn.synthetic_caffe_state_dict, whose construction makes the
+    selection run), EXTRACT_IMAGES PPM images cycling through
+    EXTRACT_SIZES, and their item_info jsonl. -> raw (h, w) per image."""
+    import pickle
+
+    from k3m_tpu_torch.vision import frcnn
+    (d / "images").mkdir(parents=True, exist_ok=True)
+    with open(d / "frcnn.pkl", "wb") as f:
+        pickle.dump({"model": frcnn.synthetic_caffe_state_dict(frcnn.NUM_CLASSES, SEED)}, f)
+    rng = np.random.default_rng(SEED + 7)
+    sizes, lines = [], []
+    for i in range(EXTRACT_IMAGES):
+        h, w = EXTRACT_SIZES[i % len(EXTRACT_SIZES)]
+        write_ppm(d / "images" / f"{i}.ppm", rng.integers(0, 256, (h, w, 3), dtype=np.uint8))
+        sizes.append((h, w))
+        lines.append(json.dumps(dict(item_id=f"x{i}", item_image_name=f"{i}.ppm",
+                                     title=f"商品{i} 红色 连衣裙", item_pvs="颜色#:#红#;#尺码#:#M",
+                                     cate_name="女装"), ensure_ascii=False))
+    (d / "item_info.jsonl").write_text("\n".join(lines) + "\n", encoding="utf-8")
+    return sizes
+
+
+def check_extract_records(path, sizes):
+    """Every record: 0-36 boxes inside its raw image, finite [n, 2048]
+    features, cls_prob rows [n, 1601] summing to 1 (within 1e-4); at least
+    half of the images at 36 boxes. -> box counts."""
+    from k3m_tpu_torch.data.records import RecordReader
+    reader = RecordReader(str(path))
+    if len(reader) != len(sizes):
+        raise AssertionError(f"extract: {len(reader)} records for {len(sizes)} images")
+    counts = []
+    for i, (h, w) in enumerate(sizes):
+        r = reader[i]
+        n = int(r["num_boxes"])
+        counts.append(n)
+        if not 0 <= n <= 36 or (r["image_h"], r["image_w"]) != (h, w):
+            raise AssertionError(f"extract: record {i}: {n} boxes, size "
+                                 f"{(r['image_h'], r['image_w'])} for {(h, w)}")
+        feats, probs, boxes = r["features"], r["cls_prob"], r["boxes"]
+        if feats.shape != (n, 2048) or not np.isfinite(feats).all():
+            raise AssertionError(f"extract: record {i}: features {feats.shape}, finite "
+                                 f"{np.isfinite(feats).all()}")
+        if probs.shape != (n, 1601) or (n and np.abs(probs.sum(-1) - 1).max() > 1e-4):
+            raise AssertionError(f"extract: record {i}: cls_prob {probs.shape}")
+        if n and ((boxes < 0).any() or (boxes[:, [0, 2]] > w).any()
+                  or (boxes[:, [1, 3]] > h).any()):
+            raise AssertionError(f"extract: record {i}: a box outside {w}x{h}")
+    reader.close()
+    if 2 * sum(n == 36 for n in counts) < len(counts):
+        raise AssertionError(f"extract: fewer than half the images at 36 boxes: {counts}")
+    return counts
+
+
+def _conv_linear_macs(module, *inputs):
+    """MACs of the Conv2d and Linear layers `module` runs on `inputs`
+    (shapes only: run on the meta device)."""
+    total = 0
+
+    def hook(layer, args, out):
+        nonlocal total
+        if isinstance(layer, torch.nn.Conv2d):
+            k = layer.in_channels * layer.kernel_size[0] * layer.kernel_size[1]
+        else:
+            k = layer.in_features
+        total += out.numel() * k
+
+    hooks = [m.register_forward_hook(hook) for m in module.modules()
+             if isinstance(m, (torch.nn.Conv2d, torch.nn.Linear))]
+    out = module(*inputs)
+    for h in hooks:
+        h.remove()
+    return total, out
+
+
+def extract_stage_bounds(B, ch, cw):
+    """Per stage of one batch of B images in a ch x cw canvas: the least
+    time the card could take (the larger of the stage's bytes, each input
+    read once and each output written once, over 3.35 TB/s, and its fp32
+    operations over 67 TFLOP/s), and which bounds it."""
+    from k3m_tpu_torch.vision import frcnn
+    f4 = 4
+    with torch.device("meta"):
+        m = frcnn.FasterRCNN()
+        weights = {n: p.numel() * f4 for n, p in m.state_dict().items()}
+        bb_macs, feat = _conv_linear_macs(m.backbone, torch.empty(B, 3, ch, cw))
+        rpn_macs, _ = _conv_linear_macs(m.proposal_generator.rpn_head, feat)
+        N, C = frcnn.POST_NMS_TOPK, frcnn.NUM_CLASSES
+        r5_macs, _ = _conv_linear_macs(m.roi_heads.res5, torch.empty(B * N, 1024, 14, 14))
+        pred_macs, _ = _conv_linear_macs(m.roi_heads.box_predictor, torch.empty(B * N, 2048))
+    fh, fw = feat.shape[2:]
+    A = fh * fw * 15
+    wsum = lambda prefix: sum(v for n, v in weights.items() if n.startswith(prefix))
+    feat_b = B * 1024 * fh * fw * f4
+    pooled_b = B * N * 1024 * 14 * 14 * f4
+    stage = {
+        "backbone": (B * 3 * ch * cw * f4 + wsum("backbone") + feat_b, 2 * bb_macs),
+        "rpn": (feat_b + wsum("proposal_generator") + B * A * 5 * f4, 2 * rpn_macs),
+        "proposal_nms": (B * A * 5 * f4 + B * N * 5 * f4, 0),
+        "roi_pool": (feat_b + B * N * 4 * f4 + pooled_b, 0),
+        "res5": (pooled_b + wsum("roi_heads.res5") + B * N * 2048 * f4, 2 * r5_macs),
+        "predictor": (B * N * 2048 * f4 + wsum("roi_heads.box_predictor")
+                      + B * N * ((C + 1) + C * 4) * f4, 2 * pred_macs),
+        "selection": (B * N * ((C + 1) + C * 4 + 2048) * f4
+                      + B * 36 * (4 + 2048 + C + 1) * f4, 0),
+    }
+    out = {}
+    for name, (nbytes, ops) in stage.items():
+        t_bytes, t_ops = 1e3 * nbytes / HBM_BYTES_PER_S, 1e3 * ops / PEAK_OPS[torch.float32]
+        out[name] = dict(bound_ms=max(t_bytes, t_ops), bound_by="operations"
+                         if t_ops > t_bytes else "bytes", bytes=nbytes, flops=ops)
+    return out
+
+
+def time_extract_stages(extractor, images, reps=3):
+    """Stream ms between CUDA events recorded after each stage (the
+    extractor's stage hook) of extract_many on one batch, the peak memory
+    each stage allocated beyond what was allocated before the call, and
+    the host's wall ms of the call; the runs after the first, averaged."""
+    marks = []
+    base = torch.cuda.memory_allocated()
+
+    def hook(stage):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        marks.append((stage, ev, torch.cuda.max_memory_allocated() - base))
+        torch.cuda.reset_peak_memory_stats()
+
+    extractor.stage_hook = hook
+    runs = []
+    try:
+        for _ in range(reps):
+            marks.clear()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            start = torch.cuda.Event(enable_timing=True)
+            start.record()
+            t0 = time.perf_counter()
+            dets = extractor.extract_many(images)
+            wall = 1e3 * (time.perf_counter() - t0)
+            torch.cuda.synchronize()
+            ms, peak, prev = {}, {}, start
+            for stage, ev, mem in marks:
+                ms[stage], peak[stage], prev = prev.elapsed_time(ev), mem / 2 ** 30, ev
+            runs.append((ms, peak, wall))
+    finally:
+        extractor.stage_hook = None
+    if any(d is None for d in dets):
+        raise AssertionError("extract: an image of the timed batch yielded no boxes")
+    later = runs[1:]
+    ms = {k: sum(r[0][k] for r in later) / len(later) for k in later[0][0]}
+    peak = {k: max(r[1][k] for r in later) for k in later[0][1]}
+    return ms, peak, sum(r[2] for r in later) / len(later), runs[0][0]
+
+
+def phase_extract(card):
+    """`k3m_tpu_torch.data.prepare --item_info --image_dir --extract_features
+    --extract_batch_size 4 --frcnn_weights` on the card at the full
+    configuration (R101-C4, 600/1000, 6000 -> 300 proposals, 1601 classes,
+    36 objects, fp32 with TF32 off, bucket 200) over EXTRACT_IMAGES images
+    of mixed sizes; the records checked and read by the port's
+    PretrainLoader; then one batch of 4 images in one canvas timed stage by
+    stage and profiled."""
+    from k3m_tpu_torch import kernels
+    from k3m_tpu_torch.data import prepare
+    from k3m_tpu_torch.data.pipeline import PretrainLoader
+    from k3m_tpu_torch.data.preprocess import ShapeSpec
+    from k3m_tpu_torch.tokenization import get_tokenizer
+    from k3m_tpu_torch.vision import frcnn
+
+    d = WORK / "extract"
+    t0 = time.perf_counter()
+    sizes = write_extract_inputs(d)
+    log(f"extract: wrote the seeded pkl ({(d / 'frcnn.pkl').stat().st_size / 2 ** 20:.0f} "
+        f"MiB) and {len(sizes)} PPM images of sizes {sorted(set(sizes))} in "
+        f"{time.perf_counter() - t0:.1f} s")
+    out = d / "train_feat.k3mr"
+    argv = ["--item_info", str(d / "item_info.jsonl"), "--image_dir", str(d / "images"),
+            "--extract_features", "--extract_batch_size", str(EXTRACT_BATCH),
+            "--frcnn_weights", str(d / "frcnn.pkl"), "--output", str(out)]
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()      # what earlier phases still hold
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    run = prepare.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+    ex = run["extractor"]
+    if ex.fallbacks:
+        raise AssertionError(f"extract: {ex.fallbacks} images went through the "
+                             "per-image fallback")
+    launches = kernels.launch_counts()
+    if any(launches.values()):                # none of the five lies on this path
+        raise AssertionError(f"extract: a port kernel ran: {launches}")
+    flushes = ex.flush_seconds
+    images_per_s = sum(n for n, _ in flushes[1:]) / sum(s for _, s in flushes[1:])
+    counts = check_extract_records(out, sizes)
+    canvases = sorted({ex._canvas_hw(*frcnn.resize_shape(h, w)) for h, w in sizes})
+    log(f"extract: {run['records']} records in {wall:.2f} s (model load included); "
+        f"{images_per_s:.2f} images/s over flushes 2-{len(flushes)} of {EXTRACT_BATCH} "
+        f"(flush seconds {[round(s, 3) for _, s in flushes]}; canvases {canvases}); "
+        f"boxes per image {counts}; no fallback; peak memory {peak:.2f} GiB beyond the "
+        f"{base / 2 ** 30:.2f} GiB allocated before | {card}")
+
+    loader = PretrainLoader(str(out), get_tokenizer(), ShapeSpec(), batch_size=EXTRACT_BATCH,
+                            shuffle=False)
+    batch = next(iter(loader))
+    if (batch["image_feat"].shape != (EXTRACT_BATCH, 37, 2048)
+            or not np.isfinite(batch["image_feat"]).all()
+            or list(batch["image_mask"].sum(1)) != [n + 1 for n in counts[:EXTRACT_BATCH]]):
+        raise AssertionError("extract: the PretrainLoader's batch does not hold the records")
+    log(f"extract: the port's PretrainLoader ({loader.producer} producer) read a batch of "
+        f"{EXTRACT_BATCH}: image_feat {tuple(batch['image_feat'].shape)}, regions "
+        f"{list(batch['image_mask'].sum(1))}")
+
+    same = [i for i, (h, w) in enumerate(sizes)
+            if ex._canvas_hw(*frcnn.resize_shape(h, w)) == EXTRACT_CANVAS][:EXTRACT_BATCH]
+    images = [frcnn.read_image(str(d / "images" / f"{i}.ppm")) for i in same]
+    ms, stage_peak, wall_ms, first = time_extract_stages(ex, images)
+    bounds = extract_stage_bounds(len(images), *EXTRACT_CANVAS)
+    busy = sum(ms.values())
+    log(f"extract: one batch of {len(images)} images in a {EXTRACT_CANVAS} canvas: "
+        f"{1e3 * len(images) / wall_ms:.2f} images/s ({wall_ms:.2f} ms a call, "
+        f"stream {busy:.2f} ms) | {card}")
+    for stage, t in ms.items():
+        b = bounds.get(stage)
+        log(f"extract: stage {stage}: {t:.3f} ms (first run {first[stage]:.3f}), peak "
+            f"{stage_peak[stage]:.2f} GiB"
+            + (f", bound {b['bound_ms']:.3f} ms by {b['bound_by']} "
+               f"({b['flops'] / 1e9:.1f} GFLOP, {b['bytes'] / 1e9:.3f} GB)" if b else ""))
+    prof = profile_device(lambda: ex.extract_many(images), card,
+                          f"extract_many of {len(images)} images", n=1)
+    log(f"extract: {prof['host_launch_calls']} kernel launches per batch of {len(images)}, "
+        f"busy share {1 - prof['idle_share']:.3f} | {card}")
+    res = dict(records=run["records"], wall_s=wall, images_per_s=images_per_s,
+               flush_seconds=flushes, boxes=counts, peak_gib=peak, canvases=canvases,
+               batch=dict(images=len(images), canvas=EXTRACT_CANVAS, stage_ms=ms,
+                          first_stage_ms=first, stage_peak_gib=stage_peak, wall_ms=wall_ms,
+                          images_per_s=1e3 * len(images) / wall_ms, bounds=bounds,
+                          roi_chunk=int(os.environ.get("K3M_ROI_CHUNK", "32"))),
+               profile=prof, launches_per_batch=prof["host_launch_calls"],
+               launches=launches)
+    del run, ex, loader
+    torch.cuda.empty_cache()
+    return res
+
+
+def _rel(a, b):
+    """Largest difference over the larger of b's scale and 1e-6."""
+    return max_err(a, b.to(a.device)) / max(float(b.abs().max()), 1e-6)
+
+
+def phase_extract_crosscheck(card):
+    """One image (phase 15's first, min/max size CROSS_MIN_MAX) through the
+    same weights on the card and on the CPU, stage by stage, fp32 with TF32
+    off on both (frcnn.inference scopes cuDNN's; matmuls are full fp32):
+    the backbone map, the RPN logits and deltas, the pooled RoI features
+    (both pooling the card's proposals), the box features and the class
+    probabilities within 1e-4 of their scale (fp32 sums in another order
+    through ~110 layers; the first run read at most 3.1e-6); then the discrete stages (the stable top-k, the
+    proposal NMS, the class NMS sweep) run on the CPU from the card's
+    continuous tensors equal the card's index for index."""
+    from k3m_tpu_torch.vision import frcnn
+
+    d = WORK / "extract"
+    pkl = str(d / "frcnn.pkl")
+    gpu, cpu = frcnn.build_model(pkl, "cuda"), frcnn.build_model(pkl, "cpu")
+    raw = frcnn.read_image(str(d / "images" / "0.ppm"))
+    errs, worst = {}, 0.0
+    with frcnn.inference():
+        x = frcnn.preprocess(raw, "cuda", *CROSS_MIN_MAX)[None]
+        hw = torch.tensor([x.shape[2:]], dtype=torch.float32, device="cuda")
+        feat, feat_h = gpu.backbone(x), cpu.backbone(x.cpu())
+        errs["backbone map"] = _rel(feat_h, feat)
+        fh, fw = feat.shape[2:]
+        (logits, deltas), (logits_h, deltas_h) = gpu.rpn_outputs(feat), cpu.rpn_outputs(feat_h)
+        errs["rpn logits"], errs["rpn deltas"] = _rel(logits_h, logits), _rel(deltas_h, deltas)
+        scores, proposals = gpu.decode_proposals(logits, deltas, hw, fh, fw)
+        boxes, valid = frcnn.select_proposals(scores, proposals)
+        order = torch.sort(scores, dim=-1, descending=True, stable=True)[1]
+        order_h = torch.sort(scores.cpu(), dim=-1, descending=True, stable=True)[1]
+        boxes_h, valid_h = frcnn.select_proposals(scores.cpu(), proposals.cpu())
+        pooled, pooled_h = gpu.pool(feat, boxes), cpu.pool(feat_h, boxes.cpu())
+        errs["pooled"] = _rel(pooled_h, pooled)
+        bf, bf_h = gpu.box_features(pooled), cpu.box_features(pooled_h)
+        errs["box features"] = _rel(bf_h, bf)
+        probs, cls_boxes = gpu.predict(bf, boxes, hw)
+        probs_h, _ = cpu.predict(bf_h, boxes.cpu(), hw.cpu())
+        errs["probs"] = _rel(probs_h, probs)
+        outputs = dict(probs=probs, boxes=cls_boxes, features=bf)
+        sel = frcnn._select_instances(outputs, valid)
+        sel_h = frcnn._select_instances({k: v.cpu() for k, v in outputs.items()}, valid.cpu())
+    for what, e in errs.items():
+        worst = max(worst, e)
+        if not e <= 1e-4:
+            raise AssertionError(f"extract crosscheck: {what} differs by {e:.3e} of its scale")
+    k = min(frcnn.PRE_NMS_TOPK, order.shape[-1])
+    discrete = dict(top_k=torch.equal(order[:, :k].cpu(), order_h[:, :k]),
+                    proposal_nms=torch.equal(boxes.cpu(), boxes_h)
+                    and torch.equal(valid.cpu(), valid_h),
+                    selection=all(torch.equal(sel[key].cpu(), sel_h[key])
+                                  for key in ("boxes", "scores", "rows", "valid")))
+    n_sel = int(sel["valid"].sum())
+    log(f"extract crosscheck: {x.shape[2]}x{x.shape[3]} image, card vs CPU, fp32, TF32 off: "
+        + ", ".join(f"{k} {v:.2e}" for k, v in errs.items())
+        + f" of the scale (limit 1e-4); discrete stages on the CPU from the card's tensors "
+          f"equal the card's: {discrete} ({int(valid.sum())} proposals, {n_sel} boxes "
+          f"selected) | {card}")
+    if not all(discrete.values()) or n_sel == 0:
+        raise AssertionError(f"extract crosscheck: discrete stages differ {discrete}, "
+                             f"{n_sel} boxes")
+    del gpu, cpu
+    shutil.rmtree(d)
+    torch.cuda.empty_cache()
+    return dict(errors=errs, worst=worst, discrete=discrete, proposals=int(valid.sum()),
+                selected=n_sel, image=tuple(x.shape[2:]))
+
+
 # ------------------------------------------------------------------ main
 
 SUMMARY = {
@@ -2027,7 +2384,8 @@ def _row(krows, name, shape, dtype, rate, batch):
 def summarize(krows, paths):
     """One entry per kernel: the row of its heaviest main-path shape (the
     pretraining batch), `launches` from the pretraining run, the launches
-    of every path's run (serving, pretraining, finetune, and phases 11-14),
+    of every path's run (serving, pretraining, finetune, phases 11-14, and
+    the extraction, which runs none of them),
     and, where phase 3 has one, the row of the same shape at the finetune
     batch."""
     summary = []
@@ -2094,8 +2452,11 @@ def main(argv):
     chain = run("chain", phase_chain, card)
     wire = run("wire", phase_wire, card)
     cache = run("cache", phase_cache, card)
+    extract = run("extract", phase_extract, card)
+    extract_cross = run("extract crosscheck", phase_extract_crosscheck, card)
     summary = summarize(krows, dict(serve=slice_res, pretrain=train_res, finetune=ft_res,
-                                    resume=resume, chain=chain, wire=wire, cache=cache))
+                                    resume=resume, chain=chain, wire=wire, cache=cache,
+                                    extract=extract))
     OUT_JSON.parent.mkdir(parents=True, exist_ok=True)
     OUT_JSON.write_text(json.dumps(dict(card=card, build_s=build_s, ptxas=ptxas,
                                         kernels=krows, dropout_masks=masks,
@@ -2104,7 +2465,9 @@ def main(argv):
                                         train=train_res, train_crosscheck=train_cross,
                                         finetune=ft_res, finetune_crosscheck=ft_cross,
                                         native=native, resume=resume, chain=chain, wire=wire,
-                                        cache=cache, phase_seconds=seconds,
+                                        cache=cache, extract=extract,
+                                        extract_crosscheck=extract_cross,
+                                        phase_seconds=seconds,
                                         summary=summary), indent=1))
     log(f"phase seconds {({k: round(v, 1) for k, v in seconds.items()})}, "
         f"{sum(seconds.values()):.1f} s in all")

@@ -12,6 +12,9 @@
     checkpoint's `pytorch_model.bin`, or the `model` entry of its
     `state.pt`) into a model, deciding as the JAX package's
     `load_params_msgpack`.
+  * `from_jax_vision_params(tree)`: the JAX package's Faster R-CNN
+    parameter tree (or any subtree of it: a Bottleneck, a stage) -> the
+    port's state dict in detectron2's names.
 
 The port's module names are the reference torch names, so the mapping
 table is the JAX package's reference_to_flat (k3m_tpu/train/convert.py:
@@ -214,6 +217,45 @@ def from_jax_params(flat: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
         out[sym.name] = torch.from_numpy(np.ascontiguousarray(arr))
     if unknown:
         raise KeyError(f"from_jax_params: no torch name for {sorted(unknown)[:8]}")
+    return out
+
+
+# flax module name of k3m_tpu/vision -> the port's (detectron2's) name
+_VISION_NAMES = {"stem_conv1": "stem.conv1", "stem_bn1": "stem.conv1.norm",
+                 "rpn": "proposal_generator.rpn_head",
+                 "objectness": "objectness_logits", "roi_head": "roi_heads",
+                 "box_predictor": "roi_heads.box_predictor",
+                 "kernel": "weight"}
+
+
+def from_jax_vision_params(tree) -> Dict[str, torch.Tensor]:
+    """The JAX package's vision parameter tree (`model.init(...)` of
+    k3m_tpu.vision.frcnn.FasterRCNN, with or without its `params` level, or
+    the tree of one of its submodules) -> the port's state dict: `blockN`
+    becomes `N`, `<conv>_bn` the conv's `.norm`; a conv kernel
+    [kh, kw, in, out] becomes [out, in, kh, kw], a dense kernel [in, out]
+    becomes [out, in]; FrozenBN scale and bias keep their names."""
+    tree = tree.get("params", tree)
+    out: Dict[str, torch.Tensor] = {}
+
+    def walk(node, path):
+        if not hasattr(node, "items"):
+            arr = np.asarray(node, np.float32)
+            if path[-1] == "kernel":
+                arr = arr.transpose(3, 2, 0, 1) if arr.ndim == 4 else arr.T
+            names = []
+            for part in path:
+                if part.startswith("block") and part[5:].isdigit():
+                    part = part[5:]
+                elif part.endswith("_bn") and part != "stem_bn1":
+                    part = part[:-3] + ".norm"
+                names.append(_VISION_NAMES.get(part, part))
+            out[".".join(names)] = torch.from_numpy(np.array(arr, order="C"))
+            return
+        for key, child in node.items():
+            walk(child, path + (key,))
+
+    walk(tree, ())
     return out
 
 

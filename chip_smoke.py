@@ -4,6 +4,7 @@
     python3 chip_smoke.py                  # every phase, one CUDA card
     python3 chip_smoke.py --kernels-only   # phases 1-3 only, no result line
     python3 chip_smoke.py --profile        # also trace the serving forward
+    python3 chip_smoke.py --dp-cards 4     # phase 17's finetune on 4 cards, alone
 
 Phases, in order; any failure exits non-zero and no phase carries on past
 a failure:
@@ -107,7 +108,30 @@ a failure:
      within 1e-4 of their scale); the discrete stages (stable top-k, the
      proposal NMS, the class NMS sweep) run on the CPU from the card's
      continuous tensors equal the card's index for index;
- 17. print the kernel summary line and the final device line.
+ 17. dp_train: phase 8's finetune (bf16, dropout 0.1, global batch 32, 9
+     steps and the sweep) as one plain process and as a world of one over
+     NCCL (torchrun's variables), side by side under
+     torch.use_deterministic_algorithms, then as two ranks sharing the card
+     over gloo (the K3M_* variables, K3M_DIST_BACKEND=gloo, LOCAL_RANK 0):
+     the NCCL world of one equals the plain run bit for bit; the two ranks
+     end with bit-identical parameters and the same sweep, each launched
+     the per-step kernel counts, and their global losses lie within 2^-6 of
+     one process trained on the same global batches; pairs/s, step ms, the
+     gradient all-reduce's ms and bytes a step, peak memory per rank (gloo
+     through the host on one card: no scaling figure);
+ 18. dp_crosscheck: one fp32 pretraining step at full width, global batch
+     4 = 2 ranks x 2 rows, dropout 0.1 and the step's own draws, a
+     zero-pair item planted as rank 1's first row: two gloo ranks on the
+     card against one process on the card, phase 7's limits on the four
+     losses and every gradient after the all-reduce;
+ 19. dp_predict: phase 4's `finetune --do_pred --bf16` in two gloo ranks:
+     the parts `.part0` and `.part1` together hold phase 4's pairs, scores
+     within 2^-6;
+ 20. print the kernel summary line and the final device line.
+
+Phases 17-19 run their ranks as `python3 chip_smoke.py --dp-worker
+<spec>` processes (logs in chiprun_out/dp_*.log); a rank that exits
+non-zero, or a phase that outlives its timeout, fails the script.
 
 Phases 11, 12 and 14 hold the kernel launch counts of their runs to what
 the config gives, as phases 6 and 8 do. Each phase's wall seconds are
@@ -1054,15 +1078,15 @@ def _shapes():
                      max_region_len=SHAPES["max_region_length"])
 
 
-def _loader(path, cfg, batch_size, native=True, shuffle=False, drop_last=False):
+def _loader(path, cfg, batch_size, native=True, shuffle=False, drop_last=False, **shard):
     """The pair loader (native producer unless `native` is False), as
     finetune's eval loader (or, shuffled and dropping the remainder, its
-    train loader) makes it."""
+    train loader) makes it; `shard`: num_shards and shard_index."""
     from k3m_tpu_torch.data.pipeline import AlignmentLoader
     from k3m_tpu_torch.tokenization import get_tokenizer
     return AlignmentLoader(str(path), get_tokenizer(None, cfg.vocab_size), _shapes(),
                            batch_size=batch_size, shuffle=shuffle, seed=SEED,
-                           drop_last=drop_last, native_preprocess=native)
+                           drop_last=drop_last, native_preprocess=native, **shard)
 
 
 def _load_batch(path, cfg, batch_size):
@@ -1450,9 +1474,9 @@ def phase_train_crosscheck(card):
 BERT = ROOT / "k3m_tpu_torch" / "configs" / "bert_base_6layer_6conect.json"
 
 
-def write_finetune_records(data_dir):
-    """FT_STEPS batches of FT_BATCH training pairs and FT_VALID validation
-    pairs at the full shapes."""
+def write_finetune_records(data_dir, n_train=FT_STEPS * FT_BATCH):
+    """`n_train` training pairs (FT_STEPS batches of FT_BATCH) and FT_VALID
+    validation pairs at the full shapes."""
     from k3m_tpu_torch.data.records import write_records
     from k3m_tpu_torch.tokenization import build_synthetic_vocab
     rng = np.random.default_rng(SEED + 2)
@@ -1463,9 +1487,9 @@ def write_finetune_records(data_dir):
                      item2=_synthetic_item(rng, vocab, 2 * i + 1))
                 for i in range(first, first + n))
     n_train = write_records(str(data_dir / "train_item_alignment.k3mr"),
-                            pairs(0, FT_STEPS * FT_BATCH))
+                            pairs(0, n_train))
     n_valid = write_records(str(data_dir / "valid_item_alignment.k3mr"),
-                            pairs(FT_STEPS * FT_BATCH, FT_VALID))
+                            pairs(n_train, FT_VALID))
     return n_train, n_valid
 
 
@@ -2357,6 +2381,587 @@ def phase_extract_crosscheck(card):
                 selected=n_sel, image=tuple(x.shape[2:]))
 
 
+# ------------------------------------------- data-parallel phases (17-19)
+
+DP_TIMEOUT_S = 420          # a phase whose ranks run longer has hung
+DP_BF16_TOL = 2.0 ** -6     # bf16: the kernels' tolerance of phase 3, of max(1, |x|)
+WORLD_VARS = ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT",
+              "K3M_COORDINATOR_ADDRESS", "K3M_NUM_PROCESSES", "K3M_PROCESS_ID",
+              "K3M_DIST_BACKEND", "K3M_DIST_INIT_TIMEOUT")
+
+
+def _free_port():
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _dp_env(launch, rank=0, size=1, port=None, local_rank=0):
+    """The environment of one rank: `plain` (no world), `torchrun` (its
+    variables; NCCL on cuda:`local_rank`), or `gloo` (the JAX package's
+    K3M_* variables and K3M_DIST_BACKEND=gloo, LOCAL_RANK 0 for every
+    rank: the ranks share the one card)."""
+    env = {k: v for k, v in os.environ.items() if k not in WORLD_VARS}
+    if launch == "torchrun":
+        env.update(RANK=str(rank), WORLD_SIZE=str(size), LOCAL_RANK=str(local_rank),
+                   MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
+    elif launch == "gloo":
+        env.update(K3M_COORDINATOR_ADDRESS=f"127.0.0.1:{port}", K3M_NUM_PROCESSES=str(size),
+                   K3M_PROCESS_ID=str(rank), LOCAL_RANK="0", K3M_DIST_BACKEND="gloo")
+    if launch != "plain":
+        env["K3M_DIST_INIT_TIMEOUT"] = str(DP_TIMEOUT_S)
+    return env
+
+
+def run_workers(jobs, what, during=None):
+    """Start every job (name, spec, env) as `python3 chip_smoke.py
+    --dp-worker <spec>` at once, call `during()` (work of this process
+    that overlaps theirs) and wait for all; each writes its result JSON,
+    its log goes to chiprun_out/dp_<name>.log. Fails if one exits non-zero
+    or the phase outlives DP_TIMEOUT_S; kills what still runs."""
+    d = WORK / "dp"
+    d.mkdir(parents=True, exist_ok=True)
+    OUT_JSON.parent.mkdir(parents=True, exist_ok=True)
+    running = []
+    try:
+        for name, spec, env in jobs:
+            spec_path, result = d / f"{name}.json", d / f"{name}.result.json"
+            spec_path.write_text(json.dumps(dict(spec, result=str(result))))
+            logf = open(OUT_JSON.parent / f"dp_{name}.log", "w")
+            proc = subprocess.Popen([sys.executable, str(ROOT / "chip_smoke.py"), "--dp-worker",
+                                     str(spec_path)], env=env, cwd=str(ROOT), stdout=logf,
+                                    stderr=subprocess.STDOUT)
+            running.append((name, proc, logf, result))
+        deadline = time.monotonic() + DP_TIMEOUT_S
+        if during is not None:
+            during()
+        for name, proc, _, _ in running:
+            try:
+                proc.wait(timeout=max(1.0, deadline - time.monotonic()))
+            except subprocess.TimeoutExpired:
+                raise AssertionError(f"{what}: {name} still running after {DP_TIMEOUT_S} s")
+    finally:
+        for _, proc, logf, _ in running:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            logf.close()
+    out = {}
+    for name, proc, _, result in running:
+        if proc.returncode != 0 or not result.exists():
+            tail = (OUT_JSON.parent / f"dp_{name}.log").read_text()[-3000:]
+            raise AssertionError(f"{what}: {name} exited {proc.returncode}:\n{tail}")
+        out[name] = json.loads(result.read_text())
+    return out
+
+
+def _sha(named):
+    """sha256 of (name, tensor) pairs, bit for bit."""
+    import hashlib
+    h = hashlib.sha256()
+    for name, t in named:
+        h.update(name.encode())
+        h.update(t.detach().float().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def _dp_finetune(spec):
+    """`k3m_tpu_torch.finetune` with the spec's argv, in the world its
+    environment gives; under `profile`, one more train step on this rank's
+    rows after the run is read (every rank steps, rank 0 under the
+    profiler: device ms, launch calls and wall ms of that step)."""
+    from k3m_tpu_torch import finetune
+    from k3m_tpu_torch.dist import World
+    from k3m_tpu_torch.train import dist
+    held, init = [], dist.init_from_env
+    if spec.get("profile"):
+        # the CLI leaves its world at its end: keep it for the step below
+        def init_and_hold(device):
+            world = init(device)
+            world.close = lambda: None
+            held.append(world)
+            return world
+        dist.init_from_env = init_and_hold
+    try:
+        run = finetune.main(spec["argv"])
+    finally:
+        dist.init_from_env = init
+    out = dict(world=run["world"])
+    if "history" in run:
+        (h,) = run["history"]
+        out["history"] = {k: h[k] for k in ("step_seconds", "step_pairs", "step_losses",
+                                            "sweep", "allreduce_bytes", "allreduce_seconds",
+                                            "checkpoint_path") if k in h}
+        out["params_sha"] = _sha(run["trainer"].model.named_parameters())
+    if "output" in run:
+        out.update(output=run["output"], batch_seconds=run["batch_seconds"],
+                   batch_pairs=run["batch_pairs"])
+    if spec.get("profile"):
+        trainer = run["trainer"]
+        path = Path(spec["argv"][spec["argv"].index("--data_dir") + 1])
+        batch = trainer.stage(_load_batch(path / "train_item_alignment.k3mr", trainer.config,
+                                          out["history"]["step_pairs"][0]))
+        step = lambda: trainer.train_step(batch)
+        out["profile"] = None
+        if trainer.world.rank == 0:
+            out["profile"] = profile_device(step, spec.get("card", ""), f"rank 0 of "
+                                            f"{trainer.world.size}: finetune train step", n=1)
+        else:
+            step()
+            torch.cuda.synchronize()
+        World.close(held[0])
+    return out
+
+
+def _dp_pretrain_step(spec):
+    """One fp32 pretraining step (dropout on, the step's own draws) on this
+    rank's rows of the spec's global batch: the global losses, and the
+    gradients after the all-reduce (rank 0 saves them)."""
+    from k3m_tpu_torch.config import K3MConfig
+    from k3m_tpu_torch.model.random import StepRandom
+    from k3m_tpu_torch.train import dist
+    from k3m_tpu_torch.train.dist import all_reduce_grads
+    from k3m_tpu_torch.train.pretrain_loop import PretrainTrainer
+    world = dist.init_from_env("cuda")
+    try:
+        cfg = K3MConfig.from_json_file(str(ROBERTA)).replace(use_image=True, objective=2)
+        batch = torch.load(spec["batch"], weights_only=False)
+        n = len(batch["input_ids"]) // world.size
+        local = {k: v[world.rank * n:(world.rank + 1) * n] for k, v in batch.items()}
+        trainer = PretrainTrainer(cfg, device=world.device, seed=SEED, objective=2, world=world)
+        loss, metrics = trainer.losses(trainer.stage(local), deterministic=False,
+                                       rng=StepRandom(SEED, 0, world.device))
+        loss.backward()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        nbytes = all_reduce_grads(world, trainer.model.parameters())
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        metrics = trainer.global_metrics(metrics)
+        grads = {name: p.grad.float().cpu() for name, p in trainer.model.named_parameters()}
+        if world.rank == 0:
+            torch.save(grads, spec["grads"])
+        return dict(world=dict(rank=world.rank, size=world.size, backend=world.backend),
+                    losses={k: float(v) for k, v in metrics.items()},
+                    grads_sha=_sha(grads.items()), allreduce_bytes=nbytes,
+                    allreduce_s=seconds)
+    finally:
+        world.close()
+
+
+DP_MODES = {"finetune": _dp_finetune, "pretrain_step": _dp_pretrain_step}
+
+
+def dp_worker(spec_path):
+    """One process of phases 17-19 (`chip_smoke.py --dp-worker <spec>`):
+    the spec's mode, with the kernels' launch counts and the peak memory
+    of this process; under `deterministic`, with
+    torch.use_deterministic_algorithms (warn_only: an op without a
+    deterministic implementation is reported, not raised)."""
+    import warnings
+    from k3m_tpu_torch import kernels
+    logging.basicConfig(level=logging.INFO,
+                        format="%(asctime)s %(levelname)s [%(name)s] %(message)s")
+    spec = json.loads(Path(spec_path).read_text())
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        if spec.get("deterministic"):
+            torch.use_deterministic_algorithms(True, warn_only=True)
+        kernels.reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        out = DP_MODES[spec["mode"]](spec)
+        torch.cuda.synchronize()
+    out.update(launches=kernels.launch_counts(),
+               peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+               nondeterministic=sorted({str(w.message).splitlines()[0] for w in caught
+                                        if "deterministic" in str(w.message)}))
+    Path(spec["result"]).write_text(json.dumps(out))
+    return 0
+
+
+def _finetune_dp_argv(out_dir, *extra, data_dir=None, batch=FT_BATCH):
+    """Phase 8's argv (run_finetune_item_alignment.sh's flags, global batch
+    `batch`) on phase 8's records (or those in `data_dir`), into
+    `out_dir`."""
+    argv = ["--data_dir", str(data_dir or WORK / "finetune_data"), "--output_dir",
+            str(out_dir),
+            "--config_file", "bert_base_6layer_6conect.json", "--use_image",
+            "--with_coattention", "--do_train", "--do_eval", "--bf16", "--loss_type", "inner",
+            "--if_pre_sampling", "1", "--train_batch_size", str(batch),
+            "--eval_batch_size", str(batch), "--learning_rate", "5e-5",
+            "--warmup_proportion", "0.3", "--num_train_epochs", "1", "--seed", str(SEED),
+            "--log_steps", "1", *extra]
+    for k, v in SHAPES.items():
+        argv += [f"--{k}", str(v)]
+    return argv
+
+
+class _RankOrder:
+    """The global batches of a run over `loaders` (one per rank), as one
+    process sees them: rank r's batch i, concatenated in rank order (the
+    layout of the JAX package's make_array_from_process_local_data)."""
+
+    def __init__(self, loaders):
+        self.loaders = loaders
+
+    @property
+    def epoch(self):
+        return self.loaders[0].epoch
+
+    @epoch.setter
+    def epoch(self, value):
+        for ld in self.loaders:
+            ld.epoch = value
+
+    def __iter__(self):
+        def cat(parts):
+            if isinstance(parts[0], dict):
+                return {k: cat([p[k] for p in parts]) for k in parts[0]}
+            if isinstance(parts[0], list):
+                return sum(parts, [])
+            return np.concatenate(parts)
+        for parts in zip(*self.loaders):
+            yield cat(list(parts))
+
+
+def rank_order_losses(cfg, world_size):
+    """The step losses of one process training, as the finetune CLI does,
+    on the global batches of a `world_size`-rank run (_RankOrder), on the
+    current card."""
+    from k3m_tpu_torch.train.alignment_loop import AlignmentTrainer
+    path = WORK / "finetune_data" / "train_item_alignment.k3mr"
+    loaders = [_loader(path, cfg, FT_BATCH // world_size, shuffle=True, drop_last=True,
+                       num_shards=world_size, shard_index=r) for r in range(world_size)]
+    total = len(loaders[0])
+    trainer = AlignmentTrainer(cfg, learning_rate=5e-5, warmup_steps=int(0.3 * total),
+                               total_steps=total, seed=SEED, device="cuda")
+    (hist,) = trainer.fit(_RankOrder(loaders), num_epochs=1, log_steps=0)
+    del trainer
+    torch.cuda.empty_cache()
+    return hist["step_losses"]
+
+
+def phase_dp_train(card):
+    """Phase 8's finetune (bf16, dropout 0.1, global batch 32, FT_STEPS
+    steps and the sweep) three ways: one plain process and a world of one
+    over NCCL (torchrun's variables), both under
+    torch.use_deterministic_algorithms and run side by side; then two ranks
+    sharing the card over gloo (the K3M_* variables, LOCAL_RANK 0 for both)
+    alone. The NCCL world of one must equal the plain run bit for bit
+    (losses, sweep, every parameter); the two ranks must end with
+    bit-identical parameters and the same sweep, each having launched
+    every kernel the per-step count times; their global losses must lie
+    within DP_BF16_TOL of one process trained on the same global batches
+    (rank 0's 16 pairs then rank 1's, as the JAX package lays them out;
+    bf16, so sums in another order round apart)."""
+    from k3m_tpu_torch.config import K3MConfig
+    cfg = K3MConfig.from_json_file(str(BERT))
+    det = dict(mode="finetune", deterministic=True)
+    one = run_workers([
+        ("train_plain", dict(det, argv=_finetune_dp_argv(WORK / "dp_plain")),
+         _dp_env("plain")),
+        ("train_nccl1", dict(det, argv=_finetune_dp_argv(WORK / "dp_nccl1")),
+         _dp_env("torchrun", 0, 1, _free_port()))], "dp_train")
+    plain, nccl = one["train_plain"], one["train_nccl1"]
+    port = _free_port()
+    two = run_workers([(f"train_gloo{r}", dict(mode="finetune",
+                                               argv=_finetune_dp_argv(WORK / "dp_gloo")),
+                        _dp_env("gloo", r, 2, port)) for r in range(2)], "dp_train")
+    ranks = [two["train_gloo0"], two["train_gloo1"]]
+    if nccl["world"] != dict(rank=0, size=1, backend="nccl") or \
+            [r["world"] for r in ranks] != [dict(rank=r, size=2, backend="gloo")
+                                            for r in range(2)]:
+        raise AssertionError(f"dp_train: worlds {nccl['world']} {[r['world'] for r in ranks]}")
+    nondet = sorted(set(plain["nondeterministic"]) | set(nccl["nondeterministic"]))
+    same = {k: plain["history"][k] == nccl["history"][k]
+            for k in ("step_losses", "sweep")}
+    same["params"] = plain["params_sha"] == nccl["params_sha"]
+    log(f"dp_train: NCCL world of one against the plain run: {same} (bit for bit; ops "
+        f"without a deterministic implementation: {nondet or 'none'}); gradient all-reduce "
+        f"{nccl['history']['allreduce_bytes'][0] / 2 ** 30:.3f} GiB a step over NCCL in "
+        f"{1e3 * np.mean(nccl['history']['allreduce_seconds'][1:]):.2f} ms | {card}")
+    if not all(same.values()):
+        raise AssertionError(f"dp_train: the NCCL world of one differs from the plain run: "
+                             f"{same}; nondeterministic ops {nondet}")
+    expected = expected_finetune_launches(cfg, FT_STEPS, 2)   # 2 sweep batches on each rank
+    for name, res in [("plain", plain), ("nccl1", nccl), ("gloo rank 0", ranks[0]),
+                      ("gloo rank 1", ranks[1])]:
+        if any(res["launches"][k] != n for k, n in expected.items()):
+            raise AssertionError(f"dp_train {name}: launches {res['launches']}, "
+                                 f"expected {expected}")
+    h0, h1 = ranks[0]["history"], ranks[1]["history"]
+    if ranks[0]["params_sha"] != ranks[1]["params_sha"]:
+        raise AssertionError("dp_train: the two ranks' final parameters differ")
+    if h0["sweep"] != h1["sweep"] or h0["step_losses"] != h1["step_losses"]:
+        raise AssertionError("dp_train: the two ranks report different sweeps or losses")
+    if h0["step_pairs"] != [FT_BATCH // 2] * FT_STEPS:
+        raise AssertionError(f"dp_train: rank 0 trained on {h0['step_pairs']} pairs")
+    ref = rank_order_losses(cfg.replace(use_image=True, with_coattention=True,
+                                        if_pre_sampling=1, loss_type="inner",
+                                        dtype="bfloat16"), 2)
+    errs = [abs(a - b) / max(1.0, abs(b)) for a, b in zip(h0["step_losses"], ref)]
+    log(f"dp_train: two gloo ranks' global losses {[round(x, 4) for x in h0['step_losses']]} "
+        f"against one process on the same global batches {[round(x, 4) for x in ref]}: "
+        f"worst {max(errs):.3e} of max(1, |loss|) (tolerance {DP_BF16_TOL:.3e}); plain run "
+        f"{[round(x, 4) for x in plain['history']['step_losses']]} (rank order differs, "
+        f"so its draws fall on other pairs) | {card}")
+    if len(ref) != FT_STEPS or max(errs) > DP_BF16_TOL:
+        raise AssertionError(f"dp_train: two-rank losses off by {max(errs):.3e}")
+    step_ms = [1e3 * t for t in h0["step_seconds"][1:]]
+    pairs_per_s = 2 * sum(h0["step_pairs"][1:]) / sum(h0["step_seconds"][1:])
+    ar_ms = [1e3 * t for t in h0["allreduce_seconds"][1:]]
+    ar_gib = h0["allreduce_bytes"][0] / 2 ** 30
+    plain_ms = [1e3 * t for t in plain["history"]["step_seconds"][1:]]
+    log(f"dp_train: two gloo ranks on one card: {pairs_per_s:.2f} global pairs/s, step ms "
+        f"mean {np.mean(step_ms):.2f} (plain run, deterministic algorithms, beside the NCCL "
+        f"run: {np.mean(plain_ms):.2f}), gradient all-reduce {ar_gib:.3f} GiB a step in "
+        f"{np.mean(ar_ms):.2f} ms mean (host copies and gloo over loopback), peak memory "
+        f"{ranks[0]['peak_gib']:.2f} / {ranks[1]['peak_gib']:.2f} GiB (ranks 0 / 1), sweep at "
+        f"0.5 {h0['sweep']['0.5']}. Gloo through the host on one card: not a scaling "
+        f"figure | {card}")
+    for d in ("dp_plain", "dp_nccl1", "dp_gloo"):
+        shutil.rmtree(WORK / d, ignore_errors=True)
+    return dict(nccl1_equal_plain=same, nondeterministic=nondet,
+                launches=dict(plain=plain["launches"], nccl1=nccl["launches"],
+                              gloo0=ranks[0]["launches"], gloo1=ranks[1]["launches"]),
+                expected=expected, gloo_losses=h0["step_losses"], rank_order_losses=ref,
+                plain_losses=plain["history"]["step_losses"], worst_loss_err=max(errs),
+                pairs_per_s=pairs_per_s, step_ms=step_ms, plain_step_ms=plain_ms,
+                allreduce_ms=ar_ms, allreduce_gib=ar_gib,
+                nccl1_allreduce_ms=[1e3 * t for t in nccl["history"]["allreduce_seconds"]],
+                peak_gib=[r["peak_gib"] for r in ranks], sweep=h0["sweep"])
+
+
+def phase_dp_cards(card, n):
+    """The finetune of phase 8 (full width, bf16, dropout 0.1, FT_STEPS
+    steps and the sweep) on `n` cards. At the global batch 32: one process
+    on card 0, then `n` NCCL ranks launched with torchrun's variables, one
+    per card (LOCAL_RANK r), 32 / n pairs each; the ranks must end with
+    bit-identical parameters and the same sweep, and their global losses
+    lie within DP_BF16_TOL of one process on the same global batches
+    (_RankOrder, on card 0). Then at 32 pairs a rank (global batch 32 n,
+    the reference's per-rank batch) on n * FT_STEPS * 32 pairs: the ranks
+    bit for bit alike and every loss finite (one card cannot hold the
+    global batch to compare with). Step ms, global pairs/s and the
+    gradient all-reduce's ms and bytes of each run, the host sharing its
+    cores among the ranks; each run profiles one more step on rank 0
+    (device busy ms and share, launch calls, wall ms).
+    `python3 chip_smoke.py --dp-cards N` runs it alone, on N cards."""
+    from k3m_tpu_torch.config import K3MConfig
+    if torch.cuda.device_count() < n:
+        raise AssertionError(f"dp_cards: {torch.cuda.device_count()} cards, {n} asked for")
+    cfg = K3MConfig.from_json_file(str(BERT))
+    (WORK / "finetune_data").mkdir(parents=True, exist_ok=True)
+    write_finetune_records(WORK / "finetune_data")
+    weak_dir = WORK / "finetune_data_weak"
+    weak_dir.mkdir(parents=True, exist_ok=True)
+    write_finetune_records(weak_dir, n * FT_STEPS * FT_BATCH)
+    spec = dict(mode="finetune", profile=True, card=card)
+    one = run_workers([("cards_plain", dict(spec, argv=_finetune_dp_argv(WORK / "dp_cards1")),
+                        _dp_env("plain"))], "dp_cards")["cards_plain"]
+
+    def ranks_run(tag, **argv_kw):
+        port = _free_port()
+        res = run_workers([(f"cards_{tag}{r}",
+                            dict(spec, argv=_finetune_dp_argv(WORK / f"dp_cards_{tag}",
+                                                              **argv_kw)),
+                            _dp_env("torchrun", r, n, port, local_rank=r)) for r in range(n)],
+                          "dp_cards")
+        ranks = [res[f"cards_{tag}{r}"] for r in range(n)]
+        if [r["world"] for r in ranks] != [dict(rank=r, size=n, backend="nccl")
+                                           for r in range(n)]:
+            raise AssertionError(f"dp_cards: worlds {[r['world'] for r in ranks]}")
+        hs = [r["history"] for r in ranks]
+        if len({r["params_sha"] for r in ranks}) != 1 or any(
+                h["sweep"] != hs[0]["sweep"] or h["step_losses"] != hs[0]["step_losses"]
+                for h in hs):
+            raise AssertionError(f"dp_cards {tag}: the ranks differ in parameters, sweep "
+                                 "or losses")
+        if len(hs[0]["step_losses"]) != FT_STEPS or not all(
+                math.isfinite(x) for x in hs[0]["step_losses"]):
+            raise AssertionError(f"dp_cards {tag}: losses {hs[0]['step_losses']}")
+        return ranks
+
+    def summary(runs, ranks_n):
+        h = runs[0]["history"]
+        timed = h["step_seconds"][1:]
+        step_ms = [1e3 * t for t in timed]
+        prof = runs[0]["profile"]
+        return dict(pairs_per_s=ranks_n * sum(h["step_pairs"][1:]) / sum(timed),
+                    step_ms=step_ms, pairs_a_rank=h["step_pairs"][0],
+                    allreduce_ms=[1e3 * t for t in h.get("allreduce_seconds", [])[1:]],
+                    allreduce_bytes=(h.get("allreduce_bytes") or [0])[0],
+                    peak_gib=[r["peak_gib"] for r in runs],
+                    launches=[r["launches"] for r in runs],
+                    busy_ms=prof["busy_ms"], busy_share=prof["busy_ms"] / np.mean(step_ms),
+                    profiled_wall_ms=prof["wall_ms_profiled"],
+                    launch_calls=prof["host_launch_calls"],
+                    profile_complete=prof["complete"],
+                    device_ms_by_class=prof["device_ms_by_class"])
+
+    fixed = ranks_run("nccl")
+    ref = rank_order_losses(cfg.replace(use_image=True, with_coattention=True,
+                                        if_pre_sampling=1, loss_type="inner",
+                                        dtype="bfloat16"), n)
+    losses = fixed[0]["history"]["step_losses"]
+    errs = [abs(a - b) / max(1.0, abs(b)) for a, b in zip(losses, ref)]
+    if len(ref) != FT_STEPS or max(errs) > DP_BF16_TOL:
+        raise AssertionError(f"dp_cards: {n}-rank losses off by {max(errs):.3e}")
+    weak = ranks_run("weak", data_dir=weak_dir, batch=n * FT_BATCH)
+    res = dict(one_card=summary([one], 1), fixed=summary(fixed, n), weak=summary(weak, n))
+
+    def line(what, r):
+        ar = (f", gradient all-reduce {r['allreduce_bytes'] / 2 ** 30:.3f} GiB a step in "
+              f"{np.mean(r['allreduce_ms']):.2f} ms mean" if r["allreduce_ms"] else "")
+        log(f"dp_cards: {what}: {r['pairs_a_rank']} pairs a rank, {r['pairs_per_s']:.2f} "
+            f"global pairs/s, step ms mean {np.mean(r['step_ms']):.2f}{ar}; rank 0's "
+            f"profiled step: device busy {r['busy_ms']:.2f} ms (busy share "
+            f"{r['busy_share']:.3f} of the mean step), {r['launch_calls']} launch calls, "
+            f"wall {r['profiled_wall_ms']:.2f} ms under the profiler; peak memory per rank "
+            f"{[round(x, 2) for x in r['peak_gib']]} GiB | {card}")
+    line("one process on one card", res["one_card"])
+    line(f"{n} NCCL ranks, global batch {FT_BATCH}", res["fixed"])
+    line(f"{n} NCCL ranks, global batch {n * FT_BATCH}", res["weak"])
+    log(f"dp_cards: {n} ranks at global batch {FT_BATCH}: losses within {max(errs):.3e} of "
+        f"one process on the same global batches (tolerance {DP_BF16_TOL:.3e}); ranks bit "
+        f"for bit alike in both runs; {FT_BATCH} pairs a rank: "
+        f"{res['weak']['pairs_per_s'] / (n * res['one_card']['pairs_per_s']):.3f} of {n} "
+        f"times one card's pairs/s | {card} (x{n})")
+    for d in ("dp_cards1", "dp_cards_nccl", "dp_cards_weak"):
+        shutil.rmtree(WORK / d, ignore_errors=True)
+    shutil.rmtree(weak_dir, ignore_errors=True)
+    return dict(res, n=n, losses=losses, rank_order_losses=ref, worst_loss_err=max(errs),
+                weak_losses=weak[0]["history"]["step_losses"])
+
+
+def phase_dp_crosscheck(card):
+    """One fp32 pretraining train step at full width (k3m_roberta_base),
+    global batch 4 of phase 6's records with a zero-pair item planted at
+    global row 2 (rank 1's first), dropout 0.1 and the step's own draws:
+    two gloo ranks of 2 rows on the card against one process of 4 rows on
+    the card (computed while the ranks run). The four losses within 1e-4
+    and every gradient after the
+    all-reduce within 1e-3 of the tensor's scale + 1e-7, phase 7's limits,
+    but struc_w2.bias, whose gradient is zero in exact arithmetic, held to
+    struc_w2.weight's scale as phase 9 holds it (at its own scale two
+    roundings of zero are compared: the first run read 0.81 of the limit);
+    the two ranks' gradients bit for bit alike."""
+    from k3m_tpu_torch.config import K3MConfig
+    from k3m_tpu_torch.model.random import StepRandom
+    from k3m_tpu_torch.train.pretrain_loop import PretrainTrainer
+    cfg = K3MConfig.from_json_file(str(ROBERTA)).replace(use_image=True, objective=2)
+    batch = next(iter(_pretrain_loader(WORK / "pretrain_data" / "train_feat.k3mr", cfg, 4)))
+    for key in ("index_p", "index_v"):
+        batch[key][2] = 0
+    d = WORK / "dp"
+    d.mkdir(parents=True, exist_ok=True)
+    torch.save(batch, d / "crosscheck_batch.pt")
+    one = {}
+
+    def one_process():                  # while the ranks run
+        trainer = PretrainTrainer(cfg, device="cuda", seed=SEED, objective=2)
+        loss, metrics = trainer.losses(trainer.stage(batch), deterministic=False,
+                                       rng=StepRandom(SEED, 0, "cuda"))
+        loss.backward()
+        one["losses"] = {k: float(v) for k, v in metrics.items()}
+        one["grads"] = {n: p.grad.float().cpu() for n, p in trainer.model.named_parameters()
+                        if p.grad is not None}
+        del trainer, loss, metrics
+        torch.cuda.empty_cache()
+    port = _free_port()
+    spec = dict(mode="pretrain_step", batch=str(d / "crosscheck_batch.pt"),
+                grads=str(d / "crosscheck_grads.pt"))
+    res = run_workers([(f"crosscheck_gloo{r}", spec, _dp_env("gloo", r, 2, port))
+                       for r in range(2)], "dp_crosscheck", during=one_process)
+    want_losses, want = one["losses"], one["grads"]
+    r0, r1 = res["crosscheck_gloo0"], res["crosscheck_gloo1"]
+    if r0["grads_sha"] != r1["grads_sha"] or r0["losses"] != r1["losses"]:
+        raise AssertionError("dp_crosscheck: the two ranks hold different gradients or losses")
+    got = torch.load(d / "crosscheck_grads.pt")
+    for k in ("masked_lm_loss", "masked_img_loss", "masked_lm_loss_pv", "loss_struc"):
+        err, tol = abs(r0["losses"][k] - want_losses[k]), 1e-4 * max(1.0, abs(want_losses[k]))
+        log(f"dp_crosscheck {k}: two ranks {r0['losses'][k]:.6f} one process "
+            f"{want_losses[k]:.6f} (tol {tol:.1e})")
+        if not (math.isfinite(r0["losses"][k]) and err <= tol):
+            raise AssertionError(f"dp_crosscheck {k}: {err} > {tol}")
+    worst, worst_name = 0.0, None
+    for name, g in got.items():
+        a = want.get(name, torch.zeros_like(g))
+        scale = want["struc_w2.weight"] if name == ZERO_GRAD_BIAS else a
+        tol = 1e-3 * float(scale.abs().max()) + 1e-7
+        ratio = max_err(g, a) / tol
+        if ratio > worst:
+            worst, worst_name = ratio, name
+        if not (torch.isfinite(g).all() and ratio <= 1.0):
+            raise AssertionError(f"dp_crosscheck gradient {name}: {max_err(g, a)} > {tol}")
+    bias = want[ZERO_GRAD_BIAS]
+    own = max_err(got[ZERO_GRAD_BIAS], bias) / (1e-3 * float(bias.abs().max()) + 1e-7)
+    log(f"dp_crosscheck: {len(want)} gradient tensors of two gloo ranks (after the "
+        f"all-reduce, {r0['allreduce_bytes'] / 2 ** 30:.3f} GiB in {1e3 * r0['allreduce_s']:.1f} "
+        f"ms) agree with one process on the global batch; worst error/tolerance {worst:.3e} "
+        f"({worst_name}); {ZERO_GRAD_BIAS} at its own scale would read {own:.3e} (not held); "
+        f"dropout 0.1, the carry of a zero-pair item across the ranks | {card}")
+    (d / "crosscheck_grads.pt").unlink()
+    return dict(losses_one=want_losses, losses_two=r0["losses"], worst_grad_ratio=worst,
+                worst_grad=worst_name, n_grads=len(want), zero_grad_bias_own_scale_ratio=own, allreduce_bytes=r0["allreduce_bytes"],
+                allreduce_s=r0["allreduce_s"], peak_gib=[r0["peak_gib"], r1["peak_gib"]],
+                launches=dict(gloo0=r0["launches"], gloo1=r1["launches"]))
+
+
+def phase_dp_predict(card):
+    """`finetune --do_pred --bf16` of phase 4 (256 pairs, global batch 64)
+    in two gloo ranks: each writes `<jsonl>.part<rank>` from its shard and
+    launches the forward kernels of its 4 batches; the parts together hold
+    phase 4's pairs, each score within DP_BF16_TOL of phase 4's (bf16
+    probabilities in [0, 1], batches of other pairs)."""
+    from k3m_tpu_torch.config import K3MConfig
+    cfg = K3MConfig.from_json_file(str(BERT))
+    argv = ["--data_dir", str(WORK / "data"), "--output_dir", str(WORK / "dp_pred"),
+            "--file_test", "test_item_alignment.k3mr", "--use_image", "--with_coattention",
+            "--do_pred", "--bf16", "--eval_batch_size", str(BATCH), "--seed", str(SEED),
+            "--config_file", "bert_base_6layer_6conect.json", "--log_steps", "1"]
+    for k, v in SHAPES.items():
+        argv += [f"--{k}", str(v)]
+    port = _free_port()
+    res = run_workers([(f"predict_gloo{r}", dict(mode="finetune", argv=argv),
+                        _dp_env("gloo", r, 2, port)) for r in range(2)], "dp_predict")
+    ranks = [res["predict_gloo0"], res["predict_gloo1"]]
+    expected = expected_launches(cfg, 2 * math.ceil(N_PAIRS // 2 / (BATCH // 2)))
+    read = lambda p: {(x["src_item_id"], x["tgt_item_id"]): x
+                      for x in map(json.loads, Path(p).read_text().splitlines())}
+    want = read(WORK / "out" / "deepAI_result_threshold=0.5.jsonl")
+    got = {}
+    for r, res_r in enumerate(ranks):
+        if not res_r["output"].endswith(f".part{r}"):
+            raise AssertionError(f"dp_predict: rank {r} wrote {res_r['output']}")
+        for name, n in expected.items():
+            if res_r["launches"][name] != n:
+                raise AssertionError(f"dp_predict rank {r}: {name} {res_r['launches'][name]} "
+                                     f"launches, expected {n}")
+        part = read(res_r["output"])
+        if set(part) & set(got):
+            raise AssertionError("dp_predict: the parts share a pair")
+        got.update(part)
+    if set(got) != set(want) or len(want) != N_PAIRS:
+        raise AssertionError(f"dp_predict: {len(got)} pairs in the parts, {len(want)} in "
+                             "phase 4's dump, or other ids")
+    worst = max(abs(float(got[k][s]) - float(x[s])) for k, x in want.items()
+                for s in ("src_item_emb", "tgt_item_emb"))
+    rates = [sum(r["batch_pairs"][1:]) / sum(r["batch_seconds"][1:]) for r in ranks]
+    log(f"dp_predict: the two parts hold phase 4's {len(want)} pairs; worst score difference "
+        f"{worst:.3e} (tolerance {DP_BF16_TOL:.3e}); {rates[0]:.2f} / {rates[1]:.2f} pairs/s "
+        f"per rank over the batches after the first (ranks sharing the card) | {card}")
+    if worst > DP_BF16_TOL:
+        raise AssertionError(f"dp_predict: scores differ by {worst}")
+    shutil.rmtree(WORK / "dp_pred")
+    return dict(worst_score_diff=worst, pairs_per_s=rates, expected=expected,
+                launches=dict(gloo0=ranks[0]["launches"], gloo1=ranks[1]["launches"]),
+                peak_gib=[r["peak_gib"] for r in ranks])
+
+
 # ------------------------------------------------------------------ main
 
 SUMMARY = {
@@ -2384,7 +2989,8 @@ def _row(krows, name, shape, dtype, rate, batch):
 def summarize(krows, paths):
     """One entry per kernel: the row of its heaviest main-path shape (the
     pretraining batch), `launches` from the pretraining run, the launches
-    of every path's run (serving, pretraining, finetune, phases 11-14, and
+    of every path's run (serving, pretraining, finetune, phases 11-14, each
+    rank of phases 17 and 19,
     the extraction, which runs none of them),
     and, where phase 3 has one, the row of the same shape at the finetune
     batch."""
@@ -2414,6 +3020,16 @@ def main(argv):
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
+    if argv[:1] == ["--dp-worker"]:       # one rank of phases 17-19
+        return dp_worker(argv[1])
+    if argv[:1] == ["--dp-cards"]:        # phase 17's finetune on N cards, alone
+        card = phase_env()
+        run_build = phase_build()
+        res = phase_dp_cards(card, int(argv[1]))
+        OUT_JSON.parent.mkdir(parents=True, exist_ok=True)
+        (OUT_JSON.parent / "dp_cards.json").write_text(json.dumps(
+            dict(card=card, build_s=run_build[0], dp_cards=res), indent=1))
+        return 0
     kernels_only = "--kernels-only" in argv
     card = phase_env()
     seconds = {}
@@ -2454,9 +3070,15 @@ def main(argv):
     cache = run("cache", phase_cache, card)
     extract = run("extract", phase_extract, card)
     extract_cross = run("extract crosscheck", phase_extract_crosscheck, card)
+    dp_train = run("dp_train", phase_dp_train, card)
+    dp_cross = run("dp_crosscheck", phase_dp_crosscheck, card)
+    dp_predict = run("dp_predict", phase_dp_predict, card)
+    dp_paths = {f"dp_train_{k}": dict(launches=v) for k, v in dp_train["launches"].items()}
+    dp_paths.update({f"dp_predict_{k}": dict(launches=v)
+                     for k, v in dp_predict["launches"].items()})
     summary = summarize(krows, dict(serve=slice_res, pretrain=train_res, finetune=ft_res,
                                     resume=resume, chain=chain, wire=wire, cache=cache,
-                                    extract=extract))
+                                    extract=extract, **dp_paths))
     OUT_JSON.parent.mkdir(parents=True, exist_ok=True)
     OUT_JSON.write_text(json.dumps(dict(card=card, build_s=build_s, ptxas=ptxas,
                                         kernels=krows, dropout_masks=masks,
@@ -2467,7 +3089,8 @@ def main(argv):
                                         native=native, resume=resume, chain=chain, wire=wire,
                                         cache=cache, extract=extract,
                                         extract_crosscheck=extract_cross,
-                                        phase_seconds=seconds,
+                                        dp_train=dp_train, dp_crosscheck=dp_cross,
+                                        dp_predict=dp_predict, phase_seconds=seconds,
                                         summary=summary), indent=1))
     log(f"phase seconds {({k: round(v, 1) for k, v in seconds.items()})}, "
         f"{sum(seconds.values()):.1f} s in all")

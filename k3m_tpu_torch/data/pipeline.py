@@ -14,7 +14,12 @@ consumer, with one of two producers (`loader.producer`):
 Epoch e visits the records in the permutation drawn from (seed, e, 1) and
 sample i is preprocessed with the Generator of (seed, e, i, 0), as the JAX
 package's loaders do (pipeline.py:121-136), so all of them yield equal
-batches.
+batches. Under data parallelism each rank reads one shard (`num_shards`,
+`shard_index`, JAX pipeline.py:107-131): every shard draws the same
+permutation, takes the stride slice idx[shard::num_shards] and truncates it
+to num_dataset // num_shards, so that every rank runs the same number of
+steps; a sample's masking depends on its record index alone, so a rank's
+batch does not depend on the shard count.
 """
 
 from __future__ import annotations
@@ -84,8 +89,13 @@ class _LoaderBase:
     producer, `_native_batch(indices)`."""
 
     def __init__(self, record_path: str, batch_size: int, shuffle: bool,
-                 seed: int, drop_last: bool, prefetch: int):
+                 seed: int, drop_last: bool, prefetch: int, num_shards: int = 1,
+                 shard_index: int = 0):
+        if not 0 <= shard_index < num_shards:
+            raise ValueError(f"shard_index {shard_index} not in [0, {num_shards})")
         self.reader = get_native_reader(record_path) or RecordReader(record_path)
+        self.num_shards = num_shards
+        self.shard_index = shard_index
         self.batch_size = batch_size
         self.shuffle = shuffle
         self.seed = seed
@@ -113,13 +123,16 @@ class _LoaderBase:
         return "python" if self.native is None else "native"
 
     def __len__(self) -> int:
-        n = len(self.reader)
+        n = len(self.reader) // self.num_shards
         return n // self.batch_size if self.drop_last else -(-n // self.batch_size)
 
     def _indices(self) -> np.ndarray:
-        idx = np.arange(len(self.reader))
+        n = len(self.reader)
+        idx = np.arange(n)
         if self.shuffle:
             np.random.default_rng((self.seed, self.epoch, 1)).shuffle(idx)
+        if self.num_shards > 1:
+            idx = idx[self.shard_index::self.num_shards][:n // self.num_shards]
         return idx
 
     def _sample_rng(self, i: int) -> np.random.Generator:
@@ -179,8 +192,10 @@ class AlignmentLoader(_LoaderBase):
     def __init__(self, record_path: str, tokenizer: WordPieceTokenizer,
                  shapes: Optional[ShapeSpec] = None, batch_size: int = 32,
                  shuffle: bool = False, seed: int = 0, visual_target: int = 0,
-                 drop_last: bool = True, prefetch: int = 4, native_preprocess: bool = True):
-        super().__init__(record_path, batch_size, shuffle, seed, drop_last, prefetch)
+                 drop_last: bool = True, prefetch: int = 4, native_preprocess: bool = True,
+                 num_shards: int = 1, shard_index: int = 0):
+        super().__init__(record_path, batch_size, shuffle, seed, drop_last, prefetch,
+                         num_shards, shard_index)
         shapes = shapes or ShapeSpec()
         self.preprocessor = PairPreprocessor(tokenizer, shapes, visual_target=visual_target)
         self._attach_native(lambda: get_native_pair_preprocessor(
@@ -203,8 +218,10 @@ class PretrainLoader(_LoaderBase):
     def __init__(self, record_path: str, tokenizer: WordPieceTokenizer,
                  shapes: Optional[ShapeSpec] = None, batch_size: int = 32,
                  shuffle: bool = True, seed: int = 0, visual_target: int = 0,
-                 drop_last: bool = True, prefetch: int = 4, native_preprocess: bool = True):
-        super().__init__(record_path, batch_size, shuffle, seed, drop_last, prefetch)
+                 drop_last: bool = True, prefetch: int = 4, native_preprocess: bool = True,
+                 num_shards: int = 1, shard_index: int = 0):
+        super().__init__(record_path, batch_size, shuffle, seed, drop_last, prefetch,
+                         num_shards, shard_index)
         shapes = shapes or ShapeSpec()
         self.preprocessor = PretrainPreprocessor(tokenizer, shapes,
                                                  visual_target=visual_target)

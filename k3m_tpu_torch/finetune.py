@@ -16,6 +16,17 @@ is given. Without `--pretrained_model_path`, `--file_state_dict` or
 `--file_checkpoint` the weights are random from `--seed`. Flags the JAX package accepts only for parity are accepted with
 no effect; options the port does not have yet are refused by name
 (ROADMAP.md Queue 1).
+
+Data parallelism: launched as N processes, one per card, by torchrun
+
+    torchrun --nproc_per_node N -m k3m_tpu_torch.finetune ...
+
+or with the JAX package's K3M_COORDINATOR_ADDRESS / K3M_NUM_PROCESSES /
+K3M_PROCESS_ID (train/dist.py), each rank runs on cuda:LOCAL_RANK over a
+shard of each record file with `--train_batch_size / N` training pairs
+(`--eval_batch_size / N`, at least 1, for eval and predict), as root
+finetune.py:160-171 splits them; the sweep is over every rank's pairs and
+predict writes `<jsonl>.part<rank>` per rank.
 """
 
 from __future__ import annotations
@@ -115,9 +126,7 @@ def get_parser():
 def refuse_unported(args) -> None:
     """Options of the JAX package the port does not have yet."""
     refused = {
-        "--n_model > 1": args.n_model > 1,
-        "multi-process training (WORLD_SIZE > 1)":
-            int(os.environ.get("WORLD_SIZE", "1")) > 1,
+        "--n_model > 1 (tensor parallelism)": args.n_model > 1,
     }
     for name, hit in refused.items():
         if hit:
@@ -135,17 +144,26 @@ def _find_config(args):
 def main(argv=None):
     args = get_parser().parse_args(argv)
     refuse_unported(args)
+    from k3m_tpu_torch.train import dist
+
+    world = dist.init_from_env(args.device)
+    try:
+        return _run(args, world)
+    finally:
+        world.close()
+
+
+def _run(args, world):
     from k3m_tpu_torch.config import K3MConfig
     from k3m_tpu_torch.convert import load_model_file, load_pretrained
     from k3m_tpu_torch.data.pipeline import AlignmentLoader
     from k3m_tpu_torch.data.preprocess import ShapeSpec
-    from k3m_tpu_torch.device import resolve_device
     from k3m_tpu_torch.model.alignment import build_model
     from k3m_tpu_torch.tokenization import get_tokenizer
     from k3m_tpu_torch.train import alignment_loop
     from k3m_tpu_torch.train.state import CheckpointManager
 
-    device = resolve_device(args.device)
+    device = world.device
     os.makedirs(args.output_dir, exist_ok=True)
     config = K3MConfig.from_json_file(str(_find_config(args))).replace(
         fix_reference_bugs=args.fix_reference_bugs,
@@ -171,18 +189,20 @@ def main(argv=None):
         path = os.path.join(args.data_dir, name)
         if not os.path.exists(path):
             return None
+        # this rank's pairs of each global batch, from its shard
         return AlignmentLoader(path, tokenizer, shapes, batch_size=batch_size,
                                shuffle=shuffle, seed=args.seed,
                                visual_target=args.visual_target, drop_last=drop_last,
-                               prefetch=min(16, max(2, args.cache // max(batch_size, 1))))
+                               prefetch=min(16, max(2, args.cache // max(batch_size, 1))),
+                               num_shards=world.size, shard_index=world.rank)
 
-    # eval and predict see every pair: their remainder batch is kept
-    train_loader = loader(args.file_train, args.train_batch_size, True, True) \
+    # eval and predict see every pair of their shard: the remainder is kept
+    eval_batch = max(args.eval_batch_size // world.size, 1)
+    train_loader = loader(args.file_train, world.local_rows(args.train_batch_size,
+                                                            "--train_batch_size"), True, True) \
         if args.do_train else None
-    val_loader = loader(args.file_valid, args.eval_batch_size, False, False) \
-        if args.do_eval else None
-    test_loader = loader(args.file_test, args.eval_batch_size, False, False) \
-        if args.do_pred else None
+    val_loader = loader(args.file_valid, eval_batch, False, False) if args.do_eval else None
+    test_loader = loader(args.file_test, eval_batch, False, False) if args.do_pred else None
     if args.do_train and train_loader is None:
         raise FileNotFoundError(f"no train record file {args.file_train} in {args.data_dir}")
     if train_loader is None and val_loader is None and test_loader is None:
@@ -203,7 +223,7 @@ def main(argv=None):
             total_steps=total_steps, grad_accum_steps=args.gradient_accumulation_steps,
             micro_steps=args.micro_steps, adam_eps=args.adam_epsilon, seed=args.seed,
             device=device, wire=args.wire, device_cache=args.device_cache or None,
-            skip_nonfinite=args.skip_nonfinite)
+            skip_nonfinite=args.skip_nonfinite, world=world)
         model = trainer.model
     else:
         model = build_model(config, seed=args.seed, device=device)
@@ -228,6 +248,7 @@ def main(argv=None):
                 start_epoch = max(start_epoch, epoch + 1)
             else:
                 model.load_state_dict(state["model"])
+                world.broadcast_module(model)
             logger.info("restored %s (epoch %d)", args.file_checkpoint, epoch)
     if args.do_train:
         result["history"] = trainer.fit(train_loader, val_loader,
@@ -237,13 +258,16 @@ def main(argv=None):
         result["trainer"] = trainer
         result["producer"] = train_loader.producer
     elif val_loader is not None:
-        result["sweep"] = alignment_loop.evaluate(model, val_loader, wire=args.wire)
+        result["sweep"] = alignment_loop.evaluate(model, val_loader, wire=args.wire,
+                                                  world=world)
     if test_loader is not None:
         out = os.path.join(args.output_dir,
                            f"deepAI_result_threshold={args.threshold}.jsonl")
         result.update(alignment_loop.predict(model, test_loader, out,
                                              threshold=args.threshold,
-                                             log_steps=args.log_steps, wire=args.wire))
+                                             log_steps=args.log_steps, wire=args.wire,
+                                             world=world))
+    result["world"] = dict(rank=world.rank, size=world.size, backend=world.backend)
     return result
 
 

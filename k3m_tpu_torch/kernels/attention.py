@@ -11,9 +11,11 @@ bf16 once, for the tensor-core P V product.
 
 Dropout (rate > 0) keeps probability (q, k) of head (b, h) where the
 Philox4x32-10 word of counter (k // 4, q, 0, 0) under key
-(seed + salt, b * H + h), word k % 4, has `(bits >> 8) * 2^-24 >= rate`,
+(seed + salt, (row0 + b) * H + h), word k % 4, has `(bits >> 8) * 2^-24 >= rate`,
 and scales the kept ones by 1 / (1 - rate), as `_dropout_mask` does with
-the TPU's own bits (which nothing here can reproduce). The kernels
+the TPU's own bits (which nothing here can reproduce). `row0` (default 0)
+is the global row of the call's first row under data parallelism, so that
+a rank's rows draw the mask of the same rows of the global batch. The kernels
 (csrc/philox.cuh) and `philox_keep_mask_plain` compute the same bits.
 Only the forward draws the mask: where a gradient is needed it keeps it,
 one bit per element (`keep_words`, int32 [B, H, Lq, ceil(Lk / 32)], bit
@@ -84,11 +86,13 @@ def keep_threshold(rate: float):
 
 
 def philox_keep_mask_plain(seed: int, B: int, H: int, Lq: int, Lk: int,
-                           rate: float, salt: int = 0, device="cpu"):
-    """The kernels' dropout keep mask, bool [B, H, Lq, Lk]."""
+                           rate: float, salt: int = 0, device="cpu", row0: int = 0):
+    """The kernels' dropout keep mask, bool [B, H, Lq, Lk], of rows
+    row0 .. row0 + B - 1."""
     keep_min, _ = keep_threshold(rate)
     lk4 = -(-Lk // 4)
-    bh = torch.arange(B * H, dtype=torch.int64, device=device)[:, None, None]
+    bh = torch.arange(row0 * H, (row0 + B) * H, dtype=torch.int64,
+                      device=device)[:, None, None]
     q = torch.arange(Lq, dtype=torch.int64, device=device)[None, :, None]
     kb = torch.arange(lk4, dtype=torch.int64, device=device)[None, None, :]
     shape = (B * H, Lq, lk4)
@@ -166,11 +170,11 @@ def attention_bwd_plain(q, k, v, bias, dout, keep=None, rate: float = 0.0):
     return dq.to(q.dtype), dk.to(q.dtype), dv.to(q.dtype)
 
 
-def _plain_keep(q, k, rate, seed, salt):
+def _plain_keep(q, k, rate, seed, salt, row0=0):
     if rate <= 0.0:
         return None
     B, Lq, H, _ = q.shape
-    return philox_keep_mask_plain(seed, B, H, Lq, k.shape[1], rate, salt, q.device)
+    return philox_keep_mask_plain(seed, B, H, Lq, k.shape[1], rate, salt, q.device, row0)
 
 
 # ------------------------------------------------------------------ kernels
@@ -237,21 +241,21 @@ def _ptr(t):
     return t.data_ptr() if t is not None else None
 
 
-def _plain_forward(q, k, v, bias, rate, seed, salt, for_backward):
+def _plain_forward(q, k, v, bias, rate, seed, salt, for_backward, row0=0):
     """(out, None, keep_words) of one direction on the CPU: the plain
     version, and where a backward follows under dropout the words of its
     mask (the plain backward reads no lse)."""
-    keep = _plain_keep(q, k, rate, seed, salt)
+    keep = _plain_keep(q, k, rate, seed, salt, row0)
     words = pack_keep_words(keep) if for_backward and keep is not None else None
     return attention_plain(q, k, v, bias, keep, rate), None, words
 
 
-def _forward(q, k, v, bias, rate, seed, for_backward=False):
+def _forward(q, k, v, bias, rate, seed, for_backward=False, row0=0):
     """(out, lse, keep_words): the kernel for CUDA tensors, which keeps lse
     and (under dropout) the mask words where the backward will read them;
     the plain version for CPU tensors, which keeps the mask words alone."""
     if _device_kind(q, "fused_attention") == "cpu":
-        return _plain_forward(q, k, v, bias, rate, seed, 0, for_backward)
+        return _plain_forward(q, k, v, bias, rate, seed, 0, for_backward, row0)
     check_operands(q, k, v, bias, "fused_attention")
     keep_min, keep_scale = keep_threshold(rate)
     B, Lq, H, D = q.shape
@@ -266,7 +270,7 @@ def _forward(q, k, v, bias, rate, seed, for_backward=False):
         q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
         out.data_ptr(), _ptr(lse), _ptr(words),
         build.DTYPE_CODES[q.dtype], B, H, Lq, k.shape[1], D, strides,
-        1.0 / math.sqrt(D), seed & U32, keep_min, keep_scale,
+        1.0 / math.sqrt(D), seed & U32, keep_min, keep_scale, row0,
         build.stream_handle(q.device))
     build.check(rc, "k3m_attention_fwd")
     fused_attention.launches += 1
@@ -322,8 +326,9 @@ def attention_bwd(q, k, v, bias, out, lse, keep_words, dout, rate: float = 0.0):
 
 class _FusedAttention(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, q, k, v, bias, rate, seed):
-        out, lse, words = _forward(q, k, v, bias, rate, seed, for_backward=True)
+    def forward(ctx, q, k, v, bias, rate, seed, row0):
+        out, lse, words = _forward(q, k, v, bias, rate, seed, for_backward=True,
+                                   row0=row0)
         ctx.save_for_backward(q, k, v, bias, out, lse, words)
         ctx.rate = rate
         return out
@@ -331,17 +336,20 @@ class _FusedAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dout):
         dq, dk, dv = attention_bwd(*ctx.saved_tensors, dout, ctx.rate)
-        return dq, dk, dv, None, None, None
+        return dq, dk, dv, None, None, None, None
 
 
-def fused_attention(q, k, v, bias, *, dropout_rate: float = 0.0, seed: int = 0):
+def fused_attention(q, k, v, bias, *, dropout_rate: float = 0.0, seed: int = 0,
+                    row0: int = 0):
     """softmax(q k^T / sqrt(D) + bias) v per (batch, head), probabilities
-    dropped at `dropout_rate` with the Philox mask of `seed`.
-    Differentiable in q, k and v."""
+    dropped at `dropout_rate` with the Philox mask of `seed` for rows
+    row0 .. row0 + B - 1. Differentiable in q, k and v."""
     keep_threshold(dropout_rate)
+    if row0 < 0:
+        raise ValueError(f"fused_attention: row0 {row0} < 0")
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
-        return _FusedAttention.apply(q, k, v, bias, dropout_rate, seed)
-    return _forward(q, k, v, bias, dropout_rate, seed)[0]
+        return _FusedAttention.apply(q, k, v, bias, dropout_rate, seed, row0)
+    return _forward(q, k, v, bias, dropout_rate, seed, row0=row0)[0]
 
 
 fused_attention.launches = 0

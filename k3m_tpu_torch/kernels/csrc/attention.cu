@@ -83,21 +83,25 @@ int launch(const k3m::AttnArgs& a, int B, int H, int d, cudaStream_t stream) {
 // mask, one bit per element (both the backward's inputs). Returns
 // cudaGetLastError() after the launch (0 on success).
 // Dropout: keep iff (philox bits >> 8) >= keep_min (0: no dropout), kept
-// probabilities scaled by keep_scale; see philox.cuh.
+// probabilities scaled by keep_scale; see philox.cuh. `row0`: the global row
+// of batch row 0 (data parallelism), the mask's key word 1 being
+// (row0 + b) * H + h.
 extern "C" int k3m_attention_fwd(const void* q, const void* k, const void* v,
                                  const float* bias, void* out, float* lse,
                                  uint32_t* keep_words, int dtype, int B,
                                  int H, int lq, int lk, int d,
                                  const long long* strides, float scale,
                                  unsigned seed, unsigned keep_min, float keep_scale,
-                                 void* stream_ptr) {
+                                 int row0, void* stream_ptr) {
   if (B <= 0 || H <= 0 || lq <= 0 || lk <= 0 || B > 65535 || H > 65535 ||
-      keep_min >= k3m::kKeepMinLimit)
+      keep_min >= k3m::kKeepMinLimit || row0 < 0 ||
+      (static_cast<long long>(row0) + B) * H > 0x7fffffffLL)
     return cudaErrorInvalidValue;
   k3m::AttnArgs a = k3m::make_args(q, k, v, bias, out, strides, lq, lk, H, scale,
                                    seed, keep_min, keep_scale);
   a.lse = lse;
   a.keep_words = keep_words;
+  a.batch_row0 = row0;
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   if (dtype == k3m::kF32) return launch<float>(a, B, H, d, stream);
   if (!k3m::mma_aligned(a)) return cudaErrorInvalidValue;

@@ -62,6 +62,8 @@ struct AttnArgs {
   float keep_scale;   // 1 / (1 - rate)
   float* lse;         // [B, H, Lq] row log-sum-exp out, or null
   uint32_t* keep_words;  // [B, H, Lq, ceil(Lk / 32)] dropout mask out, or null
+  int batch_row0;        // global row of batch row 0: Philox key word 1 is
+                         // (batch_row0 + b) * heads + h (data parallelism)
 };
 
 template <int D>
@@ -130,7 +132,8 @@ __device__ __forceinline__ void attn_tile(const AttnArgs& a, int b, int h, int q
     const float alpha = expf(m - m_new);
     uint32_t kw = 0;   // bit j keeps key k0 + j
     if (a.keep_min) {
-      kw = keep_bits4(a.seed, b * a.heads + h, q0 + r, k0 + 4 * c, a.keep_min) << (4 * c);
+      kw = keep_bits4(a.seed, (a.batch_row0 + b) * a.heads + h, q0 + r, k0 + 4 * c,
+                      a.keep_min) << (4 * c);
 #pragma unroll
       for (int off = 1; off < kRowLanes; off <<= 1) kw |= __shfl_xor_sync(0xffffffffu, kw, off);
       if (a.keep_words != nullptr && c == 0 && q0 + r < a.lq)
@@ -188,6 +191,7 @@ inline AttnArgs make_args(const void* q, const void* k, const void* v,
   a.seed = seed; a.keep_min = keep_min; a.keep_scale = keep_scale;
   a.lse = nullptr;
   a.keep_words = nullptr;
+  a.batch_row0 = 0;
   return a;
 }
 

@@ -118,6 +118,7 @@ __device__ __forceinline__ void attn_tile_mma(const AttnArgs& a, int b, int h, i
   const bool live = q0 + row0 < a.lq;         // warp-uniform
   const uint32_t bh = static_cast<uint32_t>(b * a.heads + h);
   const long long row_base = static_cast<long long>(bh) * a.lq;
+  const uint32_t key_bh = static_cast<uint32_t>((a.batch_row0 + b) * a.heads + h);
   const float scale2 = a.scale * kLog2e;
   const int tiles = (a.lk + BK - 1) / BK;
 
@@ -156,7 +157,7 @@ __device__ __forceinline__ void attn_tile_mma(const AttnArgs& a, int b, int h, i
         const uint32_t c4 = static_cast<uint32_t>(k0 / 4 + 4 * m + t);
         uint4 c[2] = {make_uint4(c4, static_cast<uint32_t>(r0), 0u, 0u),
                       make_uint4(c4, static_cast<uint32_t>(r1), 0u, 0u)};
-        philox4x32_10_n<2>(c, make_uint2(a.seed, bh));
+        philox4x32_10_n<2>(c, make_uint2(a.seed, key_bh));
         bits |= (keep_nibble(c[0], a.keep_min) | keep_nibble(c[1], a.keep_min) << 4) << (8 * m);
       }
     }

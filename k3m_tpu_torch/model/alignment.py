@@ -10,6 +10,8 @@ compared by `loss_type`:
             cosine(item1, item2) under fix_reference_bugs
   "ce":     ClassificationHead over the concat + CE; emb1/emb2 become the
             two class probabilities (ref :3448-3449)
+Each loss is a mean over the pairs of the global batch: under data
+parallelism (`world=`, k3m_tpu_torch/dist.py) the rank's sum over the global count.
 """
 
 from __future__ import annotations
@@ -29,6 +31,13 @@ from k3m_tpu_torch.model.layers import (
 )
 from k3m_tpu_torch.model.pretrain import K3MTrunk
 from k3m_tpu_torch.model.structure import StructureAggregator
+from k3m_tpu_torch import dist
+
+
+def pair_mean(x: torch.Tensor) -> torch.Tensor:
+    """Mean of the per-pair terms `x` [B] over the global batch (in a world
+    of one the bits of `x.mean()`, on the CPU and on the card alike)."""
+    return x.sum() / dist.window(x.shape[0])[1]
 
 
 def cosine_similarity(a, b, eps: float = 1e-8):
@@ -65,9 +74,12 @@ class K3MForItemAlignment(nn.Module):
         return out["c_initial"], c_final
 
     def forward(self, labels, item1, item2, *, deterministic: bool = True,
-                rng: Optional[k3m_random.StepRandom] = None):
-        """(emb1, emb2, probs, loss); training draws from `rng`."""
-        with k3m_random.use(rng):
+                rng: Optional[k3m_random.StepRandom] = None,
+                world: Optional[dist.World] = None):
+        """(emb1, emb2, probs, loss); training draws from `rng`; `world`:
+        the ranks whose pairs make the global batch (none: these pairs are
+        the global batch)."""
+        with k3m_random.use(rng), dist.use(world, labels.shape[0]):
             return self._forward(labels, item1, item2, deterministic)
 
     def _forward(self, labels, item1, item2, deterministic: bool):
@@ -77,13 +89,13 @@ class K3MForItemAlignment(nn.Module):
         labels_f = labels.float()
         if cfg.loss_type == "inner":
             logits = (emb1.float() * emb2.float()).sum(-1)
-            loss = torch.mean(torch.clamp(logits, min=0) - logits * labels_f
-                              + torch.log1p(torch.exp(-logits.abs())))
+            loss = pair_mean(torch.clamp(logits, min=0) - logits * labels_f
+                             + torch.log1p(torch.exp(-logits.abs())))
             probs = torch.sigmoid(logits)
         elif cfg.loss_type == "cosine":
             cos12 = cosine_similarity(emb1, emb2)
             target = 2.0 * labels_f - 1.0
-            loss = torch.mean(torch.where(target > 0, 1.0 - cos12, torch.relu(cos12)))
+            loss = pair_mean(torch.where(target > 0, 1.0 - cos12, torch.relu(cos12)))
             if cfg.fix_reference_bugs:
                 probs = (cos12 + 1.0) / 2.0
             else:
@@ -92,7 +104,7 @@ class K3MForItemAlignment(nn.Module):
             logits = self.classifier(torch.cat([emb1, emb2], dim=1),
                                      deterministic=deterministic)
             logp = F.log_softmax(logits, dim=-1)
-            loss = -logp.gather(1, labels.long()[:, None])[:, 0].mean()
+            loss = pair_mean(-logp.gather(1, labels.long()[:, None])[:, 0])
             probs_full = torch.softmax(logits, dim=-1)
             emb1, emb2 = probs_full[:, 0], probs_full[:, 1]
             probs = probs_full[:, 1]

@@ -24,6 +24,7 @@ from k3m_tpu_torch.model.layers import (
     Dense, DenseLayerNorm, LayerNorm, Linear, act_fn, compute_dtype, dropout,
     merge_heads, split_heads,
 )
+from k3m_tpu_torch import dist
 
 
 class BiAttention(nn.Module):
@@ -51,6 +52,7 @@ class BiAttention(nn.Module):
                     dropout2=0.0 if deterministic else self.dropout2)
         if drop["dropout1"] > 0.0 or drop["dropout2"] > 0.0:
             drop["seed"] = k3m_random.active().kernel_seed()
+            drop["row0"] = dist.window(x1.shape[0])[0]
         ctx1, ctx2 = fused_biattention(
             s(self.query1, x1), s(self.key1, x1), s(self.value1, x1), bias1,
             s(self.query2, x2), s(self.key2, x2), s(self.value2, x2), bias2, **drop)

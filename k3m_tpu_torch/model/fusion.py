@@ -32,8 +32,9 @@ from k3m_tpu_torch.model.layers import Linear, adopt
 
 def gumbel_noise_like(logits: torch.Tensor, generator: torch.Generator):
     """Gumbel(0, 1) noise as the JAX package draws it (fusion.py:40-42):
-    -log(-log(u + 1e-20)) with u uniform in [1e-20, 1)."""
-    u = torch.rand(logits.shape, device=logits.device, generator=generator)
+    -log(-log(u + 1e-20)) with u uniform in [1e-20, 1), drawn for the
+    global batch (`rows_rand`)."""
+    u = k3m_random.rows_rand(generator, logits.shape, logits.device)
     u = u * (1.0 - 1e-20) + 1e-20
     return -torch.log(-torch.log(u + 1e-20))
 

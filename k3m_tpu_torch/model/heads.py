@@ -19,6 +19,7 @@ from k3m_tpu_torch.config import K3MConfig
 from k3m_tpu_torch.model.layers import (
     LayerNorm, Linear, act_fn, compute_dtype, dropout,
 )
+from k3m_tpu_torch import dist
 
 
 def _chunk_nll(xi, li, table, bias, ignore_index: int):
@@ -43,7 +44,8 @@ def chunked_masked_ce(x, table, bias, labels, chunk: int,
     `chunk` (the last one padded), and each chunk runs under
     torch.utils.checkpoint, so its [B, chunk, vocab] logits are recomputed
     in the backward instead of saved. Logits are stored in x's dtype and
-    reduced in fp32, as in the JAX package."""
+    reduced in fp32, as in the JAX package. The count is the global
+    batch's (k3m_tpu_torch/dist.py)."""
     B, L, _ = x.shape
     pad = (-L) % chunk
     if pad:
@@ -56,7 +58,7 @@ def chunked_masked_ce(x, table, bias, labels, chunk: int,
                           table, bias, ignore_index, use_reentrant=False)
         total = total + s
         count = count + c
-    return total / torch.clamp(count, min=1)
+    return total / torch.clamp(dist.current().sum_counts(count), min=1)
 
 
 class _Transform(nn.Module):

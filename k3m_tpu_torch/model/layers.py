@@ -29,6 +29,7 @@ from torch import nn
 from k3m_tpu_torch.config import K3MConfig
 from k3m_tpu_torch.kernels import fused_attention, fused_layernorm
 from k3m_tpu_torch.model import random as k3m_random
+from k3m_tpu_torch import dist
 
 MASK_NEG = -10000.0
 
@@ -93,15 +94,16 @@ def init_weights(model: nn.Module, seed: int, std: float) -> nn.Module:
 
 def dropout(x, rate: float, deterministic: bool):
     """The JAX package's dropout (k3m_tpu/model/layers.py:89-108): uint8
-    random bits against a threshold, so the keep probability is quantized
+    random bits (drawn for the global batch, `rows_randint`) against a
+    threshold, so the keep probability is quantized
     to k/256, and kept values scaled by the exact quantized 1/keep (in x's
     dtype, as the JAX package multiplies)."""
     if deterministic or rate <= 0.0:
         return x
     t = min(max(int(round(rate * 256.0)), 1), 255)
     keep_prob = (256 - t) / 256.0
-    bits = torch.randint(0, 256, x.shape, dtype=torch.uint8, device=x.device,
-                         generator=k3m_random.active().dropout)
+    bits = k3m_random.rows_randint(k3m_random.active().dropout, 256, x.shape, x.device,
+                                   torch.uint8)
     scale = torch.tensor(1.0 / keep_prob, dtype=x.dtype, device=x.device)
     return x * (bits >= t).to(x.dtype) * scale
 
@@ -136,7 +138,8 @@ def attention_core(q, k, v, bias, dropout_rate: float = 0.0,
     if deterministic or dropout_rate <= 0.0:
         return fused_attention(q, k, v, bias)
     return fused_attention(q, k, v, bias, dropout_rate=dropout_rate,
-                           seed=k3m_random.active().kernel_seed())
+                           seed=k3m_random.active().kernel_seed(),
+                           row0=dist.window(q.shape[0])[0])
 
 
 def split_heads(x, num_heads: int):

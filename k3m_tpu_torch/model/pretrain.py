@@ -18,6 +18,11 @@ Randomness the reference draws inside its forward (LPM negatives, Gumbel
 noise, NCE indices) can be injected (`neg_entity_idx`, `neg_value_idx`,
 `gumbel_noise`, `neg_image_idx`); otherwise it comes from the active
 StepRandom in training (model/random.py), which `rng=` makes active.
+
+Under data parallelism (`world=`, k3m_tpu_torch/dist.py) each loss is the sum over
+the rank's rows divided by the global count, so that the ranks' losses add
+up to the one-process loss of the global batch; the NCE negatives index the
+gathered image targets, drawn over the global batch.
 """
 
 from __future__ import annotations
@@ -39,6 +44,7 @@ from k3m_tpu_torch.model.layers import (
     mask_to_bias, set_compute_dtype,
 )
 from k3m_tpu_torch.model.structure import StructureAggregator
+from k3m_tpu_torch import dist
 
 
 class K3MTrunk(nn.Module):
@@ -107,15 +113,16 @@ class K3MTrunk(nn.Module):
 
 
 def cross_entropy_ignore(logits, labels, ignore_index: int = -1):
-    """Mean CE over labels != ignore_index; an all-ignored batch gives 0
-    (the JAX package's deviation from torch's NaN)."""
+    """Mean CE over labels != ignore_index (of the global batch: the count
+    is the world's); an all-ignored batch gives 0 (the JAX package's
+    deviation from torch's NaN)."""
     logits = logits.float().reshape(-1, logits.shape[-1])
     labels = labels.reshape(-1).long()
     valid = labels != ignore_index
     safe = torch.where(valid, labels, torch.zeros_like(labels))
     nll = -F.log_softmax(logits, dim=-1).gather(1, safe[:, None])[:, 0]
     total = torch.where(valid, nll, torch.zeros_like(nll)).sum()
-    return total / torch.clamp(valid.sum(), min=1)
+    return total / torch.clamp(dist.current().sum_counts(valid.sum()), min=1)
 
 
 def _xlogy(t):
@@ -129,7 +136,8 @@ def masked_image_loss(cfg: K3MConfig, prediction_scores_v, image_label,
     `prediction_scores_v` excludes the global token ([:, 1:]); image_label
     [B, R] is 1 on masked regions. `neg_index` [B, R, N] (flat into B * R)
     injects the NCE negatives; else they are drawn, from the step's LPM
-    generator in training."""
+    generator in training. Counts are the global batch's (k3m_tpu_torch/dist.py)."""
+    world = dist.current()
     target = image_target.float()
     scores = prediction_scores_v.float()
     masked = image_label == 1
@@ -137,33 +145,35 @@ def masked_image_loss(cfg: K3MConfig, prediction_scores_v, image_label,
     if cfg.visual_target == 1:
         err = (scores - target) ** 2
         return (err * mf[:, :, None]).sum() / torch.clamp(
-            (mf[:, :, None] * torch.ones_like(err)).sum(), min=1)
+            world.sum_counts((mf[:, :, None] * torch.ones_like(err)).sum()), min=1)
     if cfg.visual_target == 0:
         kl = _xlogy(target) - target * F.log_softmax(scores, dim=2)
-        return (kl * mf[:, :, None]).sum() / torch.clamp(mf.sum(), min=1)
+        return (kl * mf[:, :, None]).sum() / torch.clamp(world.sum_counts(mf.sum()), min=1)
     B, R, _ = scores.shape
     dev = scores.device
+    row0, total = dist.window(B)
     if neg_index is None:
         gen = (k3m_random.active().lpm if not deterministic
                else torch.Generator(device=dev).manual_seed(0))
         n_across = int(cfg.num_negative_image * 0.7)
         n_inside = int(cfg.num_negative_image * 0.3)
-        rand = lambda hi, shape: torch.randint(0, hi, shape, device=dev, generator=gen)
-        ar_b = torch.arange(B, device=dev)
-        row = rand(max(B - 1, 1), (B, R, n_across))
-        row = torch.where(row == ar_b[:, None, None], torch.full_like(row, B - 1), row)
+        rand = lambda hi, shape: k3m_random.rows_randint(gen, hi, shape, dev)
+        ar_b = torch.arange(B, device=dev) + row0
+        row = rand(max(total - 1, 1), (B, R, n_across))
+        row = torch.where(row == ar_b[:, None, None], torch.full_like(row, total - 1), row)
         across = row * R + rand(R, (B, R, n_across))
         col = rand(max(R - 1, 1), (B, R, n_inside))
         col = torch.where(col == torch.arange(R, device=dev)[None, :, None],
                           torch.full_like(col, R - 1), col)
         inside = ar_b[:, None, None] * R + col
         neg_index = torch.cat([across, inside], dim=2)
-    negative = target.reshape(B * R, -1)[neg_index.long()]          # [B, R, N, D]
+    # the "across" rows index the global batch's targets (data, no gradient)
+    negative = world.all_gather_rows(target).reshape(total * R, -1)[neg_index.long()]
     sample = torch.cat([target[:, :, None, :], negative], dim=2)
     score = torch.einsum("brnd,brd->brn", sample, scores)
     nll = -F.log_softmax(score, dim=-1)[..., 0]
     return torch.where(masked, nll, torch.zeros_like(nll)).sum() / torch.clamp(
-        masked.sum(), min=1)
+        world.sum_counts(masked.sum()), min=1)
 
 
 class K3MForPretraining(nn.Module):
@@ -186,8 +196,10 @@ class K3MForPretraining(nn.Module):
                 deterministic: bool = True,
                 rng: Optional[k3m_random.StepRandom] = None,
                 neg_entity_idx=None, neg_value_idx=None, gumbel_noise=None,
-                neg_image_idx=None):
-        with k3m_random.use(rng):
+                neg_image_idx=None, world: Optional[dist.World] = None):
+        """`world`: the ranks whose rows make the global batch (none: this
+        batch is the global one)."""
+        with k3m_random.use(rng), dist.use(world, batch["input_ids"].shape[0]):
             return self._forward(batch, deterministic, neg_entity_idx,
                                  neg_value_idx, gumbel_noise, neg_image_idx)
 

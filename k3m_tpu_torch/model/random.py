@@ -11,6 +11,15 @@ word of 0 would repeat the whole step's draws). The model's modules
 take them from the `StepRandom` made active by `use(...)` for the span of
 one forward; `deterministic=False` without one raises. The bits are not
 the JAX package's: the tests inject noise where they compare the two.
+
+Under data parallelism (k3m_tpu_torch/dist.py) every rank's StepRandom is the same,
+and a draw that spans the batch (`rows_rand`, `rows_randint`: hidden
+dropout bits, Gumbel noise, LPM and NCE indices) is made at the shape of
+the global batch and sliced to this rank's rows, so that N ranks draw what
+one process draws for their concatenated batch. That costs N times the
+random bytes of the rank's own rows (a counter-based draw per row would
+not). The attention kernels' seeds come from the CPU generator, the same
+on every rank; the kernels key their masks by the global row.
 """
 
 from __future__ import annotations
@@ -21,6 +30,8 @@ from typing import Optional
 
 import numpy as np
 import torch
+
+from k3m_tpu_torch import dist
 
 _ACTIVE: contextvars.ContextVar = contextvars.ContextVar("k3m_step_random", default=None)
 
@@ -44,6 +55,23 @@ class StepRandom:
     def kernel_seed(self) -> int:
         """A fresh Philox seed in [0, 2^31 - 1) for one attention call."""
         return int(torch.randint(0, 2 ** 31 - 1, (), generator=self._seeds))
+
+
+def rows_rand(generator: torch.Generator, shape, device) -> torch.Tensor:
+    """Uniform [0, 1) noise of `shape` [B, ...] for this rank's B rows of
+    the active world's global batch: drawn for every row, then sliced."""
+    row0, total = dist.window(shape[0])
+    full = torch.rand((total,) + tuple(shape[1:]), device=device, generator=generator)
+    return full[row0:row0 + shape[0]]
+
+
+def rows_randint(generator: torch.Generator, high: int, shape, device,
+                 dtype=torch.int64) -> torch.Tensor:
+    """Integers in [0, high) of `shape` [B, ...], drawn as `rows_rand`."""
+    row0, total = dist.window(shape[0])
+    full = torch.randint(0, high, (total,) + tuple(shape[1:]), dtype=dtype,
+                         device=device, generator=generator)
+    return full[row0:row0 + shape[0]]
 
 
 @contextlib.contextmanager

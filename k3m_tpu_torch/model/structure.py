@@ -15,6 +15,12 @@ relu(margin - pos + neg); `fix_reference_bugs` flips it to textbook
 relu(margin + pos - neg). Negatives are drawn without replacement as k
 argmins over uniform noise (structure.py:58-77), or injected
 (`neg_entity_idx` / `neg_value_idx`).
+
+Under data parallelism (k3m_tpu_torch/dist.py) the batch is the global one: the
+zero-pair carry runs over the gathered rows, so a rank's leading zero-pair
+item takes the last aggregate of the rank before it (with its gradient);
+entity negatives are drawn over the global batch and read the gathered
+c_final; the LPM count is global. Injected entity indices are global rows.
 """
 
 from __future__ import annotations
@@ -28,6 +34,7 @@ from torch import nn
 from k3m_tpu_torch.config import K3MConfig
 from k3m_tpu_torch.model import random as k3m_random
 from k3m_tpu_torch.model.layers import Linear
+from k3m_tpu_torch import dist
 
 
 def gather_pair_mean(seq: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -39,9 +46,10 @@ def gather_pair_mean(seq: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 
 def sample_without_replacement(generator, noise_shape, valid_mask, k_take: int):
     """k_take candidates per row, uniform over the valid set, without
-    replacement: k argmins of uniform noise, invalid entries never first.
+    replacement: k argmins of uniform noise (drawn for the global batch,
+    `rows_rand`), invalid entries never first.
     Returns (indices [..., k_take], slot_ok [..., k_take])."""
-    noise = torch.rand(noise_shape, device=valid_mask.device, generator=generator)
+    noise = k3m_random.rows_rand(generator, noise_shape, valid_mask.device)
     noise = torch.where(valid_mask, noise, torch.full_like(noise, 2.0))
     iota = torch.arange(noise_shape[-1], device=noise.device)
     takes = []
@@ -100,41 +108,61 @@ class StructureAggregator(nn.Module):
         if self.fix_reference_bugs:
             agg_sel = torch.where((n_valid > 0)[:, None], agg, c_initial)
         else:
-            idx = torch.arange(B, device=agg.device)
-            marked = torch.where(n_valid > 0, idx, torch.full_like(idx, -1))
-            src = torch.cummax(marked, dim=0).values
-            agg_with_exc = torch.cat([c_initial[0:1], agg], dim=0)
-            agg_sel = agg_with_exc[src + 1]
+            agg_sel = self._carry(agg, n_valid, c_initial)
         c_final = c_initial + self.struc_w3(agg_sel)
         if not self.with_lpm:
             return c_final, None
         return c_final, self._lpm_loss(c_final, p_vecs, v_vecs, valid, deterministic,
                                        neg_entity_idx, neg_value_idx)
 
+    @staticmethod
+    def _carry(agg, n_valid, c_initial):
+        """The aggregate each item uses: its own, or that of the nearest
+        preceding item of the (global) batch that had pairs, or for a
+        leading run of zero-pair items c_initial of the batch's first item.
+        Found with a cumulative max of the source index over the global
+        rows; this rank keeps its own."""
+        world = dist.current()
+        B = agg.shape[0]
+        row0, total = dist.window(B)
+        c_first = world.gather_rows(c_initial[0:1])[0:1]       # global row 0's
+        agg, n_valid = world.gather_rows(agg), world.all_gather_rows(n_valid)
+        idx = torch.arange(total, device=agg.device)
+        marked = torch.where(n_valid > 0, idx, torch.full_like(idx, -1))
+        src = torch.cummax(marked, dim=0).values[row0:row0 + B]
+        agg_with_exc = torch.cat([c_first, agg], dim=0)
+        return agg_with_exc[src + 1]
+
     def _lpm_loss(self, c_final, p_vecs, v_vecs, valid, deterministic,
                   neg_entity_idx, neg_value_idx):
         cfg = self.cfg
+        world = dist.current()
         B, P = valid.shape
         dev = valid.device
+        row0, total = dist.window(B)
         n_ent = cfg.num_negative_pv // 2
         n_val = cfg.num_negative_pv - n_ent
         cf, pf, vf = c_final.float(), p_vecs.float(), v_vecs.float()
         pos = torch.linalg.vector_norm(cf[:, None, :] + pf - vf, dim=-1)   # [B, P]
         ar_b = torch.arange(B, device=dev)
 
-        # entity negatives: for each (i, j), n_ent items k != i
+        # entity negatives: for each (i, j), n_ent items k != i of the
+        # global batch
+        rows = ar_b + row0
         if neg_entity_idx is None:
             gen = _generator(deterministic, dev, 0)
-            cand_ok = (~torch.eye(B, dtype=torch.bool, device=dev))[:, None, :].expand(B, P, B)
-            ent_idx, ent_ok = sample_without_replacement(gen, (B, P, B), cand_ok, n_ent)
+            cand_ok = (torch.arange(total, device=dev)[None, None, :]
+                       != rows[:, None, None]).expand(B, P, total)
+            ent_idx, ent_ok = sample_without_replacement(gen, (B, P, total), cand_ok, n_ent)
             gen_v = gen
         else:
             ent_idx = neg_entity_idx.long()
-            ent_ok = ent_idx != ar_b[:, None, None]
+            ent_ok = ent_idx != rows[:, None, None]
             gen_v = None
-        ent_ok = ent_ok & valid[:, :, None] & (B > 1)
+        ent_ok = ent_ok & valid[:, :, None] & (total > 1)
+        cf_all = world.gather_rows(cf)
         neg_ent = torch.linalg.vector_norm(
-            cf[ent_idx] + pf[:, :, None, :] - vf[:, :, None, :], dim=-1)  # [B, P, n_ent]
+            cf_all[ent_idx] + pf[:, :, None, :] - vf[:, :, None, :], dim=-1)  # [B, P, n_ent]
 
         # value negatives: for each (i, j), n_val valid pairs k != j
         if neg_value_idx is None:
@@ -160,7 +188,7 @@ class StructureAggregator(nn.Module):
         else:
             rank = lambda p, n: torch.relu(margin - p + n)
         zero = torch.zeros((), device=dev)
-        total = (torch.where(ent_ok, rank(pos[:, :, None], neg_ent), zero).sum()
-                 + torch.where(val_ok, rank(pos[:, :, None], neg_val), zero).sum())
-        count = ent_ok.sum() + val_ok.sum()
-        return total / torch.clamp(count, min=1)
+        loss_sum = (torch.where(ent_ok, rank(pos[:, :, None], neg_ent), zero).sum()
+                    + torch.where(val_ok, rank(pos[:, :, None], neg_val), zero).sum())
+        count = world.sum_counts(ent_ok.sum() + val_ok.sum())
+        return loss_sum / torch.clamp(count, min=1)

@@ -16,6 +16,15 @@ with `--file_checkpoint` from an epoch or mid-epoch, as root
 given. Without `--pretrained_model_path` the weights are random from
 `--seed`. Options of the JAX package that the port does not have yet are
 refused by name (ROADMAP.md Queue 1).
+
+Data parallelism: launched as N processes, one per card, by torchrun
+
+    torchrun --nproc_per_node N -m k3m_tpu_torch.pretrain ...
+
+or with the JAX package's K3M_COORDINATOR_ADDRESS / K3M_NUM_PROCESSES /
+K3M_PROCESS_ID (train/dist.py), each rank runs on cuda:LOCAL_RANK with
+`--train_batch_size / N` rows of a shard of the records, and a step is the
+one-process step on the global batch (root pretrain.py:168-199).
 """
 
 from __future__ import annotations
@@ -104,13 +113,12 @@ def refuse_unported(args) -> None:
     """Options of the JAX package the port does not have yet."""
     refused = {
         "--data_backend grain": args.data_backend == "grain",
-        "--n_model > 1": args.n_model > 1,
-        "multi-process training (WORLD_SIZE > 1)":
-            int(os.environ.get("WORLD_SIZE", "1")) > 1,
+        "--n_model > 1 (tensor parallelism)": args.n_model > 1,
     }
     for name, hit in refused.items():
         if hit:
             raise NotImplementedError(f"{name} is not ported yet (ROADMAP.md Queue 1)")
+
 
 
 def find_config(args) -> Path:
@@ -125,19 +133,28 @@ def find_config(args) -> Path:
 def main(argv=None):
     args = get_parser().parse_args(argv)
     refuse_unported(args)
+    from k3m_tpu_torch.train import dist
+
+    world = dist.init_from_env(args.device)
+    try:
+        return _run(args, world)
+    finally:
+        world.close()
+
+
+def _run(args, world):
     from k3m_tpu_torch.config import K3MConfig
     from k3m_tpu_torch.convert import (
         load_model_file, load_pretrained, load_pretrained_bert_paths,
     )
     from k3m_tpu_torch.data.pipeline import PretrainLoader
     from k3m_tpu_torch.data.preprocess import ShapeSpec
-    from k3m_tpu_torch.device import resolve_device
     from k3m_tpu_torch.model.pretrain import build_pretraining_model
     from k3m_tpu_torch.tokenization import get_tokenizer
     from k3m_tpu_torch.train.pretrain_loop import PretrainTrainer
     from k3m_tpu_torch.train.state import CheckpointManager
 
-    device = resolve_device(args.device)
+    device = world.device
     os.makedirs(args.output_dir, exist_ok=True)
     config = K3MConfig.from_json_file(str(find_config(args)))
     overrides = dict(
@@ -167,14 +184,19 @@ def main(argv=None):
         name = args.file_name.format(split) if "{}" in args.file_name else args.file_name
         return os.path.join(args.data_dir, name)
 
+    # each rank's rows of the global batch, from its shard of the records
+    shard = dict(num_shards=world.size, shard_index=world.rank)
     train_loader = PretrainLoader(path("train"), tokenizer, shapes,
-                                  batch_size=args.train_batch_size, shuffle=True,
-                                  seed=args.seed, visual_target=args.visual_target)
+                                  batch_size=world.local_rows(args.train_batch_size,
+                                                              "--train_batch_size"),
+                                  shuffle=True, seed=args.seed,
+                                  visual_target=args.visual_target, **shard)
     val_loader = None
     if args.do_eval and os.path.exists(path("valid")):
         val_loader = PretrainLoader(path("valid"), tokenizer, shapes,
-                                    batch_size=args.eval_batch_size, shuffle=False,
-                                    seed=args.seed, visual_target=args.visual_target)
+                                    batch_size=max(args.eval_batch_size // world.size, 1),
+                                    shuffle=False, seed=args.seed,
+                                    visual_target=args.visual_target, **shard)
 
     logger.info("train loader: %s producer%s", train_loader.producer,
                 f" ({train_loader.native_error})" if train_loader.native_error else "")
@@ -197,7 +219,8 @@ def main(argv=None):
         loss_img_weight=args.loss_img_weight,
         objective=args.objective, seed=args.seed, wire=args.wire,
         device_cache=args.device_cache or None,
-        skip_nonfinite=args.skip_nonfinite, pretrained=pretrained, model=model)
+        skip_nonfinite=args.skip_nonfinite, pretrained=pretrained, model=model,
+        world=world)
 
     start_epoch, start_step, resumed = int(args.start_epoch), 0, None
     if args.file_checkpoint:
@@ -226,7 +249,8 @@ def main(argv=None):
     logger.info("training history: %s", [
         {k: v for k, v in h.items() if not k.startswith("step_")} for h in history])
     return dict(history=history, trainer=trainer, producer=train_loader.producer,
-                resumed=resumed)
+                resumed=resumed, world=dict(rank=world.rank, size=world.size,
+                                            backend=world.backend))
 
 
 if __name__ == "__main__":

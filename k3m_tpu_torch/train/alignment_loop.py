@@ -13,6 +13,14 @@ the `int8` wire each item's image features cross quantized and are decoded
 on the device; with the device cache (`device_cache`) the first epoch's
 staged batches are replayed after it. `evaluate` and `predict` run a model
 under `torch.inference_mode()`.
+
+Over a world of processes (k3m_tpu_torch/dist.py) each rank reads its
+shard of the pairs; the global batch is the ranks' batches in rank
+order, as in the JAX package. The trainer sums the gradients and the
+logged loss over the ranks and rank 0 writes the checkpoints; `evaluate`
+gathers every rank's probabilities and labels before the sweep, which
+every rank then computes alike (JAX alignment_loop.py:316-323);
+`predict` writes one part per rank, `<output>.part<rank>` (:339-340).
 """
 
 from __future__ import annotations
@@ -29,6 +37,7 @@ import torch
 from k3m_tpu_torch.config import K3MConfig
 from k3m_tpu_torch.model.alignment import build_model
 from k3m_tpu_torch.model.layers import compute_dtype
+from k3m_tpu_torch.dist import World
 from k3m_tpu_torch.train.state import CheckpointManager
 from k3m_tpu_torch.train.trainer import Trainer, batch_rows, stage_array, stage_arrays
 from k3m_tpu_torch.train.wire import decode, wire_mode
@@ -72,29 +81,34 @@ def decode_items(batch: Dict, config) -> Dict:
     return dict(batch, item1=decode(batch["item1"], dt), item2=decode(batch["item2"], dt))
 
 
-def forward(model, device_batch: Dict):
-    """(emb1, emb2, probs, loss) of one batch already on the model's device."""
+def forward(model, device_batch: Dict, world: Optional[World] = None):
+    """(emb1, emb2, probs, loss) of one batch already on the model's device;
+    `world`: the ranks whose batches make the global one."""
     b = decode_items(device_batch, model.cfg)
     with torch.inference_mode():
-        return model(b["label"], b["item1"], b["item2"], deterministic=True)
+        return model(b["label"], b["item1"], b["item2"], deterministic=True, world=world)
 
 
 def _device_of(model) -> torch.device:
     return next(model.parameters()).device
 
 
-def evaluate(model, loader: Iterable, epoch: int = 0, wire: Optional[str] = None):
+def evaluate(model, loader: Iterable, epoch: int = 0, wire: Optional[str] = None,
+             world: Optional[World] = None):
     """Threshold sweep 0.1..0.9 P/R/F1 (ref :1092-1096); `wire` defaults
-    to K3M_WIRE, else fp."""
+    to K3M_WIRE, else fp. Over a world of processes each rank evaluates its
+    shard (of equal length on every rank) and the sweep is over every
+    rank's pairs."""
     device, wire = _device_of(model), wire_mode(wire)
+    world = world or World(device=device)
     model.eval()
     all_probs, all_labels = [], []
     for batch in loader:
-        _, _, probs, _ = forward(model, batch_to_device(batch, device, model.cfg, wire))
-        all_probs.append(probs.float().cpu().numpy())
-        all_labels.append(np.asarray(batch["label"]))
-    probs = np.concatenate(all_probs)
-    labels = np.concatenate(all_labels).astype(int)
+        _, _, probs, _ = forward(model, batch_to_device(batch, device, model.cfg, wire), world)
+        all_probs.append(probs.float())
+        all_labels.append(torch.as_tensor(np.asarray(batch["label"]), dtype=torch.float32))
+    probs = world.all_gather_rows(torch.cat(all_probs)).cpu().numpy()
+    labels = world.all_gather_rows(torch.cat(all_labels).to(device)).cpu().numpy().astype(int)
     sweep = {}
     for threshold in np.arange(0.1, 1.0, 0.1):
         p, r, f1 = precision_recall_f1(labels, (probs >= threshold).astype(int))
@@ -109,20 +123,26 @@ def _fmt(e: np.ndarray) -> str:
 
 
 def predict(model, loader: Iterable, output_path: str, threshold: float = 0.5,
-            log_steps: int = 100, wire: Optional[str] = None) -> Dict:
+            log_steps: int = 100, wire: Optional[str] = None,
+            world: Optional[World] = None) -> Dict:
     """Embedding dump in the JAX package's jsonl format (ref :1119-1212).
 
     Returns the output path and, per batch, its pairs and the host seconds
     from the end of the previous batch to this batch's results on the host
     (loader wait, copies and the forward). `wire` defaults to K3M_WIRE,
-    else fp."""
+    else fp. Over a world of processes each rank writes its shard's pairs to
+    `<output_path>.part<rank>`; the parts together are the dump."""
     device, wire = _device_of(model), wire_mode(wire)
+    world = world or World(device=device)
+    if world.size > 1:
+        output_path = f"{output_path}.part{world.rank}"
     os.makedirs(os.path.dirname(os.path.abspath(output_path)), exist_ok=True)
     seconds, pairs = [], []
     t_prev = time.perf_counter()
     with open(output_path, "w", encoding="utf-8") as w:
         for step, batch in enumerate(loader):
-            e1, e2, _, _ = forward(model, batch_to_device(batch, device, model.cfg, wire))
+            e1, e2, _, _ = forward(model, batch_to_device(batch, device, model.cfg, wire),
+                                   world)
             e1 = e1.float().cpu().numpy()
             e2 = e2.float().cpu().numpy()
             t_now = time.perf_counter()
@@ -144,22 +164,24 @@ def predict(model, loader: Iterable, output_path: str, threshold: float = 0.5,
 
 class AlignmentTrainer(Trainer):
     """The counterpart of the JAX AlignmentTrainer (alignment_loop.py:
-    59-356) on one device; `model` defaults to a training
-    K3MForItemAlignment with random weights from `seed`."""
+    59-356), on one device or one rank of a `world`; `model` defaults to a
+    training K3MForItemAlignment with random weights from `seed`."""
 
     def __init__(self, config: K3MConfig, *, learning_rate: float = 5e-5,
                  warmup_steps: int = 0, total_steps: int = 1000,
                  grad_accum_steps: int = 1, micro_steps: int = 1,
                  adam_eps: float = 1e-8, seed: int = 42, device="cuda",
                  wire: Optional[str] = None, device_cache: Optional[bool] = None,
-                 skip_nonfinite: bool = False, model=None):
+                 skip_nonfinite: bool = False, model=None,
+                 world: Optional[World] = None):
         model = model if model is not None else build_model(
             config, seed=seed, device=device, train=True)
         super().__init__(config, model, learning_rate=learning_rate,
                          warmup_steps=warmup_steps, total_steps=total_steps,
                          grad_accum_steps=grad_accum_steps, micro_steps=micro_steps,
                          adam_eps=adam_eps, seed=seed, wire=wire,
-                         device_cache=device_cache, skip_nonfinite=skip_nonfinite)
+                         device_cache=device_cache, skip_nonfinite=skip_nonfinite,
+                         world=world)
 
     def stage(self, batch: Dict) -> Dict:
         return batch_to_device(batch, self.device, self.config, self.wire)
@@ -172,12 +194,13 @@ class AlignmentTrainer(Trainer):
         for rows, rng in self.micro_slices(staged["label"].shape[0]):
             part = batch_rows(staged, rows)
             _, _, p, loss = self.model(part["label"], part["item1"], part["item2"],
-                                       deterministic=False, rng=rng)
+                                       deterministic=False, rng=rng, world=self.world)
             (loss / (self.micro_steps * self.grad_accum_steps)).backward()
             losses.append(loss.detach())
             probs.append(p.detach())
-        self.update()
         loss = losses[0] if len(losses) == 1 else torch.stack(losses).mean()
+        loss = self.global_metrics(dict(loss=loss))["loss"]
+        self.update()
         return loss, torch.cat(probs)
 
     def fit(self, train_loader: Iterable, val_loader: Optional[Iterable] = None,
@@ -185,11 +208,13 @@ class AlignmentTrainer(Trainer):
             checkpoint_dir: Optional[str] = None):
         """Train epochs [start_epoch, num_epochs); after each, the threshold
         sweep on `val_loader` (`sweep`) and a checkpoint into
-        `checkpoint_dir` (`checkpoint_seconds`: the write's host time). Each
-        step ends with a device synchronisation so that its host time
-        (`step_seconds`) is the step's; every step's loss is kept
+        `checkpoint_dir` (`checkpoint_seconds`: the write's host time; rank
+        0 writes, the path is None on the other ranks). Each step ends with a
+        device synchronisation so that its host time (`step_seconds`) is the
+        step's; every step's loss (the global batch's) is kept
         (`step_losses`)."""
-        ckpt = CheckpointManager(checkpoint_dir, self.config) if checkpoint_dir else None
+        ckpt = (CheckpointManager(checkpoint_dir, self.config)
+                if checkpoint_dir and self.world.rank == 0 else None)
         source = self.epoch_source(train_loader)
         sync = torch.cuda.synchronize if self.device.type == "cuda" else (lambda: None)
         history = []
@@ -201,7 +226,7 @@ class AlignmentTrainer(Trainer):
             cache = self.epoch_cache if self.device_cache else None
             from_cache = cache is not None and cache.cached
             t_epoch = t_prev = time.perf_counter()
-            seconds, pairs, losses = [], [], []
+            seconds, pairs, losses, allreduce = [], [], [], []
             for batch in self.prefetch(source):
                 loss, _ = self.train_step(batch)
                 sync()
@@ -210,6 +235,7 @@ class AlignmentTrainer(Trainer):
                 t_prev = t_now
                 pairs.append(int(batch["label"].shape[0]))
                 losses.append(loss)
+                allreduce.append(self.allreduce)
                 if log_steps and len(seconds) % log_steps == 0:
                     logger.info("epoch %d step %d loss %.4f (%.3f s)", epoch, len(seconds),
                                 float(loss), seconds[-1])
@@ -217,14 +243,19 @@ class AlignmentTrainer(Trainer):
             summary = dict(epoch=epoch, seconds=dt, samples_per_sec=sum(pairs) / max(dt, 1e-9),
                            step_seconds=seconds, step_pairs=pairs,
                            step_losses=[float(x) for x in losses])
+            if self.world.group:
+                summary["allreduce_bytes"] = [b for b, _ in allreduce]
+                summary["allreduce_seconds"] = [t for _, t in allreduce]
             if cache is not None:
                 summary["device_cache"] = dict(from_cache=from_cache, cached=cache.cached,
                                                bytes=cache.bytes, budget_bytes=cache.max_bytes)
             if val_loader is not None:
-                summary["sweep"] = evaluate(self.model, val_loader, epoch, self.wire)
-            if ckpt is not None:
+                summary["sweep"] = evaluate(self.model, val_loader, epoch, self.wire,
+                                            self.world)
+            if checkpoint_dir:
                 t_save = time.perf_counter()
-                summary["checkpoint_path"] = ckpt.save(self.state_dict(), epoch)
+                summary["checkpoint_path"] = self.save_checkpoint(
+                    lambda state: ckpt.save(state, epoch))
                 summary["checkpoint_seconds"] = time.perf_counter() - t_save
             history.append(summary)
         return history

@@ -24,7 +24,11 @@ checkpoint every `save_steps` batches, a mid-epoch start (`start_step`),
 SIGTERM handled at the next step boundary (checkpoint, then return with
 `preempted_at_step`), `metrics.jsonl` every `log_steps` steps, a warning
 where an update was skipped for non-finite gradients, and the device
-cache (`device_cache`).
+cache (`device_cache`). Over a world of processes
+(k3m_tpu_torch/dist.py) the ranks agree at each step boundary whether
+any of them saw SIGTERM, so all stop after the same step; rank 0 writes
+the checkpoints and `metrics.jsonl`; the logged losses are the global
+batch's.
 """
 
 from __future__ import annotations
@@ -45,6 +49,7 @@ from k3m_tpu_torch.config import K3MConfig
 from k3m_tpu_torch.model.layers import compute_dtype
 from k3m_tpu_torch.model.pretrain import build_pretraining_model
 from k3m_tpu_torch.model.random import StepRandom
+from k3m_tpu_torch.dist import World
 from k3m_tpu_torch.train.state import CheckpointManager
 from k3m_tpu_torch.train.trainer import Trainer, batch_rows, stage_arrays
 from k3m_tpu_torch.train.wire import decode
@@ -104,7 +109,8 @@ class PretrainTrainer(Trainer):
                  loss_img_weight: float = 1.0, objective: int = 0, seed: int = 42,
                  device="cuda", wire: Optional[str] = None,
                  device_cache: Optional[bool] = None, skip_nonfinite: bool = False,
-                 pretrained: Optional[Set[str]] = None, model=None):
+                 pretrained: Optional[Set[str]] = None, model=None,
+                 world: Optional[World] = None):
         # slices see a smaller pool of in-batch negatives (JAX :124-132)
         if micro_steps > 1 and (config.visual_target == 2 or config.in_batch_pairs):
             raise ValueError(
@@ -117,7 +123,7 @@ class PretrainTrainer(Trainer):
                          weight_decay=weight_decay, grad_accum_steps=grad_accum_steps,
                          micro_steps=micro_steps, adam_eps=adam_eps, seed=seed, wire=wire,
                          device_cache=device_cache, skip_nonfinite=skip_nonfinite,
-                         pretrained=pretrained)
+                         pretrained=pretrained, world=world)
         self.loss_img_weight = loss_img_weight
         self.objective = objective
 
@@ -138,7 +144,8 @@ class PretrainTrainer(Trainer):
         batch = decode(dict(batch), compute_dtype(self.config))
         batch = apply_objective(batch, self.objective)
         inject = {k: batch.pop(k) for k in INJECT_KEYS if k in batch}
-        out = self.model(batch, deterministic=deterministic, rng=rng, **inject)
+        out = self.model(batch, deterministic=deterministic, rng=rng, world=self.world,
+                         **inject)
         return total_loss(out, self.loss_img_weight, self.objective)
 
     def train_step(self, batch: Dict) -> Dict[str, torch.Tensor]:
@@ -156,6 +163,7 @@ class PretrainTrainer(Trainer):
             parts.append(metrics)
         metrics = parts[0] if len(parts) == 1 else {
             k: torch.stack([m[k] for m in parts]).mean() for k in parts[0]}
+        metrics = self.global_metrics(metrics)
         skipped = self.update()
         if self.skip_nonfinite:     # 1.0 where the update was skipped, as in JAX
             metrics["nonfinite_skipped"] = (skipped if skipped is not None
@@ -165,7 +173,7 @@ class PretrainTrainer(Trainer):
     @torch.no_grad()
     def eval_step(self, batch: Dict) -> Dict[str, torch.Tensor]:
         self.model.eval()
-        return self.losses(self.stage(batch), deterministic=True)[1]
+        return self.global_metrics(self.losses(self.stage(batch), deterministic=True)[1])
 
     # ---------------------------------------------------------------- fit
 
@@ -181,12 +189,15 @@ class PretrainTrainer(Trainer):
         `log_steps` steps. With `handle_preemption`, on the main thread,
         SIGTERM ends the run after the step in flight with a step checkpoint;
         the history's last entry is then {epoch, preempted_at_step} (and the
-        checkpoint's path and seconds). Each
+        checkpoint's path and seconds). Over a world of processes, SIGTERM
+        on any rank stops every rank after the same step; rank 0 writes
+        (the path is None on the others). Each
         step ends with a device synchronisation so that its host time
         (`step_seconds`) is the step's; every step's losses are kept
         (`step_losses`)."""
-        ckpt = CheckpointManager(checkpoint_dir, self.config) if checkpoint_dir else None
-        mlog = MetricsLogger(checkpoint_dir) if checkpoint_dir else None
+        writer = checkpoint_dir and self.world.rank == 0
+        ckpt = CheckpointManager(checkpoint_dir, self.config) if writer else None
+        mlog = MetricsLogger(checkpoint_dir) if writer else None
         source = self.epoch_source(train_loader)
         sync = torch.cuda.synchronize if self.device.type == "cuda" else (lambda: None)
         preempted = threading.Event()
@@ -206,7 +217,8 @@ class PretrainTrainer(Trainer):
                         # run's data
                         ld.epoch = epoch
                 summary = self._epoch(source, epoch, start_step if epoch == start_epoch else 0,
-                                      ckpt, mlog, save_steps, log_steps, preempted, sync)
+                                      ckpt, bool(checkpoint_dir), mlog, save_steps,
+                                      log_steps, preempted, sync)
                 history.append(summary)
                 if "preempted_at_step" in summary:
                     return history
@@ -216,9 +228,10 @@ class PretrainTrainer(Trainer):
                     for k in LOSS_KEYS:
                         summary[f"val_{k}"] = (float(np.mean([v[k] for v in vals]))
                                                if vals else math.nan)
-                if ckpt is not None:
+                if checkpoint_dir:
                     t_save = time.perf_counter()
-                    summary["checkpoint_path"] = ckpt.save(self.state_dict(), epoch)
+                    summary["checkpoint_path"] = self.save_checkpoint(
+                        lambda state: ckpt.save(state, epoch))
                     summary["checkpoint_seconds"] = time.perf_counter() - t_save
             return history
         finally:
@@ -227,14 +240,16 @@ class PretrainTrainer(Trainer):
             if mlog is not None:
                 mlog.close()
 
-    def _epoch(self, source, epoch, skip, ckpt, mlog, save_steps, log_steps, preempted,
-               sync) -> dict:
-        """One epoch's steps from batch `skip` on; its summary."""
+    def _epoch(self, source, epoch, skip, ckpt, checkpointing, mlog, save_steps, log_steps,
+               preempted, sync) -> dict:
+        """One epoch's steps from batch `skip` on; its summary. `ckpt`: the
+        CheckpointManager on rank 0, else None; `checkpointing` says
+        whether the run checkpoints at all."""
         cache = self.epoch_cache if self.device_cache else None
         from_cache = cache is not None and cache.cached
         batches = itertools.islice(source, skip, None) if skip else source
         t_epoch = t_prev = time.perf_counter()
-        seconds, samples, step_metrics = [], [], []
+        seconds, samples, step_metrics, allreduce = [], [], [], []
         with contextlib.closing(self.prefetch(batches)) as staged:
             for step, batch in enumerate(staged, start=skip):
                 metrics = self.train_step(batch)
@@ -244,14 +259,15 @@ class PretrainTrainer(Trainer):
                 t_prev = t_now
                 samples.append(int(batch["input_ids"].shape[0]))
                 step_metrics.append(metrics)
-                if save_steps and ckpt is not None and (step + 1) % save_steps == 0:
-                    ckpt.save_step(self.state_dict(), epoch, step + 1)
-                if preempted.is_set():
+                allreduce.append(self.allreduce)
+                if save_steps and checkpointing and (step + 1) % save_steps == 0:
+                    self.save_checkpoint(lambda state: ckpt.save_step(state, epoch, step + 1))
+                if self.world.any_flag(preempted.is_set()):
                     out = dict(epoch=epoch, preempted_at_step=step + 1)
-                    if ckpt is not None:
+                    if checkpointing:
                         t_save = time.perf_counter()
-                        out["checkpoint_path"] = ckpt.save_step(self.state_dict(), epoch,
-                                                                step + 1)
+                        out["checkpoint_path"] = self.save_checkpoint(
+                            lambda state: ckpt.save_step(state, epoch, step + 1))
                         out["checkpoint_seconds"] = time.perf_counter() - t_save
                         logger.info("preemption checkpoint: epoch %d after %d batches",
                                     epoch, step + 1)
@@ -273,6 +289,9 @@ class PretrainTrainer(Trainer):
                        step_seconds=seconds, step_samples=samples,
                        step_losses=[{k: float(v) for k, v in m.items()}
                                     for m in step_metrics])
+        if self.world.group:
+            summary["allreduce_bytes"] = [b for b, _ in allreduce]
+            summary["allreduce_seconds"] = [t for _, t in allreduce]
         if cache is not None:
             summary["device_cache"] = dict(from_cache=from_cache, cached=cache.cached,
                                            bytes=cache.bytes, budget_bytes=cache.max_bytes)

@@ -13,17 +13,29 @@
   * the update: AdamW once every `grad_accum_steps` train steps (the k
     gradients averaged, as optax.MultiSteps does), skipped under
     `skip_nonfinite` when a gradient is not finite;
-  * the state a checkpoint holds.
+  * the state a checkpoint holds;
+  * data parallelism over a `world` of processes (k3m_tpu_torch/dist.py,
+    train/dist.py): the
+    parameters broadcast from rank 0 at construction and after a restore;
+    before the update the gradients summed over the ranks (each rank's loss
+    is already its share of the global batch's), so the non-finite skip is
+    the same on every rank; the step's losses summed likewise; checkpoints
+    written by rank 0 between two barriers. Micro slice i of an N-rank step
+    is the union of the ranks' slices i: the one-process micro step on the
+    micro-major reordering of the global batch.
 """
 
 from __future__ import annotations
 
+import time
 from typing import Dict, Iterable, Iterator, Optional, Set
 
 import numpy as np
 import torch
 
 from k3m_tpu_torch.model.random import StepRandom
+from k3m_tpu_torch.dist import World
+from k3m_tpu_torch.train.dist import all_reduce_grads
 from k3m_tpu_torch.train.device_cache import DeviceEpochCache, cache_enabled
 from k3m_tpu_torch.train.optim import make_optimizer
 from k3m_tpu_torch.train.prefetch import staged_prefetch
@@ -100,12 +112,16 @@ class Trainer:
                  warmup_steps: int, total_steps: int, weight_decay: float = 0.01,
                  grad_accum_steps: int = 1, micro_steps: int = 1, adam_eps: float = 1e-8,
                  seed: int = 42, wire: Optional[str] = None, device_cache: Optional[bool] = None,
-                 skip_nonfinite: bool = False, pretrained: Optional[Set[str]] = None):
+                 skip_nonfinite: bool = False, pretrained: Optional[Set[str]] = None,
+                 world: Optional[World] = None):
         if micro_steps < 1 or grad_accum_steps < 1:
             raise ValueError("micro_steps and grad_accum_steps must be at least 1")
         self.config = config
         self.model = model
         self.device = next(model.parameters()).device
+        self.world = world or World(device=self.device)
+        # bytes and host seconds of the last update's gradient all-reduce
+        self.allreduce = (0, 0.0)
         self.seed = seed
         self.wire = wire_mode(wire)                   # K3M_WIRE when not given
         self.device_cache = cache_enabled(device_cache)   # K3M_DEVICE_CACHE
@@ -118,6 +134,15 @@ class Trainer:
             weight_decay=weight_decay, adam_eps=adam_eps, pretrained=pretrained)
         self.step = 0        # train_step calls so far (the JAX state.step)
         self._micro = 0      # steps accumulated since the last update
+        if self.world.group:
+            if self.device.type == "cuda":
+                # every rank loads the kernels before the first collective,
+                # so that no rank waits in one while another compiles
+                # (JAX's compile-then-barrier, pretrain_loop.py:438-441)
+                from k3m_tpu_torch.kernels import build
+                build.library()
+            self.world.barrier()
+            self.world.broadcast_module(self.model)
 
     # ------------------------------------------------------------ staging
 
@@ -160,9 +185,12 @@ class Trainer:
         scalar) where skip_nonfinite skipped the update, else None."""
         self.step += 1
         self._micro += 1
+        self.allreduce = (0, 0.0)
         if self._micro < self.grad_accum_steps:
             return None
         self._micro = 0
+        if self.world.group:
+            self._all_reduce_grads()
         skipped = None
         if self.skip_nonfinite and not self._grads_finite():
             skipped = torch.ones((), device=self.device)
@@ -178,6 +206,35 @@ class Trainer:
             self.sched.step()
         self.opt.zero_grad(set_to_none=True)
         return skipped
+
+    def _all_reduce_grads(self) -> None:
+        """Sum the gradients over the ranks (train/dist.py), timed on the
+        host between two device synchronisations."""
+        sync = torch.cuda.synchronize if self.device.type == "cuda" else (lambda: None)
+        sync()
+        t0 = time.perf_counter()
+        nbytes = all_reduce_grads(self.world, self.model.parameters())
+        sync()
+        self.allreduce = (nbytes, time.perf_counter() - t0)
+
+    def global_metrics(self, metrics: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        """The step's losses summed over the ranks (each rank's is its
+        share of the global batch's), in one all-reduce; as they are in a
+        world of one."""
+        if not self.world.distributed:
+            return metrics
+        keys = [k for k in metrics if k != "nonfinite_skipped"]
+        summed = self.world.all_reduce_sum(torch.stack([metrics[k].float() for k in keys]))
+        return dict(metrics, **{k: summed[i] for i, k in enumerate(keys)})
+
+    def save_checkpoint(self, save) -> Optional[str]:
+        """`save(state_dict)` on rank 0, between two barriers, so that no
+        rank reads a checkpoint before it is whole; its result there, None
+        on the other ranks."""
+        self.world.barrier()
+        out = save(self.state_dict()) if self.world.rank == 0 else None
+        self.world.barrier()
+        return out
 
     def _grads_finite(self) -> bool:
         grads = [p.grad for p in self.model.parameters() if p.grad is not None]
@@ -195,3 +252,4 @@ class Trainer:
         self.opt.load_state_dict(state["optimizer"])
         self.sched.load_state_dict(state["scheduler"])
         self.step, self._micro = int(state["step"]), int(state["micro"])
+        self.world.broadcast_module(self.model)

@@ -260,9 +260,16 @@ def test_cli_refuses_unported_options_by_name(nano_run, monkeypatch, flag):
     tmp_path, cfg_path = nano_run
     argv = _train_args(tmp_path, cfg_path, tmp_path / "out")
     if flag[0] == "WORLD_SIZE":
+        # multi-process training is ported (tests/test_torch_dist.py): a
+        # WORLD_SIZE is not refused as unported, but one without the rank
+        # and the rendezvous that go with it is refused by name
         monkeypatch.setenv("WORLD_SIZE", "2")
-    else:
-        argv += flag
+        for k in ("RANK", "MASTER_ADDR", "MASTER_PORT", "K3M_COORDINATOR_ADDRESS"):
+            monkeypatch.delenv(k, raising=False)
+        with pytest.raises(ValueError, match="WORLD_SIZE is set but RANK"):
+            finetune.main(argv)
+        return
+    argv += flag
     with pytest.raises(NotImplementedError, match=flag[0]):
         finetune.main(argv)
 

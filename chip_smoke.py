@@ -127,7 +127,33 @@ a failure:
  19. dp_predict: phase 4's `finetune --do_pred --bf16` in two gloo ranks:
      the parts `.part0` and `.part1` together hold phase 4's pairs, scores
      within 2^-6;
- 20. print the kernel summary line and the final device line.
+ 20. legacy_extract: `python -m k3m_tpu_torch.data.legacy_tsv extract
+     --batch_size 4 --weights` over phase 15's images with its pkl on the
+     card, then `serialize` against a df CSV: each TSV row against phase
+     15's record of the same image (box count equal; boxes, features and
+     cls_prob within 1e-4 of their scale), the "b'...'" framing, read_tsv
+     against the rows, the serialized records field for field, no
+     per-image fallback; phase 15's records through ImageFeaturesReader
+     (global token, location layout); images/s;
+ 21. legacy_train: (a) the README's quick-start command through `python -m
+     k3m_tpu_torch.train_concap_struc --do_train --do_eval
+     --train_batch_size 96 --max_seq_length 50 --max_seq_length_pv 256
+     --max_num_pv 30 --bf16` (bert_base_6layer_6conect, random weights from
+     a seed) on 9 batches of phase 6's records and a valid sibling: every
+     step's losses finite, every kernel counter grown by the count the
+     config gives (9 steps and 2 eval forwards), hyperparamter.txt and the
+     epoch checkpoint; samples/s, step ms, peak memory, device busy ms of one
+     more profiled step; then the first 3 steps of this CLI and of
+     `k3m_tpu_torch.pretrain` with the matching flags on the same records,
+     under torch.use_deterministic_algorithms: losses and parameters bit for
+     bit; (b) the CLI's default shapes (title 36, pv 128, 20 pvs) at batch
+     96, 3 steps, counts as the config gives, then every kernel held against
+     its plain version at these shapes as phase 3 holds them (#3/#4/#5 in
+     bf16 at rate 0.1 and fp32 at rate 0, forward and backward; #1/#2 on
+     these rows), timed with bound and library call; (c) a raw TSV of 96
+     rows with a valid sibling, converted once by find_records, one step,
+     reused by a second run;
+ 22. print the kernel summary line and the final device line.
 
 Phases 17-19 run their ranks as `python3 chip_smoke.py --dp-worker
 <spec>` processes (logs in chiprun_out/dp_*.log); a rank that exits
@@ -366,17 +392,21 @@ def _dt_name(dt):
     return str(dt).replace("torch.", "")
 
 
-def kernel_phase_layernorm(card, rows_out):
+def kernel_phase_layernorm(card, rows_out, cases=None):
+    """The forward kernel against layernorm_plain, with and without a
+    residual; `cases`: [(batch, (rows, n, what), ((in, out dtype), ...))],
+    by default every main-path shape."""
     import torch.nn.functional as F
 
     from k3m_tpu_torch.kernels import fused_layernorm, layernorm_plain
     f32, bf16 = torch.float32, torch.bfloat16
     g = torch.Generator(device="cuda").manual_seed(0)
-    # every shape of the serving and pretraining batches; at the finetune
-    # batch the pv rows in bf16, the summary's row
-    cases = [(b, shape, ((f32, f32), (bf16, bf16), (f32, bf16)))
-             for b in FWD_BATCHES for shape in ln_shapes(b)]
-    cases.append((FT_BATCH, ln_shapes(FT_BATCH)[1], ((bf16, bf16),)))
+    if cases is None:
+        # every shape of the serving and pretraining batches; at the
+        # finetune batch the pv rows in bf16, the summary's row
+        cases = [(b, shape, ((f32, f32), (bf16, bf16), (f32, bf16)))
+                 for b in FWD_BATCHES for shape in ln_shapes(b)]
+        cases.append((FT_BATCH, ln_shapes(FT_BATCH)[1], ((bf16, bf16),)))
     for batch, (rows, n, what), dtypes in cases:
         for with_res in (False, True):
             for xd, od in dtypes:
@@ -406,19 +436,23 @@ def kernel_phase_layernorm(card, rows_out):
                         library_ms=lib, bound_ms=bound, bound_by=by)
 
 
-def kernel_phase_layernorm_bwd(card, rows_out):
+def kernel_phase_layernorm_bwd(card, rows_out, cases=None):
     """The backward kernel on the output and rstd of the forward kernel, as
     the training path calls it. dx within the forward's share of its scale;
     dscale/dbias (fp32 sums over all rows, in another order) within 1e-4 of
-    theirs. Library: aten's native_layer_norm_backward on the same input."""
+    theirs. Library: aten's native_layer_norm_backward on the same input.
+    `cases`: [(batch, (rows, n, what), dtypes)], by default every
+    pretraining shape and the finetune batch's pv rows."""
     from k3m_tpu_torch.kernels import layernorm_bwd, layernorm_bwd_plain
     from k3m_tpu_torch.kernels.layernorm import _forward
     f32 = torch.float32
     g = torch.Generator(device="cuda").manual_seed(3)
-    # every shape of the pretraining batch; at the finetune batch the pv
-    # rows in bf16, the summary's row
-    cases = [(TRAIN_BATCH, shape, (f32, torch.bfloat16)) for shape in ln_shapes(TRAIN_BATCH)]
-    cases.append((FT_BATCH, ln_shapes(FT_BATCH)[1], (torch.bfloat16,)))
+    if cases is None:
+        # every shape of the pretraining batch; at the finetune batch the
+        # pv rows in bf16, the summary's row
+        cases = [(TRAIN_BATCH, shape, (f32, torch.bfloat16))
+                 for shape in ln_shapes(TRAIN_BATCH)]
+        cases.append((FT_BATCH, ln_shapes(FT_BATCH)[1], (torch.bfloat16,)))
     for batch, (rows, n, what), dtypes in cases:
         for with_res in (False, True):
             for dt in dtypes:
@@ -541,12 +575,17 @@ BIATTN_SHAPES = ((37, 50, 128, "c_layer"), (37, 256, 128, "c_layer_pv_v"),
                  (256, 50, 96, "c_layer_pv_t"))
 
 
-def kernel_phase_attention(card, rows_out):
+def kernel_phase_attention(card, rows_out, cases=None, shapes=ATTN_SHAPES):
+    """The forward kernel against attention_plain for each (batch, dtype,
+    rate) of `cases` (by default attention_cases of every main-path batch)
+    at each (heads, length, D) of `shapes`."""
     from k3m_tpu_torch.kernels import attention_plain, fused_attention, philox_keep_mask_plain
     from k3m_tpu_torch.kernels.attention import _forward
     g = torch.Generator(device="cuda").manual_seed(1)
-    for B, dt, rate in attention_cases(FWD_BATCHES + (FT_BATCH,)):
-        for H, L, D, what in ATTN_SHAPES:
+    if cases is None:
+        cases = list(attention_cases(FWD_BATCHES + (FT_BATCH,)))
+    for B, dt, rate in cases:
+        for H, L, D, what in shapes:
             q, k, v = _qkv(B, L, H, D, dt, g)
             bias = _ragged_bias(B, L, g)
             seed = 11
@@ -655,14 +694,18 @@ def forward_edge_check(card):
     return dict(cases=cases, worst_ratio=worst)
 
 
-def kernel_phase_biattention(card, rows_out):
+def kernel_phase_biattention(card, rows_out, cases=None, shapes=BIATTN_SHAPES):
+    """The bi-attention kernel against biattention_plain, as
+    kernel_phase_attention, at each (L1, L2, D) of `shapes` (8 heads)."""
     from k3m_tpu_torch.kernels import biattention_plain, fused_biattention, \
         philox_keep_mask_plain
     from k3m_tpu_torch.kernels.coattn import _forward
     g = torch.Generator(device="cuda").manual_seed(2)
     H = 8
-    for B, dt, rate in attention_cases(FWD_BATCHES + (FT_BATCH,)):
-        for L1, L2, D, what in BIATTN_SHAPES:
+    if cases is None:
+        cases = list(attention_cases(FWD_BATCHES + (FT_BATCH,)))
+    for B, dt, rate in cases:
+        for L1, L2, D, what in shapes:
             q1, k1, v1 = _qkv(B, L1, H, D, dt, g)
             q2, k2, v2 = _qkv(B, L2, H, D, dt, g)
             b1, b2 = _ragged_bias(B, L1, g), _ragged_bias(B, L2, g)
@@ -802,7 +845,8 @@ def _attn_bwd_bytes(ops_, fwd):
     return total
 
 
-def kernel_phase_attention_bwd(card, rows_out):
+def kernel_phase_attention_bwd(card, rows_out, runs=None, attn_shapes=ATTN_SHAPES,
+                               bi_shapes=BIATTN_SHAPES):
     """The backward kernel for each self-attention shape and, once per
     direction, each co-attention shape, at rate 0 and 0.1 (under the plain
     version's Philox mask), at the pretraining batch (and in bf16 at rate
@@ -811,17 +855,20 @@ def kernel_phase_attention_bwd(card, rows_out):
     must also reject the planted faults, and at the heaviest shape two calls
     must give the same bits. The backward reads what the forward kernel
     keeps for it (output, lse, mask words), as on the training path;
-    times are of the backward alone."""
+    times are of the backward alone. `runs`: [(batch, dtypes, rates)], by
+    default the pretraining batch in fp32 and bf16 at both rates and the
+    finetune batch as its training calls it (bf16, rate 0.1)."""
     from k3m_tpu_torch.kernels import attention_bwd, attention_bwd_plain, \
         philox_keep_mask_plain
     g = torch.Generator(device="cuda").manual_seed(4)
-    # the finetune batch as its training calls it: bf16 at rate 0.1
-    for B, dtypes, rates in ((TRAIN_BATCH, (torch.float32, torch.bfloat16), RATES),
-                             (FT_BATCH, (torch.bfloat16,), (0.1,))):
+    if runs is None:
+        runs = ((TRAIN_BATCH, (torch.float32, torch.bfloat16), RATES),
+                (FT_BATCH, (torch.bfloat16,), (0.1,)))
+    for B, dtypes, rates in runs:
         cases = [(f"B{B} H{H} L{L} D{D} {what}", [(H, L, L, D, 0)])
-                 for H, L, D, what in ATTN_SHAPES]
+                 for H, L, D, what in attn_shapes]
         cases += [(f"B{B} H8 L{L1}<->{L2} D{D} {what}", [(8, L2, L1, D, 0), (8, L1, L2, D, 7919)])
-                  for L1, L2, D, what in BIATTN_SHAPES]
+                  for L1, L2, D, what in bi_shapes]
         for shape, dirs in cases:
             for dt in dtypes:
                 ops_ = []
@@ -2374,8 +2421,7 @@ def phase_extract_crosscheck(card):
     if not all(discrete.values()) or n_sel == 0:
         raise AssertionError(f"extract crosscheck: discrete stages differ {discrete}, "
                              f"{n_sel} boxes")
-    del gpu, cpu
-    shutil.rmtree(d)
+    del gpu, cpu          # phase 20 reads phase 15's inputs and records, then deletes them
     torch.cuda.empty_cache()
     return dict(errors=errs, worst=worst, discrete=discrete, proposals=int(valid.sum()),
                 selected=n_sel, image=tuple(x.shape[2:]))
@@ -2962,6 +3008,391 @@ def phase_dp_predict(card):
                 peak_gib=[r["peak_gib"] for r in ranks])
 
 
+# ------------------------------------------------------------- legacy path
+
+def _within_scale(got, want):
+    """Largest difference over 1e-4 of max(1, want's scale): at most 1 to
+    pass."""
+    got, want = np.asarray(got, np.float32), np.asarray(want, np.float32)
+    if want.size == 0:
+        return 0.0 if got.size == 0 else math.inf
+    return float(np.abs(got - want).max()) / (1e-4 * max(1.0, float(np.abs(want).max())))
+
+
+def phase_legacy_extract(card):
+    """`python -m k3m_tpu_torch.data.legacy_tsv extract --batch_size 4
+    --weights` over phase 15's PPM images with phase 15's seeded pkl, on
+    the card; then `serialize` against a df CSV. Each TSV row against phase
+    15's record of the same image (box count and size equal; boxes,
+    features and cls_prob within 1e-4 of their scale); the "b'...'"
+    framing; read_tsv against the raw rows decoded by hand, bit for bit; the
+    serialized records field for field; no per-image fallback; no port
+    kernel. Then phase 15's records through ImageFeaturesReader: the global
+    token is the boxes' mean, the locations [x1/w, y1/h, x2/w, y2/h,
+    area share] behind [0, 0, 1, 1, 1]."""
+    import base64
+    import csv
+
+    from k3m_tpu_torch import kernels
+    from k3m_tpu_torch.data import legacy_tsv
+    from k3m_tpu_torch.data.feature_reader import ImageFeaturesReader
+    from k3m_tpu_torch.data.records import RecordReader
+
+    src, d = WORK / "extract", WORK / "legacy_extract"
+    d.mkdir(parents=True, exist_ok=True)
+    items = [json.loads(line) for line in
+             (src / "item_info.jsonl").read_text(encoding="utf-8").splitlines()]
+    (d / "image_list.json").write_text(json.dumps(
+        [[it["item_id"], it["item_image_name"]] for it in items]))
+    tsv = d / "feat.tsv.0"
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    run = legacy_tsv.main(["extract", "--image_list", str(d / "image_list.json"),
+                           "--image_dir", str(src / "images"), "--weights",
+                           str(src / "frcnn.pkl"), "--output", str(tsv),
+                           "--batch_size", str(EXTRACT_BATCH)])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = kernels.launch_counts()
+    ex = run["extractor"]
+    if ex.fallbacks:
+        raise AssertionError(f"legacy_extract: {ex.fallbacks} images through the per-image "
+                             "fallback")
+    if any(launches.values()):
+        raise AssertionError(f"legacy_extract: a port kernel ran: {launches}")
+    if run["rows"] != len(items):
+        raise AssertionError(f"legacy_extract: {run['rows']} rows for {len(items)} images")
+    flushes = ex.flush_seconds
+    images_per_s = sum(n for n, _ in flushes[1:]) / sum(t for _, t in flushes[1:])
+
+    # the reference's framing, and read_tsv against the raw rows
+    csv.field_size_limit(500 * 1024 * 1024)
+    with open(tsv, encoding="utf-8") as f:
+        raw = list(csv.DictReader(f, delimiter="\t", fieldnames=legacy_tsv.FIELDNAMES))
+    rows = list(legacy_tsv.read_tsv(str(tsv)))
+    for r, row in zip(raw, rows):
+        n = int(r["num_boxes"])
+        for key, width in (("boxes", 4), ("features", 2048), ("cls_prob", 1601)):
+            field = r[key]
+            if not (field.startswith("b'") and field.endswith("'")):
+                raise AssertionError(f"legacy_extract: {key} lacks the b'...' framing")
+            arr = np.frombuffer(base64.b64decode(field[2:-1]), np.float32).reshape(n, width)
+            if arr.tobytes() != row[key].tobytes():
+                raise AssertionError(f"legacy_extract: read_tsv {key} differs from the row")
+
+    # each row against phase 15's record of the same image
+    reader = RecordReader(str(src / "train_feat.k3mr"))
+    by_id = {str(reader[i]["item_id"]): reader[i] for i in range(len(reader))}
+    worst = 0.0
+    for row in rows:
+        rec = by_id[row["image_id"]]
+        for k in ("num_boxes", "image_h", "image_w"):
+            if int(rec[k]) != row[k]:
+                raise AssertionError(f"legacy_extract: {row['image_id']} {k} {row[k]} against "
+                                     f"phase 15's {rec[k]}")
+        worst = max([worst] + [_within_scale(row[k], rec[k])
+                               for k in ("boxes", "features", "cls_prob")])
+    if not worst <= 1.0:
+        raise AssertionError(f"legacy_extract: a row differs from phase 15's record "
+                             f"({worst} of 1e-4 of the scale)")
+    log(f"legacy_extract: {run['rows']} rows in {wall:.2f} s (model load included); "
+        f"{images_per_s:.2f} images/s over flushes 2-{len(flushes)} of {EXTRACT_BATCH}; "
+        f"b'...' framing; read_tsv equal to the rows; each row against phase 15's "
+        f"record: worst {worst:.3e} of 1e-4 of the scale; no fallback, no port kernel "
+        f"| {card}")
+
+    # serialize against a df CSV in the reference's columns; one image unmatched
+    df = d / "df_train.csv"
+    with open(df, "w", newline="", encoding="utf-8") as f:
+        w = csv.DictWriter(f, fieldnames=["image_id", "caption", "pv", "category"])
+        w.writeheader()
+        for it in items[1:]:
+            w.writerow(dict(image_id=it["item_id"], caption=it["title"],
+                            pv=it["item_pvs"], category=it["cate_name"]))
+    out = d / "train_legacy.k3mr"
+    ser = legacy_tsv.main(["serialize", "--tsv", str(tsv), "--df_csv", str(df),
+                           "--output", str(out)])
+    records = list(RecordReader(str(out)))
+    if ser["records"] != len(items) - 1 or len(records) != len(items) - 1:
+        raise AssertionError(f"legacy_extract: serialize wrote {ser['records']} records")
+    for rec, row, it in zip(records, rows[1:], items[1:]):
+        want = dict(row, caption=it["title"], pv=it["item_pvs"], category=it["cate_name"])
+        if list(rec) != list(want):
+            raise AssertionError(f"legacy_extract: record fields {list(rec)}")
+        for k, v in want.items():
+            same = (rec[k].dtype == v.dtype and rec[k].tobytes() == v.tobytes()
+                    if isinstance(v, np.ndarray) else rec[k] == v)
+            if not same:
+                raise AssertionError(f"legacy_extract: serialized {k} of {row['image_id']}")
+
+    # phase 15's records through ImageFeaturesReader
+    feats_reader = ImageFeaturesReader(str(src / "train_feat.k3mr"))
+    for item_id, rec in by_id.items():
+        feats, n, loc = feats_reader[item_id]
+        nb, h, w = int(rec["num_boxes"]), float(rec["image_h"]), float(rec["image_w"])
+        boxes = np.asarray(rec["boxes"], np.float32)[:nb]
+        mean = (np.asarray(rec["features"], np.float32)[:nb].mean(0) if nb
+                else np.zeros(2048, np.float32))
+        area = (boxes[:, 3] - boxes[:, 1]) * (boxes[:, 2] - boxes[:, 0]) / (w * h)
+        if not (n == nb + 1 and feats.shape == (nb + 1, 2048) and loc.shape == (nb + 1, 5)
+                and feats[0].tobytes() == mean.tobytes()
+                and (loc[0] == [0, 0, 1, 1, 1]).all()
+                and np.allclose(loc[1:, :4], boxes / [w, h, w, h], rtol=1e-6, atol=0)
+                and np.allclose(loc[1:, 4], area, rtol=1e-6, atol=0)):
+            raise AssertionError(f"legacy_extract: ImageFeaturesReader's {item_id}")
+    log(f"legacy_extract: serialize wrote {ser['records']} records (one image without a df "
+        f"row dropped) equal field for field to the rows and the df CSV; "
+        f"ImageFeaturesReader read {len(by_id)} records of phase 15: global token the "
+        f"boxes' mean, the location layout as stated")
+    del run, ex, reader, feats_reader
+    shutil.rmtree(d)
+    shutil.rmtree(src)
+    torch.cuda.empty_cache()
+    return dict(rows=len(rows), wall_s=wall, images_per_s=images_per_s,
+                flush_seconds=flushes, worst_vs_phase15=worst,
+                serialized=ser["records"], launches=launches)
+
+
+LEGACY_SHAPES = dict(max_seq_length=36, max_seq_length_pv=128, max_num_pv=20,
+                     max_region_length=36)       # the legacy CLI's defaults
+LEGACY_VALID = 16           # validation records of phase 21a: 2 batches of --eval_batch_size 8
+LEGACY_CMP_STEPS = 3        # steps of the legacy-vs-pretrain comparison and of phase 21b
+LEGACY_ATTN_SHAPES = ((12, 36, 64, "title36"), (12, 128, 64, "pv128"), (8, 37, 128, "image37"))
+LEGACY_BIATTN_SHAPES = ((37, 36, 128, "c_layer"), (37, 128, 128, "c_layer_pv_v"),
+                        (128, 36, 96, "c_layer_pv_t"))
+
+
+def expected_eval_launches(cfg, forwards, head_lns=3):
+    """Kernel launches of `forwards` pretraining forwards without a
+    backward (eval_step)."""
+    return dict(expected_train_launches(cfg, forwards, head_lns), layernorm_bwd=0,
+                attention_bwd=0)
+
+
+def _plus(a, b):
+    return {k: a[k] + b[k] for k in a}
+
+
+def _legacy_argv(data_dir, out_dir, *extra, file_name="train_feat.k3mr"):
+    """`k3m_tpu_torch.train_concap_struc` at batch 96 in bf16, the default
+    config (bert_base_6layer_6conect.json), random weights from SEED."""
+    return ["--data_dir", str(data_dir), "--output_dir", str(out_dir), "--file_name",
+            file_name, "--train_batch_size", str(TRAIN_BATCH), "--bf16", "--seed", str(SEED),
+            "--num_train_epochs", "1", "--log_steps", "1", *extra]
+
+
+def _readme_shapes():
+    """The README command's shapes: title 50, pv 256, 30 pvs (36 RoIs, the
+    CLI's default)."""
+    return [f"--{k}={v}" for k, v in SHAPES.items() if k != "max_region_length"]
+
+
+def _legacy_run(argv, expected, what):
+    """One run of the legacy CLI from counts at 0: every kernel counter
+    equal to `expected`, every step's losses finite, the epoch checkpoint
+    and hyperparamter.txt written; the checkpoint then deleted."""
+    from k3m_tpu_torch import kernels, train_concap_struc as legacy
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    run = legacy.main(argv)
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    log(f"{what}: launches {counts} expected {expected}")
+    for name, want in expected.items():
+        if counts[name] != want or counts[name] == 0:
+            raise AssertionError(f"{what}: {name}: {counts[name]} launches, expected {want}")
+    (hist,) = run["history"]
+    for i, losses in enumerate(hist["step_losses"]):
+        if not all(math.isfinite(v) for v in losses.values()):
+            raise AssertionError(f"{what} step {i}: non-finite losses {losses}")
+    out_dir = Path(argv[argv.index("--output_dir") + 1])
+    args_part, config_part = (out_dir / "hyperparamter.txt").read_text().split("\n\n")
+    if not (json.loads(args_part)["train_batch_size"] == TRAIN_BATCH
+            and json.loads(config_part)["with_coattention"]):
+        raise AssertionError(f"{what}: hyperparamter.txt does not hold the args and config")
+    ckpt = Path(hist["checkpoint_path"])
+    if not ((ckpt / "state.pt").exists() and (ckpt / "pytorch_model.bin").exists()):
+        raise AssertionError(f"{what}: no epoch checkpoint in {ckpt}")
+    shutil.rmtree(ckpt)
+    return run, hist, counts, peak
+
+
+def legacy_kernel_rows(card):
+    """Each kernel against its plain version at the legacy CLI's default
+    shapes (title 36, pv 128, 20 pvs, 36 RoIs + 1) at batch 96, as phase 3
+    holds them: #3/#4/#5 in bf16 at rate 0.1 and in fp32 at rate 0, forward
+    and backward (planted faults rejected at rate 0.1); #1/#2 on the rows of
+    each stream, fp32 and bf16, with and without a residual; timed with
+    bound and library call (SDPA and its backward; two SDPA calls for #5)."""
+    f32, bf16 = torch.float32, torch.bfloat16
+    B = TRAIN_BATCH
+    ln = ((B * 36, 768, "title36"), (B * 128, 768, "pv128"), (B * 37, 1024, "image37"))
+    rows = []
+    kernel_phase_layernorm(card, rows, cases=[(B, shape, ((f32, f32), (bf16, bf16)))
+                                              for shape in ln])
+    kernel_phase_layernorm_bwd(card, rows, cases=[(B, shape, (f32, bf16)) for shape in ln])
+    cases = [(B, f32, 0.0), (B, bf16, 0.1)]
+    kernel_phase_attention(card, rows, cases=cases, shapes=LEGACY_ATTN_SHAPES)
+    kernel_phase_biattention(card, rows, cases=cases, shapes=LEGACY_BIATTN_SHAPES)
+    kernel_phase_attention_bwd(card, rows, runs=((B, (f32,), (0.0,)), (B, (bf16,), (0.1,))),
+                               attn_shapes=LEGACY_ATTN_SHAPES, bi_shapes=LEGACY_BIATTN_SHAPES)
+    torch.cuda.empty_cache()
+    return rows
+
+
+def phase_legacy_train(card):
+    """(a) The README's quick-start command through the port's legacy CLI at
+    full width: `python -m k3m_tpu_torch.train_concap_struc --do_train
+    --do_eval --train_batch_size 96 --max_seq_length 50 --max_seq_length_pv
+    256 --max_num_pv 30 --bf16` on phase 6's 864 records (36 boxes each) and
+    a valid sibling of LEGACY_VALID, the default config, random weights
+    from SEED: launch counts of 9 steps and 2 eval forwards, losses finite,
+    hyperparamter.txt and the epoch checkpoint; samples/s, step ms, peak
+    memory, device busy ms of one more profiled step. Then the first 3
+    steps of this CLI and of `k3m_tpu_torch.pretrain` with the matching
+    flags on the same records, under torch.use_deterministic_algorithms:
+    losses and parameters bit for bit. (b) The CLI's default shapes
+    (36/128/20) at batch 96 for 3 steps: launch counts, then every kernel
+    held at these shapes (legacy_kernel_rows). (c) A raw TSV of 96 rows
+    with a valid sibling: converted by find_records, one step; a second run
+    reuses the conversion."""
+    from k3m_tpu_torch import kernels, pretrain
+    from k3m_tpu_torch.config import K3MConfig
+    cfg = K3MConfig.from_json_file(str(BERT))
+    res = {}
+
+    # (a) the README command
+    data = WORK / "legacy_data"
+    data.mkdir(parents=True, exist_ok=True)
+    os.symlink(WORK / "pretrain_data" / "train_feat.k3mr", data / "train_feat.k3mr")
+    write_pretrain_records(data / "valid_feat.k3mr", LEGACY_VALID, seed=SEED + 3)
+    expected = _plus(expected_train_launches(cfg, TRAIN_STEPS),
+                     expected_eval_launches(cfg, LEGACY_VALID // 8))
+    run, hist, counts, peak = _legacy_run(
+        _legacy_argv(data, WORK / "legacy_out", "--do_train", "--do_eval", *_readme_shapes()),
+        expected, "legacy_train (a)")
+    if len(hist["step_seconds"]) != TRAIN_STEPS or not math.isfinite(hist["val_loss"]):
+        raise AssertionError(f"legacy_train (a): {len(hist['step_seconds'])} steps, "
+                             f"val_loss {hist['val_loss']}")
+    timed = hist["step_seconds"][1:]
+    samples_per_s = sum(hist["step_samples"][1:]) / sum(timed)
+    step_ms = [1e3 * t for t in timed]
+    log(f"legacy_train (a): the README command, {TRAIN_STEPS} steps of {TRAIN_BATCH} at "
+        f"50/256/30/36 (bert_base_6layer_6conect, bf16): {samples_per_s:.2f} samples/s over "
+        f"steps 2-{TRAIN_STEPS}, step ms mean {sum(step_ms) / len(step_ms):.2f} min "
+        f"{min(step_ms):.2f} max {max(step_ms):.2f} (first "
+        f"{1e3 * hist['step_seconds'][0]:.2f}); val_loss {hist['val_loss']:.4f}; peak memory "
+        f"{peak:.2f} GiB | {card}")
+    trainer = run["trainer"]
+    batch = trainer.stage(next(iter(_pretrain_loader(data / "train_feat.k3mr", cfg,
+                                                     TRAIN_BATCH))))
+    prof = profile_device(lambda: trainer.train_step(batch), card,
+                          f"bf16 legacy train step of {TRAIN_BATCH}", n=1)
+    log_busy_share("legacy_train (a)", prof["busy_ms"], step_ms, card)
+    res["readme"] = dict(launches=counts, expected=expected, samples_per_s=samples_per_s,
+                         step_ms=step_ms, first_step_ms=1e3 * hist["step_seconds"][0],
+                         peak_gib=peak, val_loss=hist["val_loss"],
+                         step_losses=hist["step_losses"], profile=prof)
+    del run, trainer, batch
+    torch.cuda.empty_cache()
+
+    # the first 3 steps of the legacy CLI and of the pretraining CLI
+    cmp_data = WORK / "legacy_cmp_data"
+    write_pretrain_records(cmp_data / "train_feat.k3mr", LEGACY_CMP_STEPS * TRAIN_BATCH,
+                           seed=SEED + 4)
+    plain_argv = ["--data_dir", str(cmp_data), "--output_dir", str(WORK / "legacy_cmp_p"),
+                  "--file_name", "{}_feat.k3mr", "--config_file", BERT.name, "--use_image",
+                  "--model_name", "bert-base-chinese", "--num_negative_image", "255",
+                  "--num_negative_pv", str(cfg.num_negative_pv), "--margin", str(cfg.margin),
+                  "--train_batch_size", str(TRAIN_BATCH), "--bf16", "--seed", str(SEED),
+                  "--num_train_epochs", "1", "--log_steps", "1", *_readme_shapes()]
+    torch.use_deterministic_algorithms(True)
+    try:
+        a, ha, _, _ = _legacy_run(_legacy_argv(cmp_data, WORK / "legacy_cmp_l", "--do_train",
+                                               *_readme_shapes()),
+                                  expected_train_launches(cfg, LEGACY_CMP_STEPS),
+                                  "legacy_train (a) legacy CLI, 3 steps")
+        params_a = {k: v.detach().clone() for k, v in a["trainer"].model.state_dict().items()}
+        config_a = a["trainer"].config.to_dict()
+        del a
+        torch.cuda.empty_cache()
+        kernels.reset_launch_counts()
+        b = pretrain.main(plain_argv)
+        torch.cuda.synchronize()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    (hb,) = b["history"]
+    shutil.rmtree(hb["checkpoint_path"])
+    unequal = [k for k, v in b["trainer"].model.state_dict().items()
+               if not torch.equal(v, params_a[k])]
+    if (ha["step_losses"] != hb["step_losses"] or unequal
+            or b["trainer"].config.to_dict() != config_a):
+        raise AssertionError(f"legacy_train (a): the legacy CLI's first {LEGACY_CMP_STEPS} "
+                             f"steps differ from k3m_tpu_torch.pretrain's: losses "
+                             f"{ha['step_losses']} against {hb['step_losses']}; "
+                             f"{len(unequal)} parameters differ")
+    log(f"legacy_train (a): the first {LEGACY_CMP_STEPS} steps of the legacy CLI and of "
+        f"k3m_tpu_torch.pretrain (same records, config, flags and seed, deterministic "
+        f"algorithms): losses and all {len(params_a)} parameters bit for bit equal")
+    res["against_pretrain"] = dict(steps=LEGACY_CMP_STEPS, losses=ha["step_losses"],
+                                   parameters=len(params_a))
+    del b, params_a
+    torch.cuda.empty_cache()
+
+    # (b) the CLI's default shapes
+    run, hist, counts, peak = _legacy_run(
+        _legacy_argv(cmp_data, WORK / "legacy_defaults", "--do_train"),
+        expected_train_launches(cfg, LEGACY_CMP_STEPS), "legacy_train (b)")
+    timed = hist["step_seconds"][1:]
+    res["defaults"] = dict(launches=counts, step_losses=hist["step_losses"], peak_gib=peak,
+                           samples_per_s=sum(hist["step_samples"][1:]) / sum(timed),
+                           step_ms=[1e3 * t for t in timed])
+    log(f"legacy_train (b): {LEGACY_CMP_STEPS} steps of {TRAIN_BATCH} at the CLI's defaults "
+        f"36/128/20/36: {res['defaults']['samples_per_s']:.2f} samples/s over steps 2-"
+        f"{LEGACY_CMP_STEPS}, peak memory {peak:.2f} GiB | {card}")
+    del run
+    torch.cuda.empty_cache()
+    res["kernel_rows"] = legacy_kernel_rows(card)
+
+    # (c) a raw TSV with a valid sibling, converted once
+    from k3m_tpu_torch.tokenization import build_synthetic_vocab
+    raw = WORK / "legacy_raw"
+    raw.mkdir(parents=True, exist_ok=True)
+    rng, vocab = np.random.default_rng(SEED + 5), build_synthetic_vocab()
+    for name, n in (("train_raw.tsv", TRAIN_BATCH), ("valid_raw.tsv", 8)):
+        with open(raw / name, "w", encoding="utf-8") as f:
+            for i in range(n):
+                it = _synthetic_item(rng, vocab, i, n_boxes=0)
+                f.write(f"{name[:5]}{i}\t{it['title']}\thttp://img.example/{i}.jpg\t"
+                        f"{it['pv'].replace(':', '#:#')}\t{it['category']}\n")
+    expected = _plus(expected_train_launches(cfg, 1), expected_eval_launches(cfg, 1))
+    stamps = []
+    for k in range(2):
+        run, hist, counts, _ = _legacy_run(
+            _legacy_argv(raw, WORK / f"legacy_raw_out{k}", "--do_train", "--do_eval",
+                         file_name="train_raw.tsv"),
+            expected, f"legacy_train (c) run {k + 1}")
+        if len(hist["step_seconds"]) != 1 or not math.isfinite(hist["val_loss"]):
+            raise AssertionError(f"legacy_train (c): {len(hist['step_seconds'])} steps")
+        stamps.append([os.stat(raw / f"{n}.k3mr").st_mtime_ns
+                       for n in ("train_raw.tsv", "valid_raw.tsv")])
+        del run
+        torch.cuda.empty_cache()
+    if stamps[0] != stamps[1]:
+        raise AssertionError("legacy_train (c): the second run converted the TSV again")
+    log(f"legacy_train (c): a raw TSV of {TRAIN_BATCH} rows and its valid sibling converted "
+        f"once by find_records, one step and the validation on each of two runs, losses "
+        f"finite, the conversion reused")
+    res["raw"] = dict(launches=counts, expected=expected)
+    res["per_step"] = expected_train_launches(cfg, 1)
+    for d in ("legacy_data", "legacy_cmp_data", "legacy_raw", "legacy_out", "legacy_cmp_l",
+              "legacy_cmp_p", "legacy_defaults", "legacy_raw_out0", "legacy_raw_out1"):
+        shutil.rmtree(WORK / d, ignore_errors=True)
+    return res
+
+
 # ------------------------------------------------------------------ main
 
 SUMMARY = {
@@ -2986,14 +3417,25 @@ def _row(krows, name, shape, dtype, rate, batch):
                 None)
 
 
-def summarize(krows, paths):
+LEGACY_SUMMARY = {
+    # name: the heaviest row at the legacy CLI's default shapes: shape part, dtype, rate
+    "fused_layernorm": ("pv128", "bfloat16->bfloat16", None),
+    "layernorm_bwd": ("pv128", "bfloat16", None),
+    "fused_attention": ("L128", "bfloat16", 0.1),
+    "attention_bwd": ("L128 D64", "bfloat16", 0.1),
+    "fused_biattention": ("L37<->128", "bfloat16", 0.1),
+}
+
+
+def summarize(krows, paths, legacy):
     """One entry per kernel: the row of its heaviest main-path shape (the
     pretraining batch), `launches` from the pretraining run, the launches
     of every path's run (serving, pretraining, finetune, phases 11-14, each
-    rank of phases 17 and 19,
-    the extraction, which runs none of them),
-    and, where phase 3 has one, the row of the same shape at the finetune
-    batch."""
+    rank of phases 17 and 19, the extractions of phases 15 and 20, which
+    run none of them, and the legacy CLI's runs of phase 21),
+    where phase 3 has one, the row of the same shape at the finetune
+    batch, and the row of phase 21 at the legacy CLI's default shapes with
+    that CLI's launches a step."""
     summary = []
     for name, (src, replaces, shape, dtype, rate) in SUMMARY.items():
         row = _row(krows, name, shape, dtype, rate, TRAIN_BATCH)
@@ -3004,11 +3446,13 @@ def summarize(krows, paths):
                      plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
                      bound_by=row["bound_by"], library_ms=row["library_ms"],
                      shape=row["shape"], dtype=row["dtype"], rate=row.get("rate"))
+        keys = ("shape", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
         ft = _row(krows, name, shape, dtype, rate, FT_BATCH)
         if ft is not None:
-            entry["finetune_row"] = {k: ft[k] for k in (
-                "shape", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-                "library_ms")}
+            entry["finetune_row"] = {k: ft[k] for k in keys}
+        lg = _row(legacy["kernel_rows"], name, *LEGACY_SUMMARY[name], TRAIN_BATCH)
+        entry["legacy_row"] = dict({k: lg[k] for k in keys},
+                                   launches_per_step=legacy["per_step"][name])
         summary.append(entry)
     return summary
 
@@ -3073,12 +3517,17 @@ def main(argv):
     dp_train = run("dp_train", phase_dp_train, card)
     dp_cross = run("dp_crosscheck", phase_dp_crosscheck, card)
     dp_predict = run("dp_predict", phase_dp_predict, card)
+    legacy_extract = run("legacy_extract", phase_legacy_extract, card)
+    legacy = run("legacy_train", phase_legacy_train, card)
     dp_paths = {f"dp_train_{k}": dict(launches=v) for k, v in dp_train["launches"].items()}
     dp_paths.update({f"dp_predict_{k}": dict(launches=v)
                      for k, v in dp_predict["launches"].items()})
     summary = summarize(krows, dict(serve=slice_res, pretrain=train_res, finetune=ft_res,
                                     resume=resume, chain=chain, wire=wire, cache=cache,
-                                    extract=extract, **dp_paths))
+                                    extract=extract, **dp_paths, legacy_extract=legacy_extract,
+                                    legacy_readme=legacy["readme"],
+                                    legacy_defaults=legacy["defaults"],
+                                    legacy_raw=legacy["raw"]), legacy)
     OUT_JSON.parent.mkdir(parents=True, exist_ok=True)
     OUT_JSON.write_text(json.dumps(dict(card=card, build_s=build_s, ptxas=ptxas,
                                         kernels=krows, dropout_masks=masks,
@@ -3090,7 +3539,8 @@ def main(argv):
                                         cache=cache, extract=extract,
                                         extract_crosscheck=extract_cross,
                                         dp_train=dp_train, dp_crosscheck=dp_cross,
-                                        dp_predict=dp_predict, phase_seconds=seconds,
+                                        dp_predict=dp_predict, legacy_extract=legacy_extract,
+                                        legacy_train=legacy, phase_seconds=seconds,
                                         summary=summary), indent=1))
     log(f"phase seconds {({k: round(v, 1) for k, v in seconds.items()})}, "
         f"{sum(seconds.values()):.1f} s in all")

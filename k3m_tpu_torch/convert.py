@@ -4,10 +4,17 @@
     package (e.g. `trunk/encoder/layer_0/attention/query/kernel`) -> the
     port's state-dict names (`encoder.layer.0.attention.self.query.weight`),
     with Dense kernels transposed to torch's [out, in].
-  * `load_pretrained(model, path, strict=...)`: a reference or HF
-    checkpoint into a model, with the JAX package's strict-load decision;
-    `load_pretrained_bert_paths(path)`: the weights such a checkpoint
-    starts, which train at 0.1x the LR;
+  * `load_pretrained(model, path, strict=..., require_complete=...)`: a
+    reference or HF checkpoint (a torch file or a TF1 checkpoint,
+    `load_tf_state_dict`) into a model, with the JAX package's strict-load
+    decision; `load_pretrained_bert_paths(path)`: the weights such a torch
+    checkpoint starts, which train at 0.1x the LR;
+  * `resize_word_embeddings(model, n)`: the tied word table and the MLM
+    decoder bias grown or shrunk, new rows drawn as the JAX package draws
+    them;
+  * `save_reference_checkpoint(model, path, bert_prefix)` and
+    `python -m k3m_tpu_torch.convert export`: the port's weights under the
+    reference's torch names, as the JAX package's export writes them;
   * `load_model_file(model, path)`: a model file the port wrote (a
     checkpoint's `pytorch_model.bin`, or the `model` entry of its
     `state.pt`) into a model, deciding as the JAX package's
@@ -23,8 +30,10 @@ table is the JAX package's reference_to_flat (k3m_tpu/train/convert.py:
 
 from __future__ import annotations
 
+import argparse
 import functools
 import logging
+import os
 import re
 from typing import Dict, Set, Tuple
 
@@ -278,6 +287,56 @@ def _is_full_state(sd) -> bool:
     return isinstance(sd, dict) and "model" in sd and "optimizer" in sd
 
 
+def load_tf_state_dict(ckpt_path: str) -> Dict[str, np.ndarray]:
+    """A TF1-style BERT checkpoint as a torch-layout state dict that
+    reference_to_flat reads: a copy of the JAX package's load_tf_state_dict
+    (k3m_tpu/train/convert.py:43-89; reference `load_tf_weights_in_bert`,
+    vilbert_k3m/vilbert_k3m.py:56-116). Names: `/` -> `.`, `layer_N` ->
+    `layer.N`, `kernel` -> `weight` (transposed to torch [out, in]),
+    `gamma`/`beta` -> `weight`/`bias`, `output_bias`/`output_weights` ->
+    `bias`/`weight`, a trailing `*_embeddings` table gains `.weight`;
+    optimizer slots (adam_v/adam_m) and `global_step` are skipped.
+    tensorflow is imported here, at the call, as the JAX package does."""
+    import tensorflow as tf
+
+    reader = tf.train.load_checkpoint(ckpt_path)
+    sd: Dict[str, np.ndarray] = {}
+    for name, _ in tf.train.list_variables(ckpt_path):
+        parts = name.split("/")
+        if any(p in ("adam_v", "adam_m", "AdamWeightDecayOptimizer",
+                     "AdamWeightDecayOptimizer_1", "global_step") for p in parts):
+            continue
+        arr = np.asarray(reader.get_tensor(name))
+        mapped, transpose = [], False
+        for p in parts:
+            m = re.fullmatch(r"([A-Za-z_]+)_(\d+)", p)
+            if m and m.group(1) in ("layer", "v_layer", "c_layer", "c_layer_pv_v",
+                                    "c_layer_pv_t"):
+                mapped.extend([m.group(1), m.group(2)])
+                continue
+            if p == "kernel":
+                transpose = True
+                mapped.append("weight")
+            elif p in ("gamma", "output_weights"):
+                mapped.append("weight")
+            elif p in ("beta", "output_bias"):
+                mapped.append("bias")
+            else:
+                mapped.append(p)
+        if parts[-1].endswith("_embeddings"):
+            mapped.append("weight")
+        if transpose and arr.ndim == 2:
+            arr = arr.T
+        sd[".".join(mapped)] = arr
+    return sd
+
+
+def is_tf_checkpoint(path: str) -> bool:
+    """True for a TF checkpoint prefix (`<path>.index` exists) or an
+    `.index` path (k3m_tpu/train/convert.py:92-98)."""
+    return path.endswith(".index") or os.path.exists(path + ".index")
+
+
 def _read_reference(path: str) -> Dict[str, torch.Tensor]:
     """A reference or HF torch checkpoint's tensors by name (`module.` and
     a `model_state_dict` wrapper removed). A trainer's full state is
@@ -337,20 +396,28 @@ def load_model_file(model: torch.nn.Module, path: str) -> Set[str]:
 
 
 def load_pretrained(model: torch.nn.Module, path: str, *, strict: bool = False,
+                    require_complete: bool = False,
                     allowed_unconsumed: Tuple[str, ...] = (r"cls\.seq_relationship\.",)
                     ) -> Set[str]:
-    """Load a reference or HF torch checkpoint into `model`, deciding as the
-    JAX package's load_pretrained_into_params (k3m_tpu/train/convert.py:
-    316-363) decides: a source tensor is consumed when reference_to_flat
-    maps it to a weight the model has, with the same shape; a model weight
-    the checkpoint does not set keeps its value (a partial HF load, a head
-    the checkpoint lacks) and is logged, never raised. Under `strict`, a
-    source tensor left unconsumed (a renamed key, a rogue extra, a shape
-    mismatch) raises ValueError, before the model is touched, unless
-    `_IGNORABLE_SOURCE_RE` or one of `allowed_unconsumed` matches it.
-    A trainer's full state raises ValueError (`_read_reference`).
-    Returns the names of the weights set."""
-    sd = _read_reference(path)
+    """Load a reference or HF checkpoint into `model`, a torch file or a TF1
+    checkpoint prefix (is_tf_checkpoint; read by load_tf_state_dict),
+    deciding as the JAX package's load_pretrained_into_params
+    (k3m_tpu/train/convert.py:316-363) decides: a source tensor is consumed
+    when reference_to_flat maps it to a weight the model has, with the same
+    shape; a model weight the checkpoint does not set keeps its value (a
+    partial HF load, a head the checkpoint lacks) and is logged. Under
+    `strict`, a source tensor left unconsumed (a renamed key, a rogue
+    extra, a shape mismatch) raises ValueError unless `_IGNORABLE_SOURCE_RE`
+    or one of `allowed_unconsumed` matches it; under `require_complete`, so
+    does a model weight the checkpoint leaves unset (a full reference K3M
+    file must set every one; a partial HF load must not ask for this). Both
+    raise before the model is touched. A trainer's full state raises
+    ValueError (`_read_reference`). Returns the names of the weights set."""
+    if is_tf_checkpoint(path):
+        sd = {k: torch.from_numpy(np.ascontiguousarray(v))
+              for k, v in load_tf_state_dict(path.replace(".index", "")).items()}
+    else:
+        sd = _read_reference(path)
     own = model.state_dict()
     table = _flax_to_torch()
     loaded, consumed = {}, set()
@@ -374,8 +441,110 @@ def load_pretrained(model: torch.nn.Module, path: str, *, strict: bool = False,
             raise ValueError(f"strict load of {path}: {len(leftovers)} source tensors not "
                              f"consumed (renamed key / layout drift / shape mismatch): "
                              f"{leftovers[:8]}")
-    model.load_state_dict(loaded, strict=False)
     missing = [k for k in own if k not in loaded]
+    if require_complete and missing:
+        raise ValueError(f"checkpoint {path} left {len(missing)} params uninitialized: "
+                         f"{missing[:8]}")
+    model.load_state_dict(loaded, strict=False)
     logger.info("loaded %d tensors from %s; %d model weights keep their values%s",
                 len(loaded), path, len(missing), f" (e.g. {missing[:3]})" if missing else "")
     return set(loaded)
+
+
+def resize_word_embeddings(model: torch.nn.Module, new_vocab_size: int, seed: int = 0,
+                           initializer_range: float = 0.02) -> torch.nn.Module:
+    """Grow or shrink the tied word-embedding table and the MLM decoder
+    bias of `model` to `new_vocab_size`, in place: the port's copy of the
+    JAX package's resize_word_embeddings (k3m_tpu/train/convert.py:373-414;
+    reference `_get_resized_embeddings`, vilbert_k3m/utils.py:959-1010).
+    The first min(old, new) rows are kept, new table rows are drawn from
+    N(0, initializer_range) by `np.random.default_rng(seed)` as the JAX
+    package draws them (one draw of the whole new table per table, in
+    parameter order), and new bias rows are zero. The optimizer and the
+    config's vocab_size are the caller's to rebuild."""
+    rng = np.random.default_rng(seed)
+    tables = [(n, m) for n, m in model.named_modules()
+              if n.endswith("word_embeddings") and isinstance(m, torch.nn.Embedding)]
+    if not tables:
+        raise ValueError("no word_embeddings table found")
+    for _, emb in tables:
+        old = emb.weight.detach().cpu().numpy()
+        n, h = old.shape
+        new = rng.normal(0.0, initializer_range, (new_vocab_size, h)).astype(old.dtype)
+        new[:min(n, new_vocab_size)] = old[:min(n, new_vocab_size)]
+        emb.weight = torch.nn.Parameter(torch.from_numpy(new).to(emb.weight.device))
+        emb.num_embeddings = new_vocab_size
+    for name, p in list(model.named_parameters()):
+        if not name.endswith("predictions.bias"):
+            continue
+        owner = model.get_submodule(name.rsplit(".", 1)[0])
+        old = p.detach().cpu().numpy()
+        new = np.zeros((new_vocab_size,), old.dtype)
+        new[:min(old.shape[0], new_vocab_size)] = old[:min(old.shape[0], new_vocab_size)]
+        owner.bias = torch.nn.Parameter(torch.from_numpy(new).to(p.device))
+    return model
+
+
+_TRUNK_TORCH_PREFIXES = ("embeddings.", "encoder.", "v_embeddings.")
+
+
+def save_reference_checkpoint(model_or_sd, path: str, bert_prefix: str = "") -> int:
+    """Write a model (or its state dict) as a reference-compatible torch
+    .bin under the names the JAX package's save_reference_checkpoint
+    (k3m_tpu/train/convert.py:485-539, flat_to_reference) writes for the
+    same weights (the reference's per-epoch `torch.save(model.state_dict(),
+    ...)`, train_concap_struc.py:691-705): every weight reference_to_flat
+    maps, fp32; `bert_prefix` ("bert." for HF-style names) before the
+    trunk's names; the tied MLM decoder also under
+    `cls.predictions.decoder.weight`, as torch's state_dict holds a tied
+    weight. Weights no reference name maps are not written (logged).
+    Returns the count of tensors written."""
+    sd = model_or_sd.state_dict() if isinstance(model_or_sd, torch.nn.Module) else model_or_sd
+    names = {sym.name for sym in _flax_to_torch().values()}
+    out: Dict[str, torch.Tensor] = {}
+    unmapped = []
+    for name, value in sd.items():
+        if name not in names:
+            unmapped.append(name)
+            continue
+        out[bert_prefix + name if name.startswith(_TRUNK_TORCH_PREFIXES) else name] = \
+            value.detach().float().cpu().contiguous()
+    if unmapped:
+        logger.info("%d weights without a reference name not exported (e.g. %s)",
+                    len(unmapped), unmapped[:3])
+    emb = out.get(bert_prefix + "embeddings.word_embeddings.weight")
+    if emb is not None and "cls.predictions.transform.dense.weight" in out:
+        out["cls.predictions.decoder.weight"] = emb
+    torch.save(out, path)
+    logger.info("exported %d tensors -> %s", len(out), path)
+    return len(out)
+
+
+def main(argv=None) -> int:
+    """Checkpoint conversion CLI (k3m_tpu/train/convert.py:542-570):
+
+        python -m k3m_tpu_torch.convert export --params epoch_0/pytorch_model.bin \\
+            --out pytorch_model.bin [--bert_prefix bert.]
+
+    `--params` is a model file the port wrote (`pytorch_model.bin`, or a
+    trainer's full `state.pt`, read through its `model` entry)."""
+    ap = argparse.ArgumentParser(prog="python -m k3m_tpu_torch.convert")
+    sub = ap.add_subparsers(dest="cmd", required=True)
+    ex = sub.add_parser("export", help="the port's model file -> reference torch .bin")
+    ex.add_argument("--params", required=True,
+                    help="pytorch_model.bin or state.pt written by the port")
+    ex.add_argument("--out", required=True, help="output pytorch_model.bin")
+    ex.add_argument("--bert_prefix", default="",
+                    help='"" for K3M tri-model names (default), "bert." for HF-style')
+    args = ap.parse_args(argv)
+    sd = torch.load(args.params, map_location="cpu", weights_only=True)
+    if _is_full_state(sd):
+        sd = sd["model"]
+    n = save_reference_checkpoint(sd, args.out, bert_prefix=args.bert_prefix)
+    print(f"exported {n} tensors -> {args.out}")
+    return n
+
+
+if __name__ == "__main__":
+    logging.basicConfig(level=logging.INFO)
+    main()

@@ -35,6 +35,8 @@ import os
 import time
 from pathlib import Path
 
+import numpy as np
+
 logger = logging.getLogger(__name__)
 
 CONFIG_DIR = Path(__file__).resolve().parent / "configs"
@@ -144,18 +146,6 @@ def main(argv=None):
 
 def _run(args, world):
     from k3m_tpu_torch.config import K3MConfig
-    from k3m_tpu_torch.convert import (
-        load_model_file, load_pretrained, load_pretrained_bert_paths,
-    )
-    from k3m_tpu_torch.data.pipeline import PretrainLoader
-    from k3m_tpu_torch.data.preprocess import ShapeSpec
-    from k3m_tpu_torch.model.pretrain import build_pretraining_model
-    from k3m_tpu_torch.tokenization import get_tokenizer
-    from k3m_tpu_torch.train.pretrain_loop import PretrainTrainer
-    from k3m_tpu_torch.train.state import CheckpointManager
-
-    device = world.device
-    os.makedirs(args.output_dir, exist_ok=True)
     config = K3MConfig.from_json_file(str(find_config(args)))
     overrides = dict(
         if_pre_sampling=args.if_pre_sampling, objective=args.objective,
@@ -172,6 +162,41 @@ def _run(args, world):
         overrides["fixed_t_layer"] = args.freeze
     config = config.replace(**overrides)
 
+    def path(split):
+        name = args.file_name.format(split) if "{}" in args.file_name else args.file_name
+        return os.path.join(args.data_dir, name)
+
+    valid = path("valid") if args.do_eval and os.path.exists(path("valid")) else None
+    return run_pretraining(args, config, world, path("train"), valid,
+                           save_steps=args.save_steps or None)
+
+
+def run_pretraining(args, config, world, train_path: str, valid_path=None, *,
+                    do_train: bool = True, save_steps=None) -> dict:
+    """What both pretraining CLIs (this one and `train_concap_struc`) do
+    alike, on the flags their parsers share: the loaders (each rank's rows
+    of the global batch from its shard of the records; validation on
+    `valid_path` where given), the step counts (steps_per_epoch =
+    max(batches // gradient_accumulation_steps, 1), warmup the proportion
+    of int(steps_per_epoch * epochs)), the model from `--seed`, the loads
+    (`--pretrained_model_path` with its 0.1x-LR set, `--file_state_dict`),
+    the trainer, resume from `--file_checkpoint` (an epoch, or mid-epoch
+    from a step checkpoint), then `fit` with a checkpoint per epoch in
+    `--output_dir`. Without `do_train`, the mean of each loss of
+    `eval_step` over the validation loader instead (`eval`). Returns
+    {history, eval, trainer, producer, resumed, world}."""
+    from k3m_tpu_torch.convert import (
+        load_model_file, load_pretrained, load_pretrained_bert_paths,
+    )
+    from k3m_tpu_torch.data.pipeline import PretrainLoader
+    from k3m_tpu_torch.data.preprocess import ShapeSpec
+    from k3m_tpu_torch.model.pretrain import build_pretraining_model
+    from k3m_tpu_torch.tokenization import get_tokenizer
+    from k3m_tpu_torch.train.pretrain_loop import PretrainTrainer
+    from k3m_tpu_torch.train.state import CheckpointManager
+
+    device = world.device
+    os.makedirs(args.output_dir, exist_ok=True)
     tokenizer = get_tokenizer(args.vocab_file, config.vocab_size)
     shapes = ShapeSpec(max_seq_len=args.max_seq_length,
                        max_seq_len_pv=args.max_seq_length_pv,
@@ -180,20 +205,16 @@ def _run(args, world):
                        v_feature_size=config.v_feature_size,
                        v_target_size=config.v_target_size)
 
-    def path(split):
-        name = args.file_name.format(split) if "{}" in args.file_name else args.file_name
-        return os.path.join(args.data_dir, name)
-
     # each rank's rows of the global batch, from its shard of the records
     shard = dict(num_shards=world.size, shard_index=world.rank)
-    train_loader = PretrainLoader(path("train"), tokenizer, shapes,
+    train_loader = PretrainLoader(train_path, tokenizer, shapes,
                                   batch_size=world.local_rows(args.train_batch_size,
                                                               "--train_batch_size"),
                                   shuffle=True, seed=args.seed,
                                   visual_target=args.visual_target, **shard)
     val_loader = None
-    if args.do_eval and os.path.exists(path("valid")):
-        val_loader = PretrainLoader(path("valid"), tokenizer, shapes,
+    if valid_path is not None:
+        val_loader = PretrainLoader(valid_path, tokenizer, shapes,
                                     batch_size=max(args.eval_batch_size // world.size, 1),
                                     shuffle=False, seed=args.seed,
                                     visual_target=args.visual_target, **shard)
@@ -241,16 +262,23 @@ def _run(args, world):
             logger.info("resumed from %s at epoch %d step %d (%.2f s)", args.file_checkpoint,
                         start_epoch, start_step, resumed["seconds"])
 
-    history = trainer.fit(train_loader, val_loader,
-                          num_epochs=int(args.num_train_epochs),
-                          start_epoch=start_epoch, start_step=start_step,
-                          log_steps=args.log_steps, save_steps=args.save_steps or None,
-                          checkpoint_dir=args.output_dir)
-    logger.info("training history: %s", [
-        {k: v for k, v in h.items() if not k.startswith("step_")} for h in history])
-    return dict(history=history, trainer=trainer, producer=train_loader.producer,
-                resumed=resumed, world=dict(rank=world.rank, size=world.size,
-                                            backend=world.backend))
+    out = dict(history=None, eval=None, trainer=trainer, producer=train_loader.producer,
+               resumed=resumed, world=dict(rank=world.rank, size=world.size,
+                                           backend=world.backend))
+    if do_train:
+        out["history"] = trainer.fit(train_loader, val_loader,
+                                     num_epochs=int(args.num_train_epochs),
+                                     start_epoch=start_epoch, start_step=start_step,
+                                     log_steps=args.log_steps, save_steps=save_steps,
+                                     checkpoint_dir=args.output_dir)
+        logger.info("training history: %s", [
+            {k: v for k, v in h.items() if not k.startswith("step_")}
+            for h in out["history"]])
+    elif val_loader is not None:
+        vals = [{k: float(v) for k, v in trainer.eval_step(b).items()} for b in val_loader]
+        out["eval"] = {k: float(np.mean([v[k] for v in vals])) for k in vals[0]}
+        logger.info("eval: %s", out["eval"])
+    return out
 
 
 if __name__ == "__main__":

@@ -5,6 +5,7 @@
     python3 chip_smoke.py --kernels-only   # phases 1-3 only, no result line
     python3 chip_smoke.py --profile        # also trace the serving forward
     python3 chip_smoke.py --dp-cards 4     # phase 17's finetune on 4 cards, alone
+    python3 chip_smoke.py --tp-cards 4     # --n_model pretraining on 4 cards, alone
 
 Phases, in order; any failure exits non-zero and no phase carries on past
 a failure:
@@ -27,7 +28,11 @@ a failure:
      plain versions (output, lse, mask words) at the edges of their tiles
      (lengths 1 to 256, D 64/96/128); time the kernel, the plain version
      and (where one PyTorch call computes the same function) the library
-     call; then the host's cost of one wrapper call;
+     call; then the host's cost of one wrapper call; then #3/#4/#5 at the
+     head counts of 2 and 4 model ranks (tensor parallelism: text 6/3
+     heads, image and co-attention 4/2) at batch 96, bf16 at rate 0.1 and
+     fp32 at rate 0, the rank's heads the last of the layer's, their mask
+     words bit for bit the head slice of the layer's mask (tp_kernel_rows);
   4. slice (serving): write 256 synthetic pair records at the full shapes
      of run_pred.sh and run `k3m_tpu_torch.finetune --do_pred --bf16` over
      them with the bert_base_6layer_6conect config (random weights from a
@@ -108,7 +113,7 @@ a failure:
      within 1e-4 of their scale); the discrete stages (stable top-k, the
      proposal NMS, the class NMS sweep) run on the CPU from the card's
      continuous tensors equal the card's index for index;
- 17. dp_train: phase 8's finetune (bf16, dropout 0.1, global batch 32, 9
+ 17. dp_train: phase 8's finetune (bf16, dropout 0.1, global batch 32, 3
      steps and the sweep) as one plain process and as a world of one over
      NCCL (torchrun's variables), side by side under
      torch.use_deterministic_algorithms, then as two ranks sharing the card
@@ -153,11 +158,28 @@ a failure:
      these rows), timed with bound and library call; (c) a raw TSV of 96
      rows with a valid sibling, converted once by find_records, one step,
      reused by a second run;
- 22. print the kernel summary line and the final device line.
+ 22. tp_crosscheck: two gloo ranks with --n_model 2 sharing the card
+     against one process on the card, fp32, dropout 0.1 with the step's
+     own draws: one pretraining step at full width (k3m_roberta_base,
+     global batch 4), the four losses and every gathered gradient to phase
+     7's limits; one finetune step (loss inner, batch 2) to phase 9's;
+ 23. tp_train: `k3m_tpu_torch.pretrain`, `finetune --do_train --do_eval
+     --do_pred` and `train_concap_struc`, each with --n_model 2 as two gloo
+     ranks sharing the card, bf16, full width, 3 steps at small global
+     batches (pretraining 16, finetune 8 pairs, legacy 16): both model
+     ranks report the same losses, each launches every
+     kernel the count the config gives, rank 0's model file has full
+     shapes and loads into a one-process model bit for bit, the predict
+     file equals phase 4's dump within 2^-6; step ms, the model-group
+     all-reduces' bytes and host ms a step, peak memory per rank;
+ 24. print the kernel summary line and the final device line.
 
-Phases 17-19 run their ranks as `python3 chip_smoke.py --dp-worker
-<spec>` processes (logs in chiprun_out/dp_*.log); a rank that exits
-non-zero, or a phase that outlives its timeout, fails the script.
+Phases 17-19 and 22-23 run their ranks as `python3 chip_smoke.py
+--dp-worker <spec>` processes (logs in chiprun_out/dp_*.log); a rank that
+exits non-zero, or a phase that outlives its timeout, fails the script.
+`--tp-cards N` runs `k3m_tpu_torch.pretrain` at full width and global
+batch 96 on one card, then on N NCCL ranks one per card with --n_model N
+(on 4 cards also 2 data x 2 model), alone (chiprun_out/tp_cards.json).
 
 Phases 11, 12 and 14 hold the kernel launch counts of their runs to what
 the config gives, as phases 6 and 8 do. Each phase's wall seconds are
@@ -575,29 +597,63 @@ BIATTN_SHAPES = ((37, 50, 128, "c_layer"), (37, 256, 128, "c_layer_pv_v"),
                  (256, 50, 96, "c_layer_pv_t"))
 
 
+def _head_key(H, key):
+    """(head0, heads_global) of a shape entry's optional tail: a model
+    rank's H heads among the layer's (tensor parallelism), else all H."""
+    return tuple(key) if key else (0, H)
+
+
+def _keep_mask(seed, B, H, Lq, Lk, rate, salt, key, tag):
+    """The plain Philox keep mask of heads head0 .. head0 + H - 1 of
+    heads_global (`key`); for a model rank's heads, also held bit for bit
+    to that slice of the whole layer's mask."""
+    from k3m_tpu_torch.kernels import philox_keep_mask_plain
+    if not rate:
+        return None
+    h0, hg = key
+    keep = philox_keep_mask_plain(seed, B, H, Lq, Lk, rate, salt, "cuda", head0=h0,
+                                  heads_global=hg)
+    if hg != H:
+        whole = philox_keep_mask_plain(seed, B, hg, Lq, Lk, rate, salt, "cuda")
+        if not torch.equal(keep, whole[:, h0:h0 + H]):
+            raise AssertionError(f"{tag}: the mask of heads {h0}..{h0 + H - 1} of {hg} is "
+                                 "not that slice of the layer's mask")
+        del whole
+    return keep
+
+
+def _key_tag(H, key):
+    h0, hg = key
+    return "" if hg == H else f" heads {h0}-{h0 + H - 1} of {hg}"
+
+
 def kernel_phase_attention(card, rows_out, cases=None, shapes=ATTN_SHAPES):
     """The forward kernel against attention_plain for each (batch, dtype,
     rate) of `cases` (by default attention_cases of every main-path batch)
-    at each (heads, length, D) of `shapes`."""
-    from k3m_tpu_torch.kernels import attention_plain, fused_attention, philox_keep_mask_plain
+    at each (heads, length, D[, head0, heads_global]) of `shapes`: a tail
+    places the H heads among the layer's, as a model rank runs them under
+    tensor parallelism."""
+    from k3m_tpu_torch.kernels import attention_plain, fused_attention
     from k3m_tpu_torch.kernels.attention import _forward
     g = torch.Generator(device="cuda").manual_seed(1)
     if cases is None:
         cases = list(attention_cases(FWD_BATCHES + (FT_BATCH,)))
     for B, dt, rate in cases:
-        for H, L, D, what in shapes:
+        for H, L, D, what, *key in shapes:
+            key = _head_key(H, key)
+            kw = dict(head0=key[0], heads_global=key[1])
             q, k, v = _qkv(B, L, H, D, dt, g)
             bias = _ragged_bias(B, L, g)
             seed = 11
-            keep = philox_keep_mask_plain(seed, B, H, L, L, rate, 0, "cuda") if rate else None
-            out = fused_attention(q, k, v, bias, dropout_rate=rate, seed=seed)
+            tag = f"B{B} L{L} D{D} {_dt_name(dt)} rate {rate}{_key_tag(H, key)}"
+            keep = _keep_mask(seed, B, H, L, L, rate, 0, key, tag)
+            out = fused_attention(q, k, v, bias, dropout_rate=rate, seed=seed, **kw)
             ref = attention_plain(q, k, v, bias, keep, rate)
-            out_l, lse, words = _forward(q, k, v, bias, rate, seed, for_backward=True)
+            out_l, lse, words = _forward(q, k, v, bias, rate, seed, for_backward=True, **kw)
             torch.cuda.synchronize()
             if not torch.equal(out, out_l):
                 raise AssertionError(f"fused_attention {what}: keeping lse and the mask "
                                      "changed the output")
-            tag = f"B{B} L{L} D{D} {_dt_name(dt)} rate {rate}"
             lse_ratio = _check_lse("fused_attention", tag, lse, q, k, bias, card)
             if words is not None:
                 _check_words("fused_attention", tag, words, keep, card)
@@ -607,10 +663,10 @@ def kernel_phase_attention(card, rows_out, cases=None, shapes=ATTN_SHAPES):
             # the mask words for the backward, serving (B64) keeps nothing
             train = B in TRAINING_BATCHES
             _record(rows_out, card, kernel="fused_attention", batch=B,
-                    shape=f"B{B} H{H} L{L} D{D} {what}", dtype=_dt_name(dt), rate=rate,
-                    max_abs_err=max_err(out, ref), tol=tolerance(ref, dt),
+                    shape=f"B{B} H{H} L{L} D{D} {what}{_key_tag(H, key)}", dtype=_dt_name(dt),
+                    rate=rate, max_abs_err=max_err(out, ref), tol=tolerance(ref, dt),
                     ms=graph_ms(lambda: _forward(q, k, v, bias, rate, seed,
-                                                 for_backward=train)),
+                                                 for_backward=train, **kw)),
                     timed_for_backward=train,
                     plain_ms=graph_ms(lambda: attention_plain(q, k, v, bias, keep, rate)),
                     library_ms=graph_ms(lambda: _sdpa(q, k, v, bias, rate)),
@@ -694,36 +750,37 @@ def forward_edge_check(card):
     return dict(cases=cases, worst_ratio=worst)
 
 
-def kernel_phase_biattention(card, rows_out, cases=None, shapes=BIATTN_SHAPES):
+def kernel_phase_biattention(card, rows_out, cases=None, shapes=BIATTN_SHAPES, heads=8):
     """The bi-attention kernel against biattention_plain, as
-    kernel_phase_attention, at each (L1, L2, D) of `shapes` (8 heads)."""
-    from k3m_tpu_torch.kernels import biattention_plain, fused_biattention, \
-        philox_keep_mask_plain
+    kernel_phase_attention, at each (L1, L2, D[, head0, heads_global]) of
+    `shapes` (`heads` heads)."""
+    from k3m_tpu_torch.kernels import biattention_plain, fused_biattention
     from k3m_tpu_torch.kernels.coattn import _forward
     g = torch.Generator(device="cuda").manual_seed(2)
-    H = 8
+    H = heads
     if cases is None:
         cases = list(attention_cases(FWD_BATCHES + (FT_BATCH,)))
     for B, dt, rate in cases:
-        for L1, L2, D, what in shapes:
+        for L1, L2, D, what, *key in shapes:
+            key = _head_key(H, key)
+            kw = dict(head0=key[0], heads_global=key[1])
             q1, k1, v1 = _qkv(B, L1, H, D, dt, g)
             q2, k2, v2 = _qkv(B, L2, H, D, dt, g)
             b1, b2 = _ragged_bias(B, L1, g), _ragged_bias(B, L2, g)
             args = (q1, k1, v1, b1, q2, k2, v2, b2)
             seed = 13
-            m1 = philox_keep_mask_plain(seed, B, H, L2, L1, rate, 0, "cuda") if rate else None
-            m2 = philox_keep_mask_plain(seed, B, H, L1, L2, rate, 7919, "cuda") \
-                if rate else None
-            drop = dict(dropout1=rate, dropout2=rate, seed=seed)
+            tag = f"B{B} L{L1}<->{L2} D{D} {_dt_name(dt)} rate {rate}{_key_tag(H, key)}"
+            m1 = _keep_mask(seed, B, H, L2, L1, rate, 0, key, tag)
+            m2 = _keep_mask(seed, B, H, L1, L2, rate, 7919, key, tag)
+            drop = dict(dropout1=rate, dropout2=rate, seed=seed, **kw)
             c1, c2 = fused_biattention(*args, **drop)
             r1, r2 = biattention_plain(*args, m1, m2, rate, rate)
             l_c1, l_c2, (lse1, w1), (lse2, w2) = _forward(*args, rate, rate, seed,
-                                                          for_backward=True)
+                                                          for_backward=True, **kw)
             torch.cuda.synchronize()
             if not (torch.equal(c1, l_c1) and torch.equal(c2, l_c2)):
                 raise AssertionError(f"fused_biattention {what}: keeping lse and the mask "
                                      "changed the output")
-            tag = f"B{B} L{L1}<->{L2} D{D} {_dt_name(dt)} rate {rate}"
             lse_ratio = max(
                 _check_lse("fused_biattention direction 1", tag, lse1, q2, k1, b1, card),
                 _check_lse("fused_biattention direction 2", tag, lse2, q1, k2, b2, card))
@@ -738,11 +795,12 @@ def kernel_phase_biattention(card, rows_out, cases=None, shapes=BIATTN_SHAPES):
                 _sdpa(q1, k2, v2, b2, rate)
             train = B in TRAINING_BATCHES      # timed as its path calls it
             _record(rows_out, card, kernel="fused_biattention", batch=B,
-                    shape=f"B{B} H{H} L{L1}<->{L2} D{D} {what}", dtype=_dt_name(dt),
+                    shape=f"B{B} H{H} L{L1}<->{L2} D{D} {what}{_key_tag(H, key)}",
+                    dtype=_dt_name(dt),
                     rate=rate, max_abs_err=max(max_err(c1, r1), max_err(c2, r2)),
                     tol=min(tolerance(r1, dt), tolerance(r2, dt)),
                     ms=graph_ms(lambda: _forward(*args, rate, rate, seed,
-                                                 for_backward=train)),
+                                                 for_backward=train, **kw)),
                     timed_for_backward=train,
                     plain_ms=graph_ms(lambda: biattention_plain(*args, m1, m2, rate, rate)),
                     library_ms=None, two_sdpa_ms=graph_ms(two_sdpa),
@@ -784,12 +842,15 @@ def _forward_kept(ops_, rate, seed):
     None); the self-attention kernel for one direction, the bi-attention
     kernel for two."""
     from k3m_tpu_torch.kernels import attention, coattn
+    h0, hg = ops_[0][10:12]
     if len(ops_) == 1:
         q, k, v, b = ops_[0][:4]
-        return [attention._forward(q, k, v, b, rate, seed, for_backward=True)]
+        return [attention._forward(q, k, v, b, rate, seed, for_backward=True, head0=h0,
+                                   heads_global=hg)]
     (q2, k1, v1, b1), (q1, k2, v2, b2) = (o[:4] for o in ops_)
     c1, c2, kept1, kept2 = coattn._forward(q1, k1, v1, b1, q2, k2, v2, b2, rate, rate,
-                                           seed, for_backward=True)
+                                           seed, for_backward=True, head0=h0,
+                                           heads_global=hg)
     return [(c1, *kept1), (c2, *kept2)]
 
 
@@ -810,9 +871,10 @@ def planted_faults(ops_, fwd, got, rate, seed, dt):
 
     faults = {"wrong mask": [], "dV without 1/(1-rate)": [], "dV zero past tile 1": []}
     wrong = _forward_kept(ops_, rate, seed + 1)
-    for (q, k, v, b, do, salt, H, Lq, Lk, D), (out, lse, _), (_, _, other), (dq, dk, dv) \
-            in zip(ops_, fwd, wrong, got):
-        keep = philox_keep_mask_plain(seed, q.shape[0], H, Lq, Lk, rate, salt, "cuda")
+    for (q, k, v, b, do, salt, H, Lq, Lk, D, h0, hg), (out, lse, _), (_, _, other), \
+            (dq, dk, dv) in zip(ops_, fwd, wrong, got):
+        keep = philox_keep_mask_plain(seed, q.shape[0], H, Lq, Lk, rate, salt, "cuda",
+                                      head0=h0, heads_global=hg)
         want = attention_bwd_plain(q, k, v, b, do, keep, rate)
         bad = attention_bwd(q, k, v, b, out, lse, other, do, rate)
         faults["wrong mask"].append(max(ratio(a, r) for a, r in zip(bad, want)))
@@ -836,7 +898,7 @@ def _attn_bwd_bytes(ops_, fwd):
     fp32 lse, the mask words), which a backward that recomputes lse and the
     mask and sums rowsum(dP P) itself does not need."""
     total = 0
-    for i, (q, k, v, b, do, salt, H, Lq, Lk, D) in enumerate(ops_):
+    for i, (q, k, v, b, do, salt, H, Lq, Lk, D, *_) in enumerate(ops_):
         e = q.element_size()
         total += 3 * q.shape[0] * Lq * H * D * e + 4 * q.shape[0] * Lk * H * D * e \
             + q.shape[0] * Lk * 4
@@ -846,7 +908,7 @@ def _attn_bwd_bytes(ops_, fwd):
 
 
 def kernel_phase_attention_bwd(card, rows_out, runs=None, attn_shapes=ATTN_SHAPES,
-                               bi_shapes=BIATTN_SHAPES):
+                               bi_shapes=BIATTN_SHAPES, bi_heads=8):
     """The backward kernel for each self-attention shape and, once per
     direction, each co-attention shape, at rate 0 and 0.1 (under the plain
     version's Philox mask), at the pretraining batch (and in bf16 at rate
@@ -857,32 +919,37 @@ def kernel_phase_attention_bwd(card, rows_out, runs=None, attn_shapes=ATTN_SHAPE
     keeps for it (output, lse, mask words), as on the training path;
     times are of the backward alone. `runs`: [(batch, dtypes, rates)], by
     default the pretraining batch in fp32 and bf16 at both rates and the
-    finetune batch as its training calls it (bf16, rate 0.1)."""
-    from k3m_tpu_torch.kernels import attention_bwd, attention_bwd_plain, \
-        philox_keep_mask_plain
+    finetune batch as its training calls it (bf16, rate 0.1). Shapes as
+    kernel_phase_attention's and kernel_phase_biattention's (`bi_heads`
+    heads), a head0/heads_global tail included."""
+    from k3m_tpu_torch.kernels import attention_bwd, attention_bwd_plain
     g = torch.Generator(device="cuda").manual_seed(4)
     if runs is None:
         runs = ((TRAIN_BATCH, (torch.float32, torch.bfloat16), RATES),
                 (FT_BATCH, (torch.bfloat16,), (0.1,)))
     for B, dtypes, rates in runs:
-        cases = [(f"B{B} H{H} L{L} D{D} {what}", [(H, L, L, D, 0)])
-                 for H, L, D, what in attn_shapes]
-        cases += [(f"B{B} H8 L{L1}<->{L2} D{D} {what}", [(8, L2, L1, D, 0), (8, L1, L2, D, 7919)])
-                  for L1, L2, D, what in bi_shapes]
+        cases = [(f"B{B} H{H} L{L} D{D} {what}{_key_tag(H, _head_key(H, key))}",
+                  [(H, L, L, D, 0, *_head_key(H, key))])
+                 for H, L, D, what, *key in attn_shapes]
+        Hb = bi_heads
+        cases += [(f"B{B} H{Hb} L{L1}<->{L2} D{D} {what}{_key_tag(Hb, _head_key(Hb, key))}",
+                   [(Hb, L2, L1, D, 0, *_head_key(Hb, key)),
+                    (Hb, L1, L2, D, 7919, *_head_key(Hb, key))])
+                  for L1, L2, D, what, *key in bi_shapes]
         for shape, dirs in cases:
             for dt in dtypes:
                 ops_ = []
-                for H, Lq, Lk, D, salt in dirs:
+                for H, Lq, Lk, D, salt, h0, hg in dirs:
                     q = _qkv(B, Lq, H, D, dt, g)[0]
                     k, v = _qkv(B, Lk, H, D, dt, g)[1:]
                     do = torch.randn(B, Lq, H, D, generator=g, device="cuda").to(dt)
-                    ops_.append((q, k, v, _ragged_bias(B, Lk, g), do, salt, H, Lq, Lk, D))
+                    ops_.append((q, k, v, _ragged_bias(B, Lk, g), do, salt, H, Lq, Lk, D,
+                                 h0, hg))
                 for rate in rates:
                     seed = 17
                     fwd = _forward_kept(ops_, rate, seed)
-                    keeps = [philox_keep_mask_plain(seed, B, H, Lq, Lk, rate, salt, "cuda")
-                             if rate else None
-                             for q, k, v, b, do, salt, H, Lq, Lk, D in ops_]
+                    keeps = [_keep_mask(seed, B, H, Lq, Lk, rate, salt, (h0, hg), shape)
+                             for q, k, v, b, do, salt, H, Lq, Lk, D, h0, hg in ops_]
 
                     def kernel():
                         return [attention_bwd(q, k, v, b, out, lse, words, do, rate)
@@ -900,7 +967,8 @@ def kernel_phase_attention_bwd(card, rows_out, runs=None, attn_shapes=ATTN_SHAPE
                         _same_twice("attention_bwd", f"{shape} {_dt_name(dt)} rate {rate}",
                                     [t for gs in got for t in gs],
                                     lambda: [t for gs in kernel() for t in gs], card)
-                    ops = sum(5 * 2 * B * H * Lq * Lk * D for *_, H, Lq, Lk, D in ops_)
+                    ops = sum(5 * 2 * B * H * Lq * Lk * D
+                              for *_, H, Lq, Lk, D, h0, hg in ops_)
                     bound, by = _bound(_attn_bwd_bytes(ops_, None), ops, dt)
                     design_bound, _ = _bound(_attn_bwd_bytes(ops_, fwd), ops, dt)
                     if faults:
@@ -1018,7 +1086,7 @@ def phase_kernels(card):
     masks = {B: dropout_mask_check(card, B) for B in TRAINING_BATCHES}
     edges = forward_edge_check(card)
     torch.cuda.empty_cache()
-    return rows, launch_overhead(card), masks, edges
+    return rows, launch_overhead(card), masks, edges, tp_kernel_rows(card)
 
 
 # ------------------------------------------------------------ slice phase
@@ -1041,14 +1109,15 @@ def _synthetic_item(rng, vocab, i, n_boxes=36):
                 cls_prob=cls / cls.sum(1, keepdims=True))
 
 
-def write_pair_records(path):
+def write_pair_records(path, n=N_PAIRS):
+    """Phase 4's pairs, the first `n` of them."""
     from k3m_tpu_torch.data.records import write_records
     from k3m_tpu_torch.tokenization import build_synthetic_vocab
     rng = np.random.default_rng(SEED)
     vocab = build_synthetic_vocab()
     pairs = (dict(label=float(i % 2), item1=_synthetic_item(rng, vocab, 2 * i),
                   item2=_synthetic_item(rng, vocab, 2 * i + 1))
-             for i in range(N_PAIRS))
+             for i in range(n))
     return write_records(str(path), pairs)
 
 
@@ -1521,8 +1590,8 @@ def phase_train_crosscheck(card):
 BERT = ROOT / "k3m_tpu_torch" / "configs" / "bert_base_6layer_6conect.json"
 
 
-def write_finetune_records(data_dir, n_train=FT_STEPS * FT_BATCH):
-    """`n_train` training pairs (FT_STEPS batches of FT_BATCH) and FT_VALID
+def write_finetune_records(data_dir, n_train=FT_STEPS * FT_BATCH, n_valid=FT_VALID):
+    """`n_train` training pairs (FT_STEPS batches of FT_BATCH) and `n_valid`
     validation pairs at the full shapes."""
     from k3m_tpu_torch.data.records import write_records
     from k3m_tpu_torch.tokenization import build_synthetic_vocab
@@ -1536,7 +1605,7 @@ def write_finetune_records(data_dir, n_train=FT_STEPS * FT_BATCH):
     n_train = write_records(str(data_dir / "train_item_alignment.k3mr"),
                             pairs(0, n_train))
     n_valid = write_records(str(data_dir / "valid_item_alignment.k3mr"),
-                            pairs(n_train, FT_VALID))
+                            pairs(n_train, n_valid))
     return n_train, n_valid
 
 
@@ -2430,6 +2499,7 @@ def phase_extract_crosscheck(card):
 # ------------------------------------------- data-parallel phases (17-19)
 
 DP_TIMEOUT_S = 420          # a phase whose ranks run longer has hung
+DP_STEPS = 3                # phase 17's steps, the first a warm-up
 DP_BF16_TOL = 2.0 ** -6     # bf16: the kernels' tolerance of phase 3, of max(1, |x|)
 WORLD_VARS = ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT",
               "K3M_COORDINATOR_ADDRESS", "K3M_NUM_PROCESSES", "K3M_PROCESS_ID",
@@ -2562,19 +2632,20 @@ def _dp_finetune(spec):
 
 def _dp_pretrain_step(spec):
     """One fp32 pretraining step (dropout on, the step's own draws) on this
-    rank's rows of the spec's global batch: the global losses, and the
-    gradients after the all-reduce (rank 0 saves them)."""
+    rank's rows (its data group's, under the spec's `n_model`) of the
+    spec's global batch: the global losses, and the gradients after the
+    all-reduce, gathered over the model group (rank 0 saves them)."""
     from k3m_tpu_torch.config import K3MConfig
     from k3m_tpu_torch.model.random import StepRandom
     from k3m_tpu_torch.train import dist
     from k3m_tpu_torch.train.dist import all_reduce_grads
     from k3m_tpu_torch.train.pretrain_loop import PretrainTrainer
-    world = dist.init_from_env("cuda")
+    world = dist.init_from_env("cuda", spec.get("n_model", 1))
     try:
         cfg = K3MConfig.from_json_file(str(ROBERTA)).replace(use_image=True, objective=2)
         batch = torch.load(spec["batch"], weights_only=False)
-        n = len(batch["input_ids"]) // world.size
-        local = {k: v[world.rank * n:(world.rank + 1) * n] for k, v in batch.items()}
+        local = _batch_rows(batch, world.data_rank,
+                            len(batch["input_ids"]) // world.data_size)
         trainer = PretrainTrainer(cfg, device=world.device, seed=SEED, objective=2, world=world)
         loss, metrics = trainer.losses(trainer.stage(local), deterministic=False,
                                        rng=StepRandom(SEED, 0, world.device))
@@ -2585,22 +2656,25 @@ def _dp_pretrain_step(spec):
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
         metrics = trainer.global_metrics(metrics)
-        grads = {name: p.grad.float().cpu() for name, p in trainer.model.named_parameters()}
+        grads = _full_grads(trainer.model, world)
         if world.rank == 0:
             torch.save(grads, spec["grads"])
         return dict(world=dict(rank=world.rank, size=world.size, backend=world.backend),
                     losses={k: float(v) for k, v in metrics.items()},
                     grads_sha=_sha(grads.items()), allreduce_bytes=nbytes,
-                    allreduce_s=seconds)
+                    allreduce_s=seconds, traffic=world.traffic)
     finally:
         world.close()
 
 
-DP_MODES = {"finetune": _dp_finetune, "pretrain_step": _dp_pretrain_step}
+DP_MODES = {"finetune": _dp_finetune, "pretrain_step": _dp_pretrain_step,
+            "finetune_step": lambda spec: _tp_finetune_step(spec),
+            "cli": lambda spec: _tp_cli(spec)}
 
 
 def dp_worker(spec_path):
-    """One process of phases 17-19 (`chip_smoke.py --dp-worker <spec>`):
+    """One process of phases 17-19 and 22-23 (`chip_smoke.py --dp-worker
+    <spec>`):
     the spec's mode, with the kernels' launch counts and the peak memory
     of this process; under `deterministic`, with
     torch.use_deterministic_algorithms (warn_only: an op without a
@@ -2673,12 +2747,13 @@ class _RankOrder:
             yield cat(list(parts))
 
 
-def rank_order_losses(cfg, world_size):
+def rank_order_losses(cfg, world_size, data_dir=None):
     """The step losses of one process training, as the finetune CLI does,
-    on the global batches of a `world_size`-rank run (_RankOrder), on the
-    current card."""
+    on the global batches of a `world_size`-rank run (_RankOrder) over the
+    training pairs in `data_dir` (phase 8's by default), on the current
+    card."""
     from k3m_tpu_torch.train.alignment_loop import AlignmentTrainer
-    path = WORK / "finetune_data" / "train_item_alignment.k3mr"
+    path = (data_dir or WORK / "finetune_data") / "train_item_alignment.k3mr"
     loaders = [_loader(path, cfg, FT_BATCH // world_size, shuffle=True, drop_last=True,
                        num_shards=world_size, shard_index=r) for r in range(world_size)]
     total = len(loaders[0])
@@ -2691,12 +2766,13 @@ def rank_order_losses(cfg, world_size):
 
 
 def phase_dp_train(card):
-    """Phase 8's finetune (bf16, dropout 0.1, global batch 32, FT_STEPS
-    steps and the sweep) three ways: one plain process and a world of one
-    over NCCL (torchrun's variables), both under
+    """Phase 8's finetune (bf16, dropout 0.1, global batch 32, DP_STEPS
+    steps over its own records and the sweep) three ways: one plain process
+    and a world of one over NCCL (torchrun's variables), both under
     torch.use_deterministic_algorithms and run side by side; then two ranks
-    sharing the card over gloo (the K3M_* variables, LOCAL_RANK 0 for both)
-    alone. The NCCL world of one must equal the plain run bit for bit
+    sharing the card over gloo (the K3M_* variables, LOCAL_RANK 0 for both),
+    while this process trains on the same global batches. The NCCL world of
+    one must equal the plain run bit for bit
     (losses, sweep, every parameter); the two ranks must end with
     bit-identical parameters and the same sweep, each having launched
     every kernel the per-step count times; their global losses must lie
@@ -2705,17 +2781,25 @@ def phase_dp_train(card):
     bf16, so sums in another order round apart)."""
     from k3m_tpu_torch.config import K3MConfig
     cfg = K3MConfig.from_json_file(str(BERT))
+    data = WORK / "dp_data"
+    data.mkdir(parents=True, exist_ok=True)
+    write_finetune_records(data, DP_STEPS * FT_BATCH)
+    argv = lambda out: _finetune_dp_argv(out, data_dir=data)
     det = dict(mode="finetune", deterministic=True)
     one = run_workers([
-        ("train_plain", dict(det, argv=_finetune_dp_argv(WORK / "dp_plain")),
+        ("train_plain", dict(det, argv=argv(WORK / "dp_plain")),
          _dp_env("plain")),
-        ("train_nccl1", dict(det, argv=_finetune_dp_argv(WORK / "dp_nccl1")),
+        ("train_nccl1", dict(det, argv=argv(WORK / "dp_nccl1")),
          _dp_env("torchrun", 0, 1, _free_port()))], "dp_train")
     plain, nccl = one["train_plain"], one["train_nccl1"]
     port = _free_port()
+    ref = []                             # one process, while the two ranks run
     two = run_workers([(f"train_gloo{r}", dict(mode="finetune",
-                                               argv=_finetune_dp_argv(WORK / "dp_gloo")),
-                        _dp_env("gloo", r, 2, port)) for r in range(2)], "dp_train")
+                                               argv=argv(WORK / "dp_gloo")),
+                        _dp_env("gloo", r, 2, port)) for r in range(2)], "dp_train",
+                      during=lambda: ref.extend(rank_order_losses(cfg.replace(
+                          use_image=True, with_coattention=True, if_pre_sampling=1,
+                          loss_type="inner", dtype="bfloat16"), 2, data)))
     ranks = [two["train_gloo0"], two["train_gloo1"]]
     if nccl["world"] != dict(rank=0, size=1, backend="nccl") or \
             [r["world"] for r in ranks] != [dict(rank=r, size=2, backend="gloo")
@@ -2732,7 +2816,7 @@ def phase_dp_train(card):
     if not all(same.values()):
         raise AssertionError(f"dp_train: the NCCL world of one differs from the plain run: "
                              f"{same}; nondeterministic ops {nondet}")
-    expected = expected_finetune_launches(cfg, FT_STEPS, 2)   # 2 sweep batches on each rank
+    expected = expected_finetune_launches(cfg, DP_STEPS, 2)   # 2 sweep batches on each rank
     for name, res in [("plain", plain), ("nccl1", nccl), ("gloo rank 0", ranks[0]),
                       ("gloo rank 1", ranks[1])]:
         if any(res["launches"][k] != n for k, n in expected.items()):
@@ -2743,18 +2827,15 @@ def phase_dp_train(card):
         raise AssertionError("dp_train: the two ranks' final parameters differ")
     if h0["sweep"] != h1["sweep"] or h0["step_losses"] != h1["step_losses"]:
         raise AssertionError("dp_train: the two ranks report different sweeps or losses")
-    if h0["step_pairs"] != [FT_BATCH // 2] * FT_STEPS:
+    if h0["step_pairs"] != [FT_BATCH // 2] * DP_STEPS:
         raise AssertionError(f"dp_train: rank 0 trained on {h0['step_pairs']} pairs")
-    ref = rank_order_losses(cfg.replace(use_image=True, with_coattention=True,
-                                        if_pre_sampling=1, loss_type="inner",
-                                        dtype="bfloat16"), 2)
     errs = [abs(a - b) / max(1.0, abs(b)) for a, b in zip(h0["step_losses"], ref)]
     log(f"dp_train: two gloo ranks' global losses {[round(x, 4) for x in h0['step_losses']]} "
         f"against one process on the same global batches {[round(x, 4) for x in ref]}: "
         f"worst {max(errs):.3e} of max(1, |loss|) (tolerance {DP_BF16_TOL:.3e}); plain run "
         f"{[round(x, 4) for x in plain['history']['step_losses']]} (rank order differs, "
         f"so its draws fall on other pairs) | {card}")
-    if len(ref) != FT_STEPS or max(errs) > DP_BF16_TOL:
+    if len(ref) != DP_STEPS or max(errs) > DP_BF16_TOL:
         raise AssertionError(f"dp_train: two-rank losses off by {max(errs):.3e}")
     step_ms = [1e3 * t for t in h0["step_seconds"][1:]]
     pairs_per_s = 2 * sum(h0["step_pairs"][1:]) / sum(h0["step_seconds"][1:])
@@ -2768,7 +2849,7 @@ def phase_dp_train(card):
         f"{ranks[0]['peak_gib']:.2f} / {ranks[1]['peak_gib']:.2f} GiB (ranks 0 / 1), sweep at "
         f"0.5 {h0['sweep']['0.5']}. Gloo through the host on one card: not a scaling "
         f"figure | {card}")
-    for d in ("dp_plain", "dp_nccl1", "dp_gloo"):
+    for d in ("dp_plain", "dp_nccl1", "dp_gloo", "dp_data"):
         shutil.rmtree(WORK / d, ignore_errors=True)
     return dict(nccl1_equal_plain=same, nondeterministic=nondet,
                 launches=dict(plain=plain["launches"], nccl1=nccl["launches"],
@@ -3170,7 +3251,7 @@ def expected_eval_launches(cfg, forwards, head_lns=3):
 
 
 def _plus(a, b):
-    return {k: a[k] + b[k] for k in a}
+    return {k: a.get(k, 0) + b.get(k, 0) for k in a.keys() | b.keys()}
 
 
 def _legacy_argv(data_dir, out_dir, *extra, file_name="train_feat.k3mr"):
@@ -3395,6 +3476,504 @@ def phase_legacy_train(card):
 
 # ------------------------------------------------------------------ main
 
+# ------------------------------------------------------ tensor parallelism
+
+TP_MS = (2, 4)              # model ranks of the TP kernel rows (phase 3)
+TP_STEPS = 3                # steps of each CLI run of phase 23
+TP_PRETRAIN_BATCH = 16      # phase 23's global batches: gloo's host path, not a speed figure
+TP_FT_BATCH = 8             # pairs; 32 took 25-33 s a step and the script past 1000 s
+TP_EVAL_PAIRS = 16          # phase 23's sweep and predict batch: phase 4's first 16 pairs
+TP_CARDS_STEPS = 4          # steps of each --tp-cards run, the first a warm-up
+
+
+def tp_shapes(M):
+    """The attention and bi-attention shapes of model rank M - 1 of M: each
+    layer's heads split M ways (text 12, image 8, co-attention 8), the
+    rank's heads the last of them."""
+    attn = tuple((H // M, L, D, f"{what} tp{M}", (M - 1) * (H // M), H)
+                 for H, L, D, what in ATTN_SHAPES)
+    bi = tuple((L1, L2, D, f"{what} tp{M}", (M - 1) * (8 // M), 8)
+               for L1, L2, D, what in BIATTN_SHAPES)
+    return attn, bi
+
+
+def tp_kernel_rows(card):
+    """#3/#4/#5 at the head counts of M = 2 and 4 model ranks (text 12/M
+    heads of 64 at L50/256, image 8/M of 128 at L37, the co-attention
+    layers 8/M at D128 and D96) at batch 96, as a model rank calls them:
+    bf16 at rate 0.1 and fp32 at rate 0, forward and backward, each held to
+    its plain version under phase 3's tolerances (planted faults rejected
+    at rate 0.1), the forwards' mask words bit for bit to the rank's head
+    slice of the whole layer's mask; timed beside bound and SDPA. #1/#2 see
+    the replicated rows of phase 3 under tensor parallelism."""
+    f32, bf16 = torch.float32, torch.bfloat16
+    B, rows = TRAIN_BATCH, []
+    cases = [(B, f32, 0.0), (B, bf16, 0.1)]
+    for M in TP_MS:
+        attn, bi = tp_shapes(M)
+        kernel_phase_attention(card, rows, cases=cases, shapes=attn)
+        kernel_phase_biattention(card, rows, cases=cases, shapes=bi, heads=8 // M)
+        kernel_phase_attention_bwd(card, rows, runs=((B, (f32,), (0.0,)),
+                                                     (B, (bf16,), (0.1,))),
+                                   attn_shapes=attn, bi_shapes=bi, bi_heads=8 // M)
+        torch.cuda.empty_cache()
+    return rows
+
+
+def _full_grads(model, world):
+    """Every gradient of `model`, the split ones gathered over the model
+    group (none are where no gradient reached them), fp32 on the host."""
+    from k3m_tpu_torch.train import mesh
+    out = {}
+    for name, p in model.named_parameters():
+        if p.grad is None:
+            continue
+        dim = mesh.shard_dim(name)
+        g = p.grad if world.n_model == 1 or dim is None else \
+            mesh.gather_tensor(p.grad, dim, world)
+        out[name] = g.float().cpu()
+    return out
+
+
+def _batch_rows(tree, i, n):
+    """Rows i * n .. (i + 1) * n of every array and list of a host batch."""
+    if isinstance(tree, dict):
+        return {k: _batch_rows(v, i, n) for k, v in tree.items()}
+    return tree[i * n:(i + 1) * n]
+
+
+def _tp_finetune_step(spec):
+    """One fp32 finetune train step (bert_base_6layer_6conect, loss inner,
+    dropout 0.1 and the step's own draws) on this data group's pairs of the
+    spec's global batch: the global loss, and the gradients after the
+    data-group all-reduce, gathered (rank 0 saves them)."""
+    from k3m_tpu_torch.model.random import StepRandom
+    from k3m_tpu_torch.train import dist
+    from k3m_tpu_torch.train.alignment_loop import AlignmentTrainer, decode_items
+    from k3m_tpu_torch.train.dist import all_reduce_grads
+    world = dist.init_from_env("cuda", spec.get("n_model", 1))
+    try:
+        batch = torch.load(spec["batch"], weights_only=False)
+        local = _batch_rows(batch, world.data_rank, len(batch["label"]) // world.data_size)
+        trainer = AlignmentTrainer(_tp_finetune_cfg(), device=world.device, seed=SEED,
+                                   world=world)
+        b = decode_items(trainer.stage(local), trainer.config)
+        loss = trainer.model(b["label"], b["item1"], b["item2"], deterministic=False,
+                             rng=StepRandom(SEED, 0, world.device), world=world)[3]
+        loss.backward()
+        all_reduce_grads(world, trainer.model.parameters())
+        loss = trainer.global_metrics(dict(loss=loss.detach()))["loss"]
+        grads = _full_grads(trainer.model, world)
+        if world.rank == 0:
+            torch.save(grads, spec["grads"])
+        return dict(world=dict(rank=world.rank, size=world.size, n_model=world.n_model),
+                    losses=dict(loss=float(loss)), grads_sha=_sha(grads.items()))
+    finally:
+        world.close()
+
+
+def _tp_finetune_cfg():
+    """Phase 22's finetune: bert_base_6layer_6conect, loss inner, dropout
+    at the config's 0.1."""
+    from k3m_tpu_torch.config import K3MConfig
+    return K3MConfig.from_json_file(str(BERT)).replace(
+        use_image=True, with_coattention=True, loss_type="inner", if_pre_sampling=1)
+
+
+def _tp_cli(spec):
+    """`python -m k3m_tpu_torch.<spec's cli>` with the spec's argv, in the
+    world its environment gives, the world held past the CLI's end: the
+    history, the predict file, the model's parameters gathered (their
+    sha), the collectives of each train step by axis ([count, bytes, host
+    seconds]: each step's counts taken from the world's before and after
+    it), and under `profile` one more train step on this rank's rows of a
+    batch of the spec's records (rank 0 under the profiler: device ms,
+    NCCL kernels' ms apart)."""
+    import importlib
+    from k3m_tpu_torch.dist import World
+    from k3m_tpu_torch.train import dist, mesh
+    from k3m_tpu_torch.train.alignment_loop import AlignmentTrainer
+    from k3m_tpu_torch.train.pretrain_loop import PretrainTrainer
+    held, init, step_traffic = [], dist.init_from_env, []
+
+    def init_and_hold(device, n_model=1):
+        world = init(device, n_model)
+        world.close = lambda: None
+        held.append(world)
+        return world
+
+    def counting(step):
+        def train_step(self, batch):
+            before = {k: list(v) for k, v in self.world.traffic.items()}
+            out = step(self, batch)
+            step_traffic.append({k: [v[i] - before.get(k, (0, 0, 0.0))[i] for i in range(3)]
+                                 for k, v in self.world.traffic.items()})
+            return out
+        return train_step
+    steps = {cls: cls.train_step for cls in (PretrainTrainer, AlignmentTrainer)}
+    for cls, step in steps.items():
+        cls.train_step = counting(step)
+    dist.init_from_env = init_and_hold
+    try:
+        run = importlib.import_module(f"k3m_tpu_torch.{spec['cli']}").main(spec["argv"])
+    finally:
+        dist.init_from_env = init
+        for cls, step in steps.items():
+            cls.train_step = step
+    (world,) = held
+    try:
+        out = dict(world=dict(rank=world.rank, size=world.size, n_model=world.n_model,
+                              backend=world.backend), step_traffic=step_traffic)
+        if run.get("history"):
+            (h,) = run["history"]
+            out["history"] = {k: h[k] for k in ("step_seconds", "step_samples", "step_pairs",
+                                                "step_losses", "sweep", "checkpoint_path")
+                              if k in h}
+        if "output" in run:
+            out.update(output=run["output"], batch_seconds=run["batch_seconds"],
+                       batch_pairs=run["batch_pairs"])
+        trainer = run.get("trainer")
+        if trainer is not None:
+            out["params_sha"] = _sha(mesh.full_state_dict(trainer.model, world).items())
+        if spec.get("profile"):
+            path, batch = spec["profile"]
+            staged = trainer.stage(next(iter(_pretrain_loader(
+                Path(path), trainer.config, world.local_rows(batch, "batch")))))
+            step = lambda: trainer.train_step(staged)
+            out["profile"] = None
+            if world.rank == 0:
+                prof = profile_device(step, spec.get("card", ""), f"rank 0 of {world.size} "
+                                      f"(n_model {world.n_model}): pretraining train step",
+                                      n=1)
+                prof["nccl_ms"] = sum(ms for ms, _, name in prof["top_other"]
+                                      if "nccl" in name.lower())
+                out["profile"] = prof
+            else:
+                step()
+                torch.cuda.synchronize()
+    finally:
+        World.close(world)
+    return out
+
+
+def _check_tp_grads(what, want_losses, want, r0, r1, got, zero_grad_scale, card):
+    """Two model ranks' step against one process: both ranks report the
+    same losses and gradients, the losses within 1e-4 of max(1, |loss|),
+    every gradient (gathered) within 1e-3 of its tensor's scale + 1e-7
+    (phase 7's and 9's limits; ZERO_GRAD_BIAS, zero in exact arithmetic, at
+    struc_w2.weight's scale, as phases 9 and 18 hold it). Returns the
+    worst error/tolerance and its tensor."""
+    if r0["grads_sha"] != r1["grads_sha"] or r0["losses"] != r1["losses"]:
+        raise AssertionError(f"{what}: the two model ranks hold different gradients or "
+                             "losses")
+    for k, w in want_losses.items():
+        err, tol = abs(r0["losses"][k] - w), 1e-4 * max(1.0, abs(w))
+        log(f"{what} {k}: two model ranks {r0['losses'][k]:.6f} one process {w:.6f} "
+            f"(tol {tol:.1e})")
+        if not (math.isfinite(r0["losses"][k]) and err <= tol):
+            raise AssertionError(f"{what} {k}: {err} > {tol}")
+    if not set(want) <= set(got):
+        raise AssertionError(f"{what}: gradients missing: {sorted(set(want) - set(got))[:4]}")
+    worst, worst_name = 0.0, None
+    for name, g in got.items():
+        a = want.get(name, torch.zeros_like(g))
+        scale = want["struc_w2.weight"] if name == ZERO_GRAD_BIAS and zero_grad_scale else a
+        tol = 1e-3 * float(scale.abs().max()) + 1e-7
+        ratio = max_err(g, a) / tol
+        if ratio > worst:
+            worst, worst_name = ratio, name
+        if not (torch.isfinite(g).all() and ratio <= 1.0):
+            raise AssertionError(f"{what} gradient {name}: {max_err(g, a)} > {tol}")
+    log(f"{what}: {len(got)} gradient tensors of two model ranks (gathered) agree with one "
+        f"process; worst error/tolerance {worst:.3e} ({worst_name}) | {card}")
+    return worst, worst_name
+
+
+def phase_tp_crosscheck(card):
+    """Two gloo ranks with --n_model 2 sharing the card against one process
+    on the card (computed while the ranks run), fp32, dropout 0.1 with the
+    step's own draws (the Philox masks keyed by global head): one
+    pretraining train step at full width (k3m_roberta_base) on phase 18's
+    global batch of 4 and its zero-pair item, the four losses and every
+    gathered gradient to phase 7's limits; one finetune train step
+    (bert_base_6layer_6conect, loss inner) at batch 2 of phase 8's pairs,
+    the loss and every gradient to phase 9's. The two pairs of ranks run
+    at once."""
+    from k3m_tpu_torch.config import K3MConfig
+    from k3m_tpu_torch.model.random import StepRandom
+    from k3m_tpu_torch.train.alignment_loop import AlignmentTrainer, decode_items
+    from k3m_tpu_torch.train.pretrain_loop import PretrainTrainer
+    d = WORK / "dp"
+    d.mkdir(parents=True, exist_ok=True)
+    cfg = K3MConfig.from_json_file(str(ROBERTA)).replace(use_image=True, objective=2)
+    batch = next(iter(_pretrain_loader(WORK / "pretrain_data" / "train_feat.k3mr", cfg, 4)))
+    for key in ("index_p", "index_v"):
+        batch[key][2] = 0
+    torch.save(batch, d / "tp_batch.pt")
+    fcfg = _tp_finetune_cfg()
+    pairs = _load_batch(WORK / "finetune_data" / "train_item_alignment.k3mr", fcfg, 2)
+    torch.save(pairs, d / "tp_pairs.pt")
+    one = {}
+
+    def grads_of(model):
+        return {n: p.grad.float().cpu() for n, p in model.named_parameters()
+                if p.grad is not None}
+
+    def one_process():                  # while the ranks run
+        trainer = PretrainTrainer(cfg, device="cuda", seed=SEED, objective=2)
+        loss, metrics = trainer.losses(trainer.stage(batch), deterministic=False,
+                                       rng=StepRandom(SEED, 0, "cuda"))
+        loss.backward()
+        one["pretrain"] = ({k: float(metrics[k]) for k in (
+            "masked_lm_loss", "masked_img_loss", "masked_lm_loss_pv", "loss_struc")},
+            grads_of(trainer.model))
+        del trainer, loss, metrics
+        trainer = AlignmentTrainer(fcfg, device="cuda", seed=SEED)
+        b = decode_items(trainer.stage(pairs), fcfg)
+        loss = trainer.model(b["label"], b["item1"], b["item2"], deterministic=False,
+                             rng=StepRandom(SEED, 0, "cuda"))[3]
+        loss.backward()
+        one["finetune"] = (dict(loss=loss.item()), grads_of(trainer.model))
+        del trainer, loss
+        torch.cuda.empty_cache()
+    jobs = []
+    for what, mode, data in (("pretrain", "pretrain_step", "tp_batch.pt"),
+                             ("finetune", "finetune_step", "tp_pairs.pt")):
+        port = _free_port()
+        spec = dict(mode=mode, n_model=2, batch=str(d / data),
+                    grads=str(d / f"tp_grads_{what}.pt"))
+        jobs += [(f"tp_cross_{what}{r}", spec, _dp_env("gloo", r, 2, port)) for r in range(2)]
+    res = run_workers(jobs, "tp_crosscheck", during=one_process)
+    out = {}
+    for what in ("pretrain", "finetune"):
+        r0, r1 = res[f"tp_cross_{what}0"], res[f"tp_cross_{what}1"]
+        want_losses, want = one[what]
+        worst = _check_tp_grads(f"tp_crosscheck {what}", want_losses, want, r0, r1,
+                                torch.load(d / f"tp_grads_{what}.pt"), True, card)
+        out[what] = dict(losses_one=want_losses, losses_two=r0["losses"],
+                         worst_grad_ratio=worst[0], worst_grad=worst[1],
+                         peak_gib=[r0["peak_gib"], r1["peak_gib"]],
+                         launches=dict(gloo0=r0["launches"], gloo1=r1["launches"]))
+        (d / f"tp_grads_{what}.pt").unlink()
+    for f in ("tp_batch.pt", "tp_pairs.pt"):
+        (d / f).unlink()
+    return out
+
+
+def _one_process_sha(build, path):
+    """sha of the state of a one-process model (`build()` on the meta
+    device, then on the card) that loads the model file `path`
+    (convert.load_model_file), and its tensors' shapes."""
+    from k3m_tpu_torch.convert import load_model_file
+    with torch.device("meta"):
+        model = build()
+    model = model.to_empty(device="cuda")
+    load_model_file(model, str(path))
+    sd = model.state_dict()
+    out = _sha(sd.items()), {k: tuple(v.shape) for k, v in sd.items()}
+    del model, sd
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_tp_train(card):
+    """The three training CLIs with --n_model 2, each as two gloo ranks
+    sharing the card (the K3M_* variables, K3M_DIST_BACKEND=gloo), the
+    three pairs at once, bf16, full width, TP_STEPS steps each, at small
+    global batches (gloo's host path: no speed figure):
+    `k3m_tpu_torch.pretrain` (k3m_roberta_base, batch 16), `finetune
+    --do_train --do_eval --do_pred` (bert_base_6layer_6conect with phase
+    4's flags, 8 pairs, the sweep and predict at batch TP_EVAL_PAIRS, over
+    as many validation pairs and phase 4's first pairs, learning rate 0 so
+    that the weights stay phase 4's seeded ones),
+    `train_concap_struc` (its default shapes, batch 16). Both model ranks
+    must report the same losses (and sweep) and gathered parameters, each
+    launch every kernel the count the config gives; rank 0 alone writes the
+    checkpoint, whose `pytorch_model.bin` has full shapes and loads into a
+    one-process model with those parameters bit for bit; model rank 0's
+    predict file (one data group: no part suffix) holds those pairs with
+    phase 4's scores within 2^-6. Step ms, the model-group all-reduces'
+    count, bytes and host ms a step, peak memory per rank."""
+    import importlib
+    from k3m_tpu_torch.config import K3MConfig
+    from k3m_tpu_torch.model.alignment import K3MForItemAlignment
+    from k3m_tpu_torch.model.pretrain import K3MForPretraining
+    roberta, bert = K3MConfig.from_json_file(str(ROBERTA)), K3MConfig.from_json_file(str(BERT))
+    data, ft_data = WORK / "tp_data", WORK / "tp_ft_data"
+    for p in (data, ft_data):
+        p.mkdir(parents=True, exist_ok=True)
+    write_pretrain_records(data / "train_feat.k3mr", TP_STEPS * TP_PRETRAIN_BATCH)
+    write_finetune_records(ft_data, TP_STEPS * TP_FT_BATCH, TP_EVAL_PAIRS)
+    write_pair_records(ft_data / "test_item_alignment.k3mr", TP_EVAL_PAIRS)
+    tp = ("--n_model", "2")
+    ft_argv = ["--data_dir", str(ft_data), "--output_dir", str(WORK / "tp_finetune"),
+               "--config_file", "bert_base_6layer_6conect.json", "--use_image",
+               "--with_coattention", "--do_train", "--do_eval", "--do_pred", "--bf16",
+               "--train_batch_size", str(TP_FT_BATCH), "--eval_batch_size",
+               str(TP_EVAL_PAIRS),
+               "--learning_rate", "0", "--num_train_epochs", "1", "--seed", str(SEED),
+               "--log_steps", "1", *tp]
+    for k, v in SHAPES.items():
+        ft_argv += [f"--{k}", str(v)]
+    runs = dict(
+        pretrain=(_pretrain_argv(data, WORK / "tp_pretrain", *tp, "--train_batch_size",
+                                 str(TP_PRETRAIN_BATCH)),
+                  expected_train_launches(roberta, TP_STEPS), K3MForPretraining),
+        finetune=(ft_argv,
+                  _plus(expected_finetune_launches(bert, TP_STEPS, 1), expected_launches(bert, 2)),
+                  K3MForItemAlignment),
+        train_concap_struc=(_legacy_argv(data, WORK / "tp_legacy", "--do_train", *tp,
+                                         "--train_batch_size", str(TP_PRETRAIN_BATCH)),
+                            expected_train_launches(bert, TP_STEPS), K3MForPretraining))
+    jobs = []
+    for cli, (argv, _, _) in runs.items():
+        port = _free_port()
+        jobs += [(f"tp_{cli}{r}", dict(mode="cli", cli=cli, argv=argv),
+                  _dp_env("gloo", r, 2, port)) for r in range(2)]
+    got = run_workers(jobs, "tp_train")
+    res = {}
+    for cli, (argv, expected, model_class) in runs.items():
+        ranks = [got[f"tp_{cli}{r}"] for r in range(2)]
+        what = f"tp_train {cli}"
+        if [r["world"] for r in ranks] != [dict(rank=r, size=2, n_model=2, backend="gloo")
+                                           for r in range(2)]:
+            raise AssertionError(f"{what}: worlds {[r['world'] for r in ranks]}")
+        for r, rank in enumerate(ranks):
+            if any(rank["launches"][k] != n or n == 0 for k, n in expected.items()):
+                raise AssertionError(f"{what} rank {r}: launches {rank['launches']}, "
+                                     f"expected {expected}")
+        h0, h1 = ranks[0]["history"], ranks[1]["history"]
+        if h0["step_losses"] != h1["step_losses"] or h0.get("sweep") != h1.get("sweep") \
+                or ranks[0]["params_sha"] != ranks[1]["params_sha"]:
+            raise AssertionError(f"{what}: the model ranks report different losses, sweeps "
+                                 "or parameters")
+        flat = [v for x in h0["step_losses"] for v in (x.values() if isinstance(x, dict)
+                                                       else [x])]
+        if len(h0["step_losses"]) != TP_STEPS or not all(math.isfinite(v) for v in flat):
+            raise AssertionError(f"{what}: losses {h0['step_losses']}")
+        if not h0["checkpoint_path"] or h1["checkpoint_path"] is not None:
+            raise AssertionError(f"{what}: checkpoints {h0['checkpoint_path']} "
+                                 f"{h1['checkpoint_path']}: rank 0 alone writes")
+        model_file = Path(h0["checkpoint_path"]) / "pytorch_model.bin"
+        mod = importlib.import_module(f"k3m_tpu_torch.{cli}")
+        config = mod.resolve_config(mod.get_parser().parse_args(argv))
+        sha, shapes = _one_process_sha(lambda: model_class(config), model_file)
+        if sha != ranks[0]["params_sha"]:
+            raise AssertionError(f"{what}: {model_file} loaded into one process differs from "
+                                 "the ranks' gathered parameters")
+        model = [t.get("model", [0, 0, 0.0]) for t in ranks[0]["step_traffic"][1:]]
+        entry = dict(step_losses=h0["step_losses"], launches=[r["launches"] for r in ranks],
+                     expected=expected, peak_gib=[r["peak_gib"] for r in ranks],
+                     step_ms=[1e3 * t for t in h0["step_seconds"][1:]],
+                     model_allreduces=[m[0] for m in model],
+                     model_allreduce_bytes=[m[1] for m in model],
+                     model_allreduce_ms=[1e3 * m[2] for m in model],
+                     model_file_tensors=len(shapes),
+                     word_table=shapes["embeddings.word_embeddings.weight"])
+        note = ""
+        if cli == "finetune":
+            entry["sweep"] = h0["sweep"]
+            if ranks[1]["output"] is not None or ranks[0]["output"].endswith(".part0"):
+                raise AssertionError(f"{what}: predict files {ranks[0]['output']} "
+                                     f"{ranks[1]['output']}")
+            read = lambda p: {(x["src_item_id"], x["tgt_item_id"]): x
+                              for x in map(json.loads, Path(p).read_text().splitlines())}
+            part = read(ranks[0]["output"])
+            want = {k: v for k, v in read(WORK / "out" / "deepAI_result_threshold=0.5.jsonl")
+                    .items() if k in part}
+            if len(part) != TP_EVAL_PAIRS or len(want) != TP_EVAL_PAIRS:
+                raise AssertionError(f"{what}: {len(part)} predicted pairs, {len(want)} of "
+                                     "them in phase 4's dump")
+            entry["worst_score_diff"] = max(
+                abs(float(part[k][s]) - float(x[s])) for k, x in want.items()
+                for s in ("src_item_emb", "tgt_item_emb"))
+            if entry["worst_score_diff"] > DP_BF16_TOL:
+                raise AssertionError(f"{what}: scores differ from phase 4's by "
+                                     f"{entry['worst_score_diff']}")
+            note = (f"; predict of {TP_EVAL_PAIRS} pairs within "
+                    f"{entry['worst_score_diff']:.3e} of phase 4's dump")
+        log(f"{what}: two model ranks on one card over gloo (three CLIs at once): losses "
+            f"equal on both, {TP_STEPS} steps, step ms {[round(x, 1) for x in entry['step_ms']]}; "
+            f"a step's model-group all-reduces {entry['model_allreduces']} of "
+            f"{[round(b / 2 ** 20, 1) for b in entry['model_allreduce_bytes']]} MiB in "
+            f"{[round(x, 1) for x in entry['model_allreduce_ms']]} host ms (host copies and "
+            f"gloo over loopback); peak memory {[round(x, 2) for x in entry['peak_gib']]} GiB "
+            f"per rank; launches {ranks[0]['launches']} on each; {model_file.name}: "
+            f"{len(shapes)} tensors at full shape (word table {entry['word_table']}), loads "
+            f"into one process bit for bit{note} | {card}")
+        shutil.rmtree(Path(argv[argv.index("--output_dir") + 1]), ignore_errors=True)
+        res[cli] = entry
+        res[f"{cli}_launches"] = {f"gloo{r}": ranks[r]["launches"] for r in range(2)}
+    for p in (data, ft_data):
+        shutil.rmtree(p, ignore_errors=True)
+    return res
+
+
+def phase_tp_cards(card, n):
+    """`k3m_tpu_torch.pretrain` at full width (k3m_roberta_base, bf16,
+    global batch 96, TP_CARDS_STEPS steps) on one card, then as n NCCL
+    ranks one per card with --n_model n, and on 4 cards also as 2 data
+    groups x 2 model ranks (torchrun's variables). The ranks of a run must
+    report the same losses and gathered parameters, the losses within
+    2^-6 of one card's (bf16 sums in another order); global samples/s and
+    step ms over the steps after the first, the model-group all-reduces'
+    bytes and host ms a step (the NCCL enqueue), rank 0's profiled step
+    (device busy ms, the NCCL kernels' device ms), peak memory per rank.
+    `python3 chip_smoke.py --tp-cards N` runs it alone, on N cards."""
+    if torch.cuda.device_count() < n:
+        raise AssertionError(f"tp_cards: {torch.cuda.device_count()} cards, {n} asked for")
+    data = WORK / "tp_cards_data"
+    data.mkdir(parents=True, exist_ok=True)
+    write_pretrain_records(data / "train_feat.k3mr", TP_CARDS_STEPS * TRAIN_BATCH)
+    spec = dict(mode="cli", cli="pretrain", card=card,
+                profile=(str(data / "train_feat.k3mr"), TRAIN_BATCH))
+    layouts = [(1, 1), (n, n)] + ([(4, 2)] if n == 4 else [])
+    res, ref = {}, None
+    for size, M in layouts:
+        tag = f"{size // M}x{M}"
+        argv = _pretrain_argv(data, WORK / f"tp_cards_{tag}", "--n_model", str(M))
+        port = _free_port()
+        jobs = [(f"tp_cards_{tag}_{r}", dict(spec, argv=argv),
+                 _dp_env("plain") if size == 1 else
+                 _dp_env("torchrun", r, size, port, local_rank=r)) for r in range(size)]
+        got = run_workers(jobs, "tp_cards")
+        ranks = [got[f"tp_cards_{tag}_{r}"] for r in range(size)]
+        hs = [r["history"] for r in ranks]
+        if any(h["step_losses"] != hs[0]["step_losses"] for h in hs) or \
+                len({r["params_sha"] for r in ranks}) != 1:
+            raise AssertionError(f"tp_cards {tag}: the ranks differ in losses or parameters")
+        losses = [x["loss"] for x in hs[0]["step_losses"]]
+        if len(losses) != TP_CARDS_STEPS or not all(math.isfinite(x) for x in losses):
+            raise AssertionError(f"tp_cards {tag}: losses {losses}")
+        if ref is None:
+            ref = losses
+        errs = [abs(a - b) / max(1.0, abs(b)) for a, b in zip(losses, ref)]
+        if max(errs) > DP_BF16_TOL:
+            raise AssertionError(f"tp_cards {tag}: losses {losses} off one card's {ref}")
+        timed = hs[0]["step_seconds"][1:]
+        model = [t.get("model", [0, 0, 0.0]) for t in ranks[0]["step_traffic"][1:]]
+        prof = ranks[0]["profile"]
+        r = dict(samples_per_s=(size // M) * sum(hs[0]["step_samples"][1:]) / sum(timed),
+                 step_ms=[1e3 * t for t in timed], losses=losses, worst_loss_err=max(errs),
+                 model_allreduce_bytes=np.mean([m[1] for m in model]),
+                 model_allreduce_host_ms=np.mean([1e3 * m[2] for m in model]),
+                 busy_ms=prof["busy_ms"], nccl_device_ms=prof["nccl_ms"],
+                 profiled_wall_ms=prof["wall_ms_profiled"],
+                 peak_gib=[x["peak_gib"] for x in ranks])
+        log(f"tp_cards: {size} rank(s), {size // M} data x {M} model: {r['samples_per_s']:.2f} "
+            f"global samples/s, step ms mean {np.mean(r['step_ms']):.2f}; model-group "
+            f"all-reduces {r['model_allreduce_bytes'] / 2 ** 30:.3f} GiB a step, host "
+            f"(enqueue) {r['model_allreduce_host_ms']:.2f} ms; rank 0's profiled step: busy "
+            f"{r['busy_ms']:.2f} ms, NCCL kernels {r['nccl_device_ms']:.2f} ms, wall "
+            f"{r['profiled_wall_ms']:.2f} ms; losses within {r['worst_loss_err']:.3e} of one "
+            f"card's; peak memory per rank {[round(x, 2) for x in r['peak_gib']]} GiB "
+            f"| {card} (x{size})")
+        res[tag] = r
+        shutil.rmtree(WORK / f"tp_cards_{tag}", ignore_errors=True)
+    shutil.rmtree(data, ignore_errors=True)
+    return dict(res, n=n)
+
+
 SUMMARY = {
     # name: (source, TPU kernel, heaviest main-path row: shape part, dtype, rate)
     "fused_layernorm": ("k3m_tpu_torch/kernels/csrc/layernorm.cu",
@@ -3427,15 +4006,24 @@ LEGACY_SUMMARY = {
 }
 
 
-def summarize(krows, paths, legacy):
+TP_SUMMARY = {
+    # name: the heaviest TP row of M model ranks: shape part, dtype, rate
+    "fused_attention": ("L256 D64 pv tp{M}", "bfloat16", 0.1),
+    "attention_bwd": ("L256 D64 pv tp{M}", "bfloat16", 0.1),
+    "fused_biattention": ("L37<->256 D128 c_layer_pv_v tp{M}", "bfloat16", 0.1),
+}
+
+
+def summarize(krows, paths, legacy, tp_rows):
     """One entry per kernel: the row of its heaviest main-path shape (the
     pretraining batch), `launches` from the pretraining run, the launches
     of every path's run (serving, pretraining, finetune, phases 11-14, each
     rank of phases 17 and 19, the extractions of phases 15 and 20, which
-    run none of them, and the legacy CLI's runs of phase 21),
-    where phase 3 has one, the row of the same shape at the finetune
-    batch, and the row of phase 21 at the legacy CLI's default shapes with
-    that CLI's launches a step."""
+    run none of them, the legacy CLI's runs of phase 21, each rank of the
+    three CLIs of phase 23), where phase 3 has one, the row of the same
+    shape at the finetune batch, the row of phase 21 at the legacy CLI's
+    default shapes with that CLI's launches a step, and for the attention
+    kernels the rows at the head counts of 2 and 4 model ranks."""
     summary = []
     for name, (src, replaces, shape, dtype, rate) in SUMMARY.items():
         row = _row(krows, name, shape, dtype, rate, TRAIN_BATCH)
@@ -3453,6 +4041,11 @@ def summarize(krows, paths, legacy):
         lg = _row(legacy["kernel_rows"], name, *LEGACY_SUMMARY[name], TRAIN_BATCH)
         entry["legacy_row"] = dict({k: lg[k] for k in keys},
                                    launches_per_step=legacy["per_step"][name])
+        if name in TP_SUMMARY:
+            part, dt, rt = TP_SUMMARY[name]
+            entry["tp_rows"] = {f"n_model {M}": {k: r[k] for k in keys} for M in TP_MS
+                                for r in [_row(tp_rows, name, part.format(M=M), dt, rt,
+                                               TRAIN_BATCH)]}
         summary.append(entry)
     return summary
 
@@ -3466,13 +4059,14 @@ def main(argv):
         return 1
     if argv[:1] == ["--dp-worker"]:       # one rank of phases 17-19
         return dp_worker(argv[1])
-    if argv[:1] == ["--dp-cards"]:        # phase 17's finetune on N cards, alone
+    if argv[:1] in (["--dp-cards"], ["--tp-cards"]):   # on N cards, alone
         card = phase_env()
         run_build = phase_build()
-        res = phase_dp_cards(card, int(argv[1]))
+        name = argv[0][2:].replace("-", "_")
+        res = (phase_dp_cards if name == "dp_cards" else phase_tp_cards)(card, int(argv[1]))
         OUT_JSON.parent.mkdir(parents=True, exist_ok=True)
-        (OUT_JSON.parent / "dp_cards.json").write_text(json.dumps(
-            dict(card=card, build_s=run_build[0], dp_cards=res), indent=1))
+        (OUT_JSON.parent / f"{name}.json").write_text(json.dumps(
+            {"card": card, "build_s": run_build[0], name: res}, indent=1, default=float))
         return 0
     kernels_only = "--kernels-only" in argv
     card = phase_env()
@@ -3490,13 +4084,13 @@ def main(argv):
         native_build = None if kernels_only else pool.submit(phase_native_build, card)
         build_s, ptxas = run("build", phase_build)
         native_built = native_build.result() if native_build else None
-    krows, host_us, masks, edges = run("kernels", phase_kernels, card)
+    krows, host_us, masks, edges, tp_rows = run("kernels", phase_kernels, card)
     if kernels_only:                   # quick check of a kernel change
         OUT_JSON.parent.mkdir(parents=True, exist_ok=True)
         OUT_JSON.write_text(json.dumps(dict(card=card, build_s=build_s, ptxas=ptxas,
-                                            kernels=krows, dropout_masks=masks,
-                                            forward_edges=edges, host_us_per_call=host_us),
-                                       indent=1))
+                                            kernels=krows, tp_kernels=tp_rows,
+                                            dropout_masks=masks, forward_edges=edges,
+                                            host_us_per_call=host_us), indent=1))
         return 0
     profile = "--profile" in argv
     if WORK.exists():
@@ -3519,18 +4113,24 @@ def main(argv):
     dp_predict = run("dp_predict", phase_dp_predict, card)
     legacy_extract = run("legacy_extract", phase_legacy_extract, card)
     legacy = run("legacy_train", phase_legacy_train, card)
+    tp_cross = run("tp_crosscheck", phase_tp_crosscheck, card)
+    tp_train = run("tp_train", phase_tp_train, card)
     dp_paths = {f"dp_train_{k}": dict(launches=v) for k, v in dp_train["launches"].items()}
     dp_paths.update({f"dp_predict_{k}": dict(launches=v)
                      for k, v in dp_predict["launches"].items()})
+    dp_paths.update({f"tp_{cli}_{k}": dict(launches=v)
+                     for cli in ("pretrain", "finetune", "train_concap_struc")
+                     for k, v in tp_train[f"{cli}_launches"].items()})
     summary = summarize(krows, dict(serve=slice_res, pretrain=train_res, finetune=ft_res,
                                     resume=resume, chain=chain, wire=wire, cache=cache,
                                     extract=extract, **dp_paths, legacy_extract=legacy_extract,
                                     legacy_readme=legacy["readme"],
                                     legacy_defaults=legacy["defaults"],
-                                    legacy_raw=legacy["raw"]), legacy)
+                                    legacy_raw=legacy["raw"]), legacy, tp_rows)
     OUT_JSON.parent.mkdir(parents=True, exist_ok=True)
     OUT_JSON.write_text(json.dumps(dict(card=card, build_s=build_s, ptxas=ptxas,
-                                        kernels=krows, dropout_masks=masks,
+                                        kernels=krows, tp_kernels=tp_rows,
+                                        dropout_masks=masks,
                                         forward_edges=edges, host_us_per_call=host_us,
                                         slice=slice_res, crosscheck_worst=cross,
                                         train=train_res, train_crosscheck=train_cross,
@@ -3540,8 +4140,9 @@ def main(argv):
                                         extract_crosscheck=extract_cross,
                                         dp_train=dp_train, dp_crosscheck=dp_cross,
                                         dp_predict=dp_predict, legacy_extract=legacy_extract,
-                                        legacy_train=legacy, phase_seconds=seconds,
-                                        summary=summary), indent=1))
+                                        legacy_train=legacy, tp_crosscheck=tp_cross,
+                                        tp_train=tp_train, phase_seconds=seconds,
+                                        summary=summary), indent=1, default=float))
     log(f"phase seconds {({k: round(v, 1) for k, v in seconds.items()})}, "
         f"{sum(seconds.values()):.1f} s in all")
     print(card, flush=True)

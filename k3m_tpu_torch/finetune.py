@@ -27,6 +27,12 @@ shard of each record file with `--train_batch_size / N` training pairs
 (`--eval_batch_size / N`, at least 1, for eval and predict), as root
 finetune.py:160-171 splits them; the sweep is over every rank's pairs and
 predict writes `<jsonl>.part<rank>` per rank.
+
+Tensor parallelism: `--n_model M` splits the model over M consecutive
+ranks of each data group (train/mesh.py; launch and rules as in
+k3m_tpu_torch/pretrain.py); the batches split over the N / M data groups,
+and predict writes one `<jsonl>.part<data index>` per data group (none
+where N = M: the one file), from the group's model rank 0.
 """
 
 from __future__ import annotations
@@ -123,16 +129,6 @@ def get_parser():
     return p
 
 
-def refuse_unported(args) -> None:
-    """Options of the JAX package the port does not have yet."""
-    refused = {
-        "--n_model > 1 (tensor parallelism)": args.n_model > 1,
-    }
-    for name, hit in refused.items():
-        if hit:
-            raise NotImplementedError(f"{name} is not ported yet (ROADMAP.md Queue 1)")
-
-
 def _find_config(args):
     for c in (Path(args.output_dir) / args.config_file, CONFIG_DIR / args.config_file,
               Path(args.config_file)):
@@ -143,29 +139,21 @@ def _find_config(args):
 
 def main(argv=None):
     args = get_parser().parse_args(argv)
-    refuse_unported(args)
-    from k3m_tpu_torch.train import dist
+    from k3m_tpu_torch.train import dist, mesh
 
-    world = dist.init_from_env(args.device)
+    config = resolve_config(args)
+    mesh.check_model_axis(config, args.n_model)
+    world = dist.init_from_env(args.device, args.n_model)
     try:
-        return _run(args, world)
+        return _run(args, world, config)
     finally:
         world.close()
 
 
-def _run(args, world):
+def resolve_config(args):
+    """The config file with the flags' overrides (root finetune.py:125-140)."""
     from k3m_tpu_torch.config import K3MConfig
-    from k3m_tpu_torch.convert import load_model_file, load_pretrained
-    from k3m_tpu_torch.data.pipeline import AlignmentLoader
-    from k3m_tpu_torch.data.preprocess import ShapeSpec
-    from k3m_tpu_torch.model.alignment import build_model
-    from k3m_tpu_torch.tokenization import get_tokenizer
-    from k3m_tpu_torch.train import alignment_loop
-    from k3m_tpu_torch.train.state import CheckpointManager
-
-    device = world.device
-    os.makedirs(args.output_dir, exist_ok=True)
-    config = K3MConfig.from_json_file(str(_find_config(args))).replace(
+    return K3MConfig.from_json_file(str(_find_config(args))).replace(
         fix_reference_bugs=args.fix_reference_bugs,
         if_pre_sampling=args.if_pre_sampling, loss_type=args.loss_type,
         dynamic_attention=args.dynamic_attention, visual_target=args.visual_target,
@@ -174,6 +162,19 @@ def _run(args, world):
         dtype="bfloat16" if args.bf16 else "float32",
         shared_prefix=args.shared_prefix,
         model="roberta" if "roberta" in (args.model_name or "") else "bert")
+
+
+def _run(args, world, config):
+    from k3m_tpu_torch.convert import load_model_file, load_pretrained
+    from k3m_tpu_torch.data.pipeline import AlignmentLoader
+    from k3m_tpu_torch.data.preprocess import ShapeSpec
+    from k3m_tpu_torch.model.alignment import build_model
+    from k3m_tpu_torch.tokenization import get_tokenizer
+    from k3m_tpu_torch.train import alignment_loop, mesh
+    from k3m_tpu_torch.train.state import CheckpointManager
+
+    device = world.device
+    os.makedirs(args.output_dir, exist_ok=True)
     if args.file_name:                       # split pattern (ref :223, :240)
         args.file_train, args.file_valid, args.file_test = (
             args.file_name.format(split) for split in ("train", "valid", "test"))
@@ -189,15 +190,15 @@ def _run(args, world):
         path = os.path.join(args.data_dir, name)
         if not os.path.exists(path):
             return None
-        # this rank's pairs of each global batch, from its shard
+        # this data group's pairs of each global batch, from its shard
         return AlignmentLoader(path, tokenizer, shapes, batch_size=batch_size,
                                shuffle=shuffle, seed=args.seed,
                                visual_target=args.visual_target, drop_last=drop_last,
                                prefetch=min(16, max(2, args.cache // max(batch_size, 1))),
-                               num_shards=world.size, shard_index=world.rank)
+                               num_shards=world.data_size, shard_index=world.data_rank)
 
     # eval and predict see every pair of their shard: the remainder is kept
-    eval_batch = max(args.eval_batch_size // world.size, 1)
+    eval_batch = max(args.eval_batch_size // world.data_size, 1)
     train_loader = loader(args.file_train, world.local_rows(args.train_batch_size,
                                                             "--train_batch_size"), True, True) \
         if args.do_train else None
@@ -213,20 +214,7 @@ def _run(args, world):
             logger.info("%s loader: %s producer%s", name, ld.producer,
                         f" ({ld.native_error})" if ld.native_error else "")
     result = {}
-    if args.do_train:
-        # ref finetune.py:315: the schedule spans num_train_epochs - start_epoch
-        total_steps = int(max(len(train_loader), 1)
-                          * max(args.num_train_epochs - args.start_epoch, 1))
-        trainer = alignment_loop.AlignmentTrainer(
-            config, learning_rate=args.learning_rate,
-            warmup_steps=int(args.warmup_proportion * total_steps),
-            total_steps=total_steps, grad_accum_steps=args.gradient_accumulation_steps,
-            micro_steps=args.micro_steps, adam_eps=args.adam_epsilon, seed=args.seed,
-            device=device, wire=args.wire, device_cache=args.device_cache or None,
-            skip_nonfinite=args.skip_nonfinite, world=world)
-        model = trainer.model
-    else:
-        model = build_model(config, seed=args.seed, device=device)
+    model = build_model(config, seed=args.seed, device=device, train=args.do_train)
     if args.pretrained_model_path:
         # every weight trains at the full LR, as in the JAX trainer
         load_pretrained(model, args.pretrained_model_path, strict=args.strict_load)
@@ -238,28 +226,43 @@ def _run(args, world):
     # the checkpoint last, so that it supersedes the weights above; read
     # whatever the mode, as the JAX CLI reads it: the full state for
     # training, the model's weights for --do_eval / --do_pred
+    state = None
     if args.file_checkpoint and os.path.exists(args.file_checkpoint):
         cm = CheckpointManager(args.file_checkpoint)
         state = cm.restore(map_location=device)
         if state is not None:
             epoch = int(cm.latest()["epoch"])
             if args.do_train:
-                trainer.load_state_dict(state)
                 start_epoch = max(start_epoch, epoch + 1)
             else:
                 model.load_state_dict(state["model"])
-                world.broadcast_module(model)
             logger.info("restored %s (epoch %d)", args.file_checkpoint, epoch)
     if args.do_train:
+        # ref finetune.py:315: the schedule spans num_train_epochs - start_epoch
+        total_steps = int(max(len(train_loader), 1)
+                          * max(args.num_train_epochs - args.start_epoch, 1))
+        # the trainer splits the loaded model over the model ranks
+        trainer = alignment_loop.AlignmentTrainer(
+            config, learning_rate=args.learning_rate,
+            warmup_steps=int(args.warmup_proportion * total_steps),
+            total_steps=total_steps, grad_accum_steps=args.gradient_accumulation_steps,
+            micro_steps=args.micro_steps, adam_eps=args.adam_epsilon, seed=args.seed,
+            device=device, wire=args.wire, device_cache=args.device_cache or None,
+            skip_nonfinite=args.skip_nonfinite, model=model, world=world)
+        if state is not None:
+            trainer.load_state_dict(state)
         result["history"] = trainer.fit(train_loader, val_loader,
                                         num_epochs=int(args.num_train_epochs),
                                         start_epoch=start_epoch, log_steps=args.log_steps,
                                         checkpoint_dir=args.output_dir)
         result["trainer"] = trainer
         result["producer"] = train_loader.producer
-    elif val_loader is not None:
-        result["sweep"] = alignment_loop.evaluate(model, val_loader, wire=args.wire,
-                                                  world=world)
+    else:
+        mesh.shard_model(model, world)
+        world.broadcast_module(model)
+        if val_loader is not None:
+            result["sweep"] = alignment_loop.evaluate(model, val_loader, wire=args.wire,
+                                                      world=world)
     if test_loader is not None:
         out = os.path.join(args.output_dir,
                            f"deepAI_result_threshold={args.threshold}.jsonl")

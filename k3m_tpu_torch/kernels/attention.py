@@ -11,11 +11,14 @@ bf16 once, for the tensor-core P V product.
 
 Dropout (rate > 0) keeps probability (q, k) of head (b, h) where the
 Philox4x32-10 word of counter (k // 4, q, 0, 0) under key
-(seed + salt, (row0 + b) * H + h), word k % 4, has `(bits >> 8) * 2^-24 >= rate`,
-and scales the kept ones by 1 / (1 - rate), as `_dropout_mask` does with
-the TPU's own bits (which nothing here can reproduce). `row0` (default 0)
-is the global row of the call's first row under data parallelism, so that
-a rank's rows draw the mask of the same rows of the global batch. The kernels
+(seed + salt, (row0 + b) * heads_global + head0 + h), word k % 4, has
+`(bits >> 8) * 2^-24 >= rate`, and scales the kept ones by 1 / (1 - rate),
+as `_dropout_mask` does with the TPU's own bits (which nothing here can
+reproduce). `row0` (default 0) is the global row of the call's first row
+under data parallelism, so that a rank's rows draw the mask of the same
+rows of the global batch; `head0` (default 0) and `heads_global` (default
+H) place the call's H heads among the layer's under tensor parallelism, so
+that a model rank's heads draw the mask of the same heads. The kernels
 (csrc/philox.cuh) and `philox_keep_mask_plain` compute the same bits.
 Only the forward draws the mask: where a gradient is needed it keeps it,
 one bit per element (`keep_words`, int32 [B, H, Lq, ceil(Lk / 32)], bit
@@ -86,13 +89,17 @@ def keep_threshold(rate: float):
 
 
 def philox_keep_mask_plain(seed: int, B: int, H: int, Lq: int, Lk: int,
-                           rate: float, salt: int = 0, device="cpu", row0: int = 0):
+                           rate: float, salt: int = 0, device="cpu", row0: int = 0,
+                           head0: int = 0, heads_global=None):
     """The kernels' dropout keep mask, bool [B, H, Lq, Lk], of rows
-    row0 .. row0 + B - 1."""
+    row0 .. row0 + B - 1 and heads head0 .. head0 + H - 1 of `heads_global`
+    (default H)."""
     keep_min, _ = keep_threshold(rate)
+    hg = H if heads_global is None else heads_global
     lk4 = -(-Lk // 4)
-    bh = torch.arange(row0 * H, (row0 + B) * H, dtype=torch.int64,
-                      device=device)[:, None, None]
+    rows = torch.arange(row0, row0 + B, dtype=torch.int64, device=device)
+    heads = torch.arange(head0, head0 + H, dtype=torch.int64, device=device)
+    bh = (rows[:, None] * hg + heads[None, :]).reshape(-1)[:, None, None]
     q = torch.arange(Lq, dtype=torch.int64, device=device)[None, :, None]
     kb = torch.arange(lk4, dtype=torch.int64, device=device)[None, None, :]
     shape = (B * H, Lq, lk4)
@@ -170,11 +177,12 @@ def attention_bwd_plain(q, k, v, bias, dout, keep=None, rate: float = 0.0):
     return dq.to(q.dtype), dk.to(q.dtype), dv.to(q.dtype)
 
 
-def _plain_keep(q, k, rate, seed, salt, row0=0):
+def _plain_keep(q, k, rate, seed, salt, row0=0, head0=0, heads_global=None):
     if rate <= 0.0:
         return None
     B, Lq, H, _ = q.shape
-    return philox_keep_mask_plain(seed, B, H, Lq, k.shape[1], rate, salt, q.device, row0)
+    return philox_keep_mask_plain(seed, B, H, Lq, k.shape[1], rate, salt, q.device, row0,
+                                  head0, heads_global)
 
 
 # ------------------------------------------------------------------ kernels
@@ -241,21 +249,24 @@ def _ptr(t):
     return t.data_ptr() if t is not None else None
 
 
-def _plain_forward(q, k, v, bias, rate, seed, salt, for_backward, row0=0):
+def _plain_forward(q, k, v, bias, rate, seed, salt, for_backward, row0=0, head0=0,
+                   heads_global=None):
     """(out, None, keep_words) of one direction on the CPU: the plain
     version, and where a backward follows under dropout the words of its
     mask (the plain backward reads no lse)."""
-    keep = _plain_keep(q, k, rate, seed, salt, row0)
+    keep = _plain_keep(q, k, rate, seed, salt, row0, head0, heads_global)
     words = pack_keep_words(keep) if for_backward and keep is not None else None
     return attention_plain(q, k, v, bias, keep, rate), None, words
 
 
-def _forward(q, k, v, bias, rate, seed, for_backward=False, row0=0):
+def _forward(q, k, v, bias, rate, seed, for_backward=False, row0=0, head0=0,
+             heads_global=None):
     """(out, lse, keep_words): the kernel for CUDA tensors, which keeps lse
     and (under dropout) the mask words where the backward will read them;
     the plain version for CPU tensors, which keeps the mask words alone."""
     if _device_kind(q, "fused_attention") == "cpu":
-        return _plain_forward(q, k, v, bias, rate, seed, 0, for_backward, row0)
+        return _plain_forward(q, k, v, bias, rate, seed, 0, for_backward, row0, head0,
+                              heads_global)
     check_operands(q, k, v, bias, "fused_attention")
     keep_min, keep_scale = keep_threshold(rate)
     B, Lq, H, D = q.shape
@@ -270,8 +281,8 @@ def _forward(q, k, v, bias, rate, seed, for_backward=False, row0=0):
         q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
         out.data_ptr(), _ptr(lse), _ptr(words),
         build.DTYPE_CODES[q.dtype], B, H, Lq, k.shape[1], D, strides,
-        1.0 / math.sqrt(D), seed & U32, keep_min, keep_scale, row0,
-        build.stream_handle(q.device))
+        1.0 / math.sqrt(D), seed & U32, keep_min, keep_scale, row0, head0,
+        H if heads_global is None else heads_global, build.stream_handle(q.device))
     build.check(rc, "k3m_attention_fwd")
     fused_attention.launches += 1
     return out, lse, words
@@ -326,9 +337,9 @@ def attention_bwd(q, k, v, bias, out, lse, keep_words, dout, rate: float = 0.0):
 
 class _FusedAttention(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, q, k, v, bias, rate, seed, row0):
+    def forward(ctx, q, k, v, bias, rate, seed, row0, head0, heads_global):
         out, lse, words = _forward(q, k, v, bias, rate, seed, for_backward=True,
-                                   row0=row0)
+                                   row0=row0, head0=head0, heads_global=heads_global)
         ctx.save_for_backward(q, k, v, bias, out, lse, words)
         ctx.rate = rate
         return out
@@ -336,20 +347,40 @@ class _FusedAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dout):
         dq, dk, dv = attention_bwd(*ctx.saved_tensors, dout, ctx.rate)
-        return dq, dk, dv, None, None, None, None
+        return dq, dk, dv, None, None, None, None, None, None
+
+
+def check_mask_key(name, B, H, row0, head0, heads_global):
+    """Raise where the Philox key words of rows row0 .. row0 + B - 1 and
+    heads head0 .. head0 + H - 1 of `heads_global` are not all distinct
+    and below 2^31 (the same check on the CPU and on the card)."""
+    if row0 < 0:
+        raise ValueError(f"{name}: row0 {row0} < 0")
+    if head0 < 0:
+        raise ValueError(f"{name}: head0 {head0} < 0")
+    if heads_global < head0 + H:
+        raise ValueError(f"{name}: heads {head0}..{head0 + H - 1} beyond heads_global "
+                         f"{heads_global}")
+    if (row0 + B) * heads_global > 2 ** 31 - 1:
+        raise ValueError(f"{name}: the mask key (row0 + B) * heads_global = "
+                         f"{(row0 + B) * heads_global} is beyond 2^31")
 
 
 def fused_attention(q, k, v, bias, *, dropout_rate: float = 0.0, seed: int = 0,
-                    row0: int = 0):
+                    row0: int = 0, head0: int = 0, heads_global=None):
     """softmax(q k^T / sqrt(D) + bias) v per (batch, head), probabilities
     dropped at `dropout_rate` with the Philox mask of `seed` for rows
-    row0 .. row0 + B - 1. Differentiable in q, k and v."""
+    row0 .. row0 + B - 1 and heads head0 .. head0 + H - 1 of `heads_global`
+    (default H). Differentiable in q, k and v."""
     keep_threshold(dropout_rate)
-    if row0 < 0:
-        raise ValueError(f"fused_attention: row0 {row0} < 0")
+    B, _, H, _ = q.shape
+    heads_global = H if heads_global is None else heads_global
+    check_mask_key("fused_attention", B, H, row0, head0, heads_global)
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
-        return _FusedAttention.apply(q, k, v, bias, dropout_rate, seed, row0)
-    return _forward(q, k, v, bias, dropout_rate, seed, row0=row0)[0]
+        return _FusedAttention.apply(q, k, v, bias, dropout_rate, seed, row0, head0,
+                                     heads_global)
+    return _forward(q, k, v, bias, dropout_rate, seed, row0=row0, head0=head0,
+                    heads_global=heads_global)[0]
 
 
 fused_attention.launches = 0

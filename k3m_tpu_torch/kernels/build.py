@@ -102,11 +102,11 @@ def _declare(lib):
     lib.k3m_ln_bwd_bands.argtypes = [I]
     lib.k3m_layernorm_bwd.argtypes = [P, I, P, P, P, P, P, I, P, P, P, I, I, P]
     lib.k3m_attention_fwd.argtypes = [P, P, P, P, P, P, P, I, I, I, I, I, I, P, F,
-                                      U, U, F, I, P]
+                                      U, U, F, I, I, I, P]
     lib.k3m_attention_bwd.argtypes = [P, P, P, P, P, P, P, P, P, P, P, P,
                                       I, I, I, I, I, I, P, F, U, F, P]
     lib.k3m_biattention_fwd.argtypes = [P, P, P, P, P, P, P, P, P, P, P, P, P, P,
-                                        I, I, I, I, I, I, P, F, U, U, F, U, F, I, P]
+                                        I, I, I, I, I, I, P, F, U, U, F, U, F, I, I, I, P]
     for fn in (lib.k3m_layernorm_fwd, lib.k3m_ln_bwd_bands, lib.k3m_layernorm_bwd,
                lib.k3m_attention_fwd, lib.k3m_attention_bwd, lib.k3m_biattention_fwd):
         fn.restype = I

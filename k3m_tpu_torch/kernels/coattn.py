@@ -10,7 +10,8 @@ Each bias belongs to the KEY side of its direction. `dropout1` drops the
 probabilities over stream 1's values, `dropout2` those over stream 2's;
 direction 1 draws its Philox mask from `seed`, direction 2 from
 `seed + 7919` (the TPU kernel's salts), both keyed by the global row
-(`row0` + b, attention.py). The backward is the attention
+and the global head (`row0` + b, `head0` + h of `heads_global`,
+attention.py). The backward is the attention
 backward once per direction (coattn.py:178-192), fed what the forward
 keeps for each direction: its output, its row log-sum-exp and (under
 dropout) its mask words.
@@ -25,7 +26,7 @@ import torch
 from k3m_tpu_torch.kernels import build
 from k3m_tpu_torch.kernels.attention import (
     U32, _device_kind, _plain_forward, _ptr, attention_bwd, attention_plain, bld_strides,
-    check_operands, keep_threshold, keep_words_for,
+    check_mask_key, check_operands, keep_threshold, keep_words_for,
 )
 
 SALT2 = 7919
@@ -38,15 +39,15 @@ def biattention_plain(q1, k1, v1, bias1, q2, k2, v2, bias2, keep1=None,
 
 
 def _forward(q1, k1, v1, bias1, q2, k2, v2, bias2, dropout1, dropout2, seed,
-             for_backward=False, row0=0):
+             for_backward=False, row0=0, head0=0, heads_global=None):
     """(out1, out2, kept1, kept2): each direction's (lse, keep_words) as
     attention._forward keeps them (lse1 [B, H, L2], lse2 [B, H, L1]; on the
     CPU lse None), where a backward will read them, else (None, None)."""
     if _device_kind(q1, "fused_biattention") == "cpu":
         out1, *kept1 = _plain_forward(q2, k1, v1, bias1, dropout1, seed, 0, for_backward,
-                                      row0)
+                                      row0, head0, heads_global)
         out2, *kept2 = _plain_forward(q1, k2, v2, bias2, dropout2, seed, SALT2, for_backward,
-                                      row0)
+                                      row0, head0, heads_global)
         return out1, out2, tuple(kept1), tuple(kept2)
     check_operands(q2, k1, v1, bias1, "fused_biattention (direction 1)")
     check_operands(q1, k2, v2, bias2, "fused_biattention (direction 2)")
@@ -75,7 +76,8 @@ def _forward(q1, k1, v1, bias1, q2, k2, v2, bias2, dropout1, dropout2, seed,
         out1.data_ptr(), out2.data_ptr(), _ptr(lse1), _ptr(lse2), _ptr(words1),
         _ptr(words2), build.DTYPE_CODES[q1.dtype],
         B, H, L1, L2, D, strides, 1.0 / math.sqrt(D), seed & U32,
-        min1, scale1, min2, scale2, row0, build.stream_handle(q1.device))
+        min1, scale1, min2, scale2, row0, head0,
+        H if heads_global is None else heads_global, build.stream_handle(q1.device))
     build.check(rc, "k3m_biattention_fwd")
     fused_biattention.launches += 1
     return out1, out2, (lse1, words1), (lse2, words2)
@@ -83,10 +85,12 @@ def _forward(q1, k1, v1, bias1, q2, k2, v2, bias2, dropout1, dropout2, seed,
 
 class _FusedBiAttention(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, q1, k1, v1, bias1, q2, k2, v2, bias2, dropout1, dropout2, seed, row0):
+    def forward(ctx, q1, k1, v1, bias1, q2, k2, v2, bias2, dropout1, dropout2, seed, row0,
+                head0, heads_global):
         out1, out2, kept1, kept2 = _forward(q1, k1, v1, bias1, q2, k2, v2, bias2,
                                             dropout1, dropout2, seed, for_backward=True,
-                                            row0=row0)
+                                            row0=row0, head0=head0,
+                                            heads_global=heads_global)
         ctx.save_for_backward(q1, k1, v1, bias1, q2, k2, v2, bias2, out1, out2, *kept1, *kept2)
         ctx.rates = (dropout1, dropout2)
         return out1, out2
@@ -98,22 +102,25 @@ class _FusedBiAttention(torch.autograd.Function):
         r1, r2 = ctx.rates
         dq2, dk1, dv1 = attention_bwd(q2, k1, v1, bias1, out1, lse1, words1, dctx1, r1)
         dq1, dk2, dv2 = attention_bwd(q1, k2, v2, bias2, out2, lse2, words2, dctx2, r2)
-        return dq1, dk1, dv1, None, dq2, dk2, dv2, None, None, None, None, None
+        return dq1, dk1, dv1, None, dq2, dk2, dv2, None, None, None, None, None, None, None
 
 
 def fused_biattention(q1, k1, v1, bias1, q2, k2, v2, bias2, *,
                       dropout1: float = 0.0, dropout2: float = 0.0, seed: int = 0,
-                      row0: int = 0):
+                      row0: int = 0, head0: int = 0, heads_global=None):
     """(ctx1, ctx2) as above; differentiable in the six projections."""
     keep_threshold(dropout1)
     keep_threshold(dropout2)
-    if row0 < 0:
-        raise ValueError(f"fused_biattention: row0 {row0} < 0")
+    B, _, H, _ = q1.shape
+    heads_global = H if heads_global is None else heads_global
+    check_mask_key("fused_biattention", B, H, row0, head0, heads_global)
     args = (q1, k1, v1, bias1, q2, k2, v2, bias2)
     if torch.is_grad_enabled() and any(
             t.requires_grad for t in (q1, k1, v1, q2, k2, v2)):
-        return _FusedBiAttention.apply(*args, dropout1, dropout2, seed, row0)
-    return _forward(*args, dropout1, dropout2, seed, row0=row0)[:2]
+        return _FusedBiAttention.apply(*args, dropout1, dropout2, seed, row0, head0,
+                                       heads_global)
+    return _forward(*args, dropout1, dropout2, seed, row0=row0, head0=head0,
+                    heads_global=heads_global)[:2]
 
 
 fused_biattention.launches = 0

@@ -84,24 +84,28 @@ int launch(const k3m::AttnArgs& a, int B, int H, int d, cudaStream_t stream) {
 // cudaGetLastError() after the launch (0 on success).
 // Dropout: keep iff (philox bits >> 8) >= keep_min (0: no dropout), kept
 // probabilities scaled by keep_scale; see philox.cuh. `row0`: the global row
-// of batch row 0 (data parallelism), the mask's key word 1 being
-// (row0 + b) * H + h.
+// of batch row 0 (data parallelism); `head0`, `heads_global`: the call's H
+// heads are heads head0 .. head0 + H - 1 of the layer's heads_global (tensor
+// parallelism); the mask's key word 1 is (row0 + b) * heads_global + head0 + h.
 extern "C" int k3m_attention_fwd(const void* q, const void* k, const void* v,
                                  const float* bias, void* out, float* lse,
                                  uint32_t* keep_words, int dtype, int B,
                                  int H, int lq, int lk, int d,
                                  const long long* strides, float scale,
                                  unsigned seed, unsigned keep_min, float keep_scale,
-                                 int row0, void* stream_ptr) {
+                                 int row0, int head0, int heads_global, void* stream_ptr) {
   if (B <= 0 || H <= 0 || lq <= 0 || lk <= 0 || B > 65535 || H > 65535 ||
-      keep_min >= k3m::kKeepMinLimit || row0 < 0 ||
-      (static_cast<long long>(row0) + B) * H > 0x7fffffffLL)
+      keep_min >= k3m::kKeepMinLimit || row0 < 0 || head0 < 0 ||
+      static_cast<long long>(head0) + H > heads_global ||
+      (static_cast<long long>(row0) + B) * heads_global > 0x7fffffffLL)
     return cudaErrorInvalidValue;
   k3m::AttnArgs a = k3m::make_args(q, k, v, bias, out, strides, lq, lk, H, scale,
                                    seed, keep_min, keep_scale);
   a.lse = lse;
   a.keep_words = keep_words;
   a.batch_row0 = row0;
+  a.key_heads = heads_global;
+  a.key_head0 = head0;
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   if (dtype == k3m::kF32) return launch<float>(a, B, H, d, stream);
   if (!k3m::mma_aligned(a)) return cudaErrorInvalidValue;

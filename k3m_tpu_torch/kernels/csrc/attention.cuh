@@ -62,8 +62,10 @@ struct AttnArgs {
   float keep_scale;   // 1 / (1 - rate)
   float* lse;         // [B, H, Lq] row log-sum-exp out, or null
   uint32_t* keep_words;  // [B, H, Lq, ceil(Lk / 32)] dropout mask out, or null
-  int batch_row0;        // global row of batch row 0: Philox key word 1 is
-                         // (batch_row0 + b) * heads + h (data parallelism)
+  int batch_row0;        // global row of batch row 0, and
+  int key_heads;         // the layer's heads, of which head h is key_head0 + h:
+  int key_head0;         // Philox key word 1 is (batch_row0 + b) * key_heads +
+                         // key_head0 + h (data and tensor parallelism)
 };
 
 template <int D>
@@ -132,7 +134,8 @@ __device__ __forceinline__ void attn_tile(const AttnArgs& a, int b, int h, int q
     const float alpha = expf(m - m_new);
     uint32_t kw = 0;   // bit j keeps key k0 + j
     if (a.keep_min) {
-      kw = keep_bits4(a.seed, (a.batch_row0 + b) * a.heads + h, q0 + r, k0 + 4 * c,
+      kw = keep_bits4(a.seed, (a.batch_row0 + b) * a.key_heads + a.key_head0 + h, q0 + r,
+                      k0 + 4 * c,
                       a.keep_min) << (4 * c);
 #pragma unroll
       for (int off = 1; off < kRowLanes; off <<= 1) kw |= __shfl_xor_sync(0xffffffffu, kw, off);
@@ -192,6 +195,8 @@ inline AttnArgs make_args(const void* q, const void* k, const void* v,
   a.lse = nullptr;
   a.keep_words = nullptr;
   a.batch_row0 = 0;
+  a.key_heads = heads;
+  a.key_head0 = 0;
   return a;
 }
 

@@ -118,7 +118,8 @@ __device__ __forceinline__ void attn_tile_mma(const AttnArgs& a, int b, int h, i
   const bool live = q0 + row0 < a.lq;         // warp-uniform
   const uint32_t bh = static_cast<uint32_t>(b * a.heads + h);
   const long long row_base = static_cast<long long>(bh) * a.lq;
-  const uint32_t key_bh = static_cast<uint32_t>((a.batch_row0 + b) * a.heads + h);
+  const uint32_t key_bh =
+      static_cast<uint32_t>((a.batch_row0 + b) * a.key_heads + a.key_head0 + h);
   const float scale2 = a.scale * kLog2e;
   const int tiles = (a.lk + BK - 1) / BK;
 

@@ -125,7 +125,8 @@ int launch(const k3m::AttnArgs& dir1, const k3m::AttnArgs& dir2, int B, int H,
 // ceil(L1 / 32)] and words2 [B, H, L1, ceil(L2 / 32)]: null, or the two
 // directions' dropout masks out, one bit per element. keep_min1/2 and
 // keep_scale1/2 are the two directions' dropout (0: none); both key their
-// masks by the global row (row0 + b, attention.cu). Returns
+// masks by the global row and head ((row0 + b) * heads_global + head0 + h,
+// attention.cu). Returns
 // cudaGetLastError() after the launch (0 on success).
 extern "C" int k3m_biattention_fwd(const void* q1, const void* k1, const void* v1,
                                    const float* bias1, const void* q2,
@@ -137,10 +138,12 @@ extern "C" int k3m_biattention_fwd(const void* q1, const void* k1, const void* v
                                    const long long* st, float scale, unsigned seed,
                                    unsigned keep_min1, float keep_scale1,
                                    unsigned keep_min2, float keep_scale2,
-                                   int row0, void* stream_ptr) {
+                                   int row0, int head0, int heads_global,
+                                   void* stream_ptr) {
   if (B <= 0 || H <= 0 || l1 <= 0 || l2 <= 0 || B > 65535 || H > 65535 ||
       keep_min1 >= k3m::kKeepMinLimit || keep_min2 >= k3m::kKeepMinLimit || row0 < 0 ||
-      (static_cast<long long>(row0) + B) * H > 0x7fffffffLL)
+      head0 < 0 || static_cast<long long>(head0) + H > heads_global ||
+      (static_cast<long long>(row0) + B) * heads_global > 0x7fffffffLL)
     return cudaErrorInvalidValue;
   // direction 1: stream-2 queries over stream-1 keys/values, bias1
   const long long s1[13] = {st[9], st[10], st[11], st[3], st[4], st[5],
@@ -157,6 +160,8 @@ extern "C" int k3m_biattention_fwd(const void* q1, const void* k1, const void* v
   dir1.keep_words = words1;
   dir2.keep_words = words2;
   dir1.batch_row0 = dir2.batch_row0 = row0;
+  dir1.key_heads = dir2.key_heads = heads_global;
+  dir1.key_head0 = dir2.key_head0 = head0;
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   if (dtype == k3m::kF32) return launch<float>(dir1, dir2, B, H, d, stream);
   if (!k3m::mma_aligned(dir1) || !k3m::mma_aligned(dir2)) return cudaErrorInvalidValue;

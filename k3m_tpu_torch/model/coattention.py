@@ -11,6 +11,11 @@ probabilities: `dropout1` those over stream 1's values
 coattention.py:120-154 and :180-212; the two-text layer drops its stream-1
 FFN output at the text rate. The reference's dead `q_dense*` parameters
 are not created.
+
+Under tensor parallelism (train/mesh.py) `BiAttention` is column-parallel
+over its heads, `biOutput.dense1/dense2` and `v_output`/`t_output` are
+row-parallel and `v_intermediate`/`t_intermediate` column-parallel, as the
+JAX package's param rules give them (k3m_tpu/train/mesh.py:41-58).
 """
 
 from __future__ import annotations
@@ -31,7 +36,11 @@ class BiAttention(nn.Module):
     """Cross attention between stream 1 (visual-like) and stream 2
     (text-like). Returns (ctx1, ctx2) in reference order: ctx1 = stream-2
     queries over stream 1 [B, L2, bi], ctx2 = stream-1 queries over
-    stream 2 [B, L1, bi]; each bias is its key stream's."""
+    stream 2 [B, L1, bi]; each bias is its key stream's. Under tensor
+    parallelism (`tp` model ranks) it runs heads head0 .. head0 +
+    num_heads / tp - 1 of both directions."""
+    tp = 1
+    head0 = 0
 
     def __init__(self, size1: int, size2: int, bi_size: int, num_heads: int,
                  dropout1: float = 0.0, dropout2: float = 0.0):
@@ -46,13 +55,15 @@ class BiAttention(nn.Module):
         self.value2 = Linear(size2, bi_size)
 
     def forward(self, x1, bias1, x2, bias2, deterministic: bool = True):
-        h = self.num_heads
+        h = self.num_heads // self.tp
+        x1, x2 = dist.copy_to_model(x1, self.tp), dist.copy_to_model(x2, self.tp)
         s = lambda lin, x: split_heads(lin(x), h)
         drop = dict(dropout1=0.0 if deterministic else self.dropout1,
                     dropout2=0.0 if deterministic else self.dropout2)
         if drop["dropout1"] > 0.0 or drop["dropout2"] > 0.0:
             drop["seed"] = k3m_random.active().kernel_seed()
             drop["row0"] = dist.window(x1.shape[0])[0]
+            drop["head0"], drop["heads_global"] = self.head0, self.num_heads
         ctx1, ctx2 = fused_biattention(
             s(self.query1, x1), s(self.key1, x1), s(self.value1, x1), bias1,
             s(self.query2, x2), s(self.key2, x2), s(self.value2, x2), bias2, **drop)

@@ -37,15 +37,44 @@ def _chunk_nll(xi, li, table, bias, ignore_index: int):
     return torch.where(valid, nll, torch.zeros_like(nll)).sum(), valid.sum()
 
 
+def _chunk_nll_vocab_parallel(xi, li, table, bias, ignore_index: int, vocab0: int,
+                              world: dist.World):
+    """`_chunk_nll` over this model rank's vocab rows vocab0 .. vocab0 + V
+    / tp - 1 (`table`, `bias`): the local logits, the row max and the sum
+    of exp over the model group of `world` (passed in: the recompute in the
+    backward runs where no world is active), the label logit on the rank
+    that owns the label; every rank gets the whole chunk's (sum, count)."""
+    tp = world.n_model
+    xi = dist.copy_to_model(xi, tp, world)
+    logits = (torch.matmul(xi, table.t()).to(xi.dtype) + bias.to(xi.dtype)).float()
+    valid = li != ignore_index
+    safe = torch.where(valid, li, torch.zeros_like(li))
+    m = dist.model_max(logits.max(dim=-1).values, tp, world)
+    lse = m + torch.log(dist.reduce_from_model(torch.exp(logits - m[..., None]).sum(-1), tp,
+                                               world))
+    local = safe - vocab0
+    own = (local >= 0) & (local < table.shape[0])
+    local = torch.where(own, local, torch.zeros_like(local))
+    label_logit = ((xi.float() * F.embedding(local, table).float()).sum(-1)
+                   + F.embedding(local, bias[:, None])[..., 0])
+    label_logit = dist.reduce_from_model(
+        torch.where(own, label_logit, torch.zeros_like(label_logit)), tp, world)
+    nll = lse - label_logit
+    return torch.where(valid, nll, torch.zeros_like(nll)).sum(), valid.sum()
+
+
 def chunked_masked_ce(x, table, bias, labels, chunk: int,
-                      ignore_index: int = -1) -> torch.Tensor:
+                      ignore_index: int = -1, vocab0: int = 0, tp: int = 1) -> torch.Tensor:
     """Mean CE(ignore -1) over vocab logits `x @ table.T + bias`
     (k3m_tpu/model/heads.py:39-92): the sequence is cut in chunks of
     `chunk` (the last one padded), and each chunk runs under
     torch.utils.checkpoint, so its [B, chunk, vocab] logits are recomputed
     in the backward instead of saved. Logits are stored in x's dtype and
     reduced in fp32, as in the JAX package. The count is the global
-    batch's (k3m_tpu_torch/dist.py)."""
+    batch's (k3m_tpu_torch/dist.py). Vocab-parallel where `tp` > 1:
+    `table` and `bias` are this model rank's rows from `vocab0` on
+    (`_chunk_nll_vocab_parallel`); every rank recomputes its chunks in the
+    backward in the same order, which repeats their collectives alike."""
     B, L, _ = x.shape
     pad = (-L) % chunk
     if pad:
@@ -53,9 +82,11 @@ def chunked_masked_ce(x, table, bias, labels, chunk: int,
         labels = F.pad(labels, (0, pad), value=ignore_index)
     total = torch.zeros((), dtype=torch.float32, device=x.device)
     count = torch.zeros((), dtype=torch.int64, device=x.device)
+    fn, extra = ((_chunk_nll, ()) if tp == 1 else
+                 (_chunk_nll_vocab_parallel, (vocab0, dist.model_world(tp))))
     for i in range(0, L + pad, chunk):
-        s, c = checkpoint(_chunk_nll, x[:, i:i + chunk], labels[:, i:i + chunk],
-                          table, bias, ignore_index, use_reentrant=False)
+        s, c = checkpoint(fn, x[:, i:i + chunk], labels[:, i:i + chunk],
+                          table, bias, ignore_index, *extra, use_reentrant=False)
         total = total + s
         count = count + c
     return total / torch.clamp(dist.current().sum_counts(count), min=1)
@@ -77,7 +108,11 @@ class _Transform(nn.Module):
 class LMPredictionHead(nn.Module):
     """MLM head: transform, then the tied word table plus an output-only
     bias; returns the mean masked CE over `labels` (chunked_masked_ce), so
-    the [B, L, vocab] logits never exist."""
+    the [B, L, vocab] logits never exist. Vocab-parallel under tensor
+    parallelism (`tp` model ranks): the bias holds the rows of the table's
+    shard, from `vocab0` on."""
+    tp = 1
+    vocab0 = 0
 
     def __init__(self, cfg: K3MConfig):
         super().__init__()
@@ -88,7 +123,7 @@ class LMPredictionHead(nn.Module):
     def forward(self, hidden_states, word_embedding_table, labels):
         table = word_embedding_table.to(compute_dtype(self.cfg))
         return chunked_masked_ce(self.transform(hidden_states), table, self.bias,
-                                 labels, self.cfg.ce_chunk)
+                                 labels, self.cfg.ce_chunk, vocab0=self.vocab0, tp=self.tp)
 
 
 class ImagePredictionHead(nn.Module):

@@ -18,6 +18,19 @@ Training (`deterministic=False`) adds the JAX package's dropout sites
 (k3m_tpu/model/layers.py:330, :350, :445, :458, :496, :506), with bits from
 the active StepRandom (model/random.py); attention-probability dropout runs
 inside the attention kernels.
+
+Tensor parallelism (train/mesh.py `shard_model`, the JAX package's
+'model' axis rules): a sharded layer holds this model rank's slice of its
+weights and its `tp` (the model ranks). The query/key/value and FFN-in
+Linears are column-parallel: their owners (`SelfAttention`, `Dense`,
+coattention's `BiAttention`) take the replicated input through
+`dist.copy_to_model` and compute the local heads or columns; the
+attention-out and FFN-out Linears are row-parallel (`Linear.parallel ==
+"row"`): the local partial product is summed over the model group
+(`dist.reduce_from_model`) before the bias, the dropout and the LN kernel,
+so every activation outside those layers stays replicated. The word
+embedding is vocab-parallel. With `tp` 1 every layer runs the
+one-process code.
 """
 
 from __future__ import annotations
@@ -51,12 +64,20 @@ def act_fn(name: str):
 class Linear(nn.Linear):
     """nn.Linear computing in `compute_dtype` (set by set_compute_dtype;
     default the weight's dtype): input, weight and bias are cast at each
-    use, so fp32 parameters get fp32 gradients through the cast."""
+    use, so fp32 parameters get fp32 gradients through the cast. Row-parallel
+    (`parallel` "row", `tp` model ranks; train/mesh.py): the weight's input
+    columns are this rank's, and the partial products are summed over the
+    model group before the bias is added once."""
     compute_dtype = None
+    parallel = None
+    tp = 1
 
     def forward(self, x):
         dt = self.compute_dtype or self.weight.dtype
         bias = self.bias.to(dt) if self.bias is not None else None
+        if self.parallel == "row":
+            y = dist.reduce_from_model(F.linear(x.to(dt), self.weight.to(dt)), self.tp)
+            return y if bias is None else y + bias
         return F.linear(x.to(dt), self.weight.to(dt), bias)
 
 
@@ -131,15 +152,17 @@ def mask_to_bias(mask: torch.Tensor) -> torch.Tensor:
 
 
 def attention_core(q, k, v, bias, dropout_rate: float = 0.0,
-                   deterministic: bool = True):
+                   deterministic: bool = True, head0: int = 0, heads_global=None):
     """Scaled dot-product attention over [B, L, H, D] tensors with an fp32
     [B, Lk] key bias; fp32 softmax, as the Pallas kernel computes it; in
-    training the kernel drops probabilities at `dropout_rate`."""
+    training the kernel drops probabilities at `dropout_rate`, the H heads
+    drawing the mask of heads head0 .. head0 + H - 1 of `heads_global`."""
     if deterministic or dropout_rate <= 0.0:
         return fused_attention(q, k, v, bias)
     return fused_attention(q, k, v, bias, dropout_rate=dropout_rate,
                            seed=k3m_random.active().kernel_seed(),
-                           row0=dist.window(q.shape[0])[0])
+                           row0=dist.window(q.shape[0])[0], head0=head0,
+                           heads_global=heads_global)
 
 
 def split_heads(x, num_heads: int):
@@ -155,14 +178,17 @@ def merge_heads(x):
 
 
 class Dense(nn.Module):
-    """`dense` Linear (reference BertIntermediate-style container)."""
+    """`dense` Linear (reference BertIntermediate-style container);
+    column-parallel under tensor parallelism (`tp` model ranks): the
+    output columns are this rank's."""
+    tp = 1
 
     def __init__(self, n_in: int, n_out: int):
         super().__init__()
         self.dense = Linear(n_in, n_out)
 
     def forward(self, x):
-        return self.dense(x)
+        return self.dense(dist.copy_to_model(x, self.tp))
 
 
 class DenseLayerNorm(nn.Module):
@@ -181,7 +207,13 @@ class BertEmbeddings(nn.Module):
     """Word + position + type embeddings summed in fp32, then LN to the
     compute dtype (ref :335-408). `model == "roberta"` offsets position ids
     by 2 only under fix_reference_bugs (the reference recomputes them,
-    k3m_tpu/model/layers.py:303-310)."""
+    k3m_tpu/model/layers.py:303-310). Vocab-parallel under tensor
+    parallelism (`tp` model ranks): the table holds rows vocab0 ..
+    vocab0 + V / tp - 1, an id outside them looks up zeros, and the rows
+    are summed over the model group (exact: one rank adds a row, the others
+    zeros)."""
+    tp = 1
+    vocab0 = 0
 
     def __init__(self, cfg: K3MConfig):
         super().__init__()
@@ -200,10 +232,22 @@ class BertEmbeddings(nn.Module):
         pos_ids = torch.arange(seq_len, device=input_ids.device)
         if self.cfg.model == "roberta" and self.cfg.fix_reference_bugs:
             pos_ids = pos_ids + 2
-        x = (self.word_embeddings(input_ids)
+        x = (self.word(input_ids)
              + self.position_embeddings(pos_ids)[None, :, :]
              + self.token_type_embeddings(token_type_ids))
         return dropout(self.LayerNorm(x), self.cfg.hidden_dropout_prob, deterministic)
+
+    def word(self, input_ids):
+        """The word embeddings of `input_ids`, from this rank's rows of the
+        table under tensor parallelism."""
+        if self.tp == 1:
+            return self.word_embeddings(input_ids)
+        local = input_ids - self.vocab0
+        inside = (local >= 0) & (local < self.word_embeddings.weight.shape[0])
+        rows = F.embedding(torch.where(inside, local, torch.zeros_like(local)),
+                           self.word_embeddings.weight)
+        rows = torch.where(inside[..., None], rows, torch.zeros_like(rows))
+        return dist.reduce_from_model(rows, self.tp)
 
 
 class ImageEmbeddings(nn.Module):
@@ -227,7 +271,12 @@ class ImageEmbeddings(nn.Module):
 class SelfAttention(nn.Module):
     """Multi-head self-attention (ref BertSelfAttention:411). With `gated`
     it also holds the image stream's dynamic-attention projections
-    `dyLinear_q`/`dyLinear_k` (ref :572-601), which ImageLayer applies."""
+    `dyLinear_q`/`dyLinear_k` (ref :572-601), which ImageLayer applies.
+    Under tensor parallelism (`tp` model ranks) it runs heads head0 ..
+    head0 + num_heads / tp - 1; the replicated gates are sliced to their
+    columns."""
+    tp = 1
+    head0 = 0
 
     def __init__(self, cfg: K3MConfig, hidden: int, num_heads: int,
                  attn_dropout: float, gated: bool = False):
@@ -242,15 +291,25 @@ class SelfAttention(nn.Module):
             self.dyLinear_k = Linear(cfg.hidden_size, hidden)
 
     def forward(self, x, bias, gate_q=None, gate_k=None, deterministic: bool = True):
+        x = dist.copy_to_model(x, self.tp)
         q, k, v = self.query(x), self.key(x), self.value(x)
         if gate_q is not None:
-            q = q * gate_q[:, None, :]
+            q = q * self.local_columns(gate_q)[:, None, :]
         if gate_k is not None:
-            k = k * gate_k[:, None, :]
-        h = self.num_heads
+            k = k * self.local_columns(gate_k)[:, None, :]
+        h = self.num_heads // self.tp
         ctx = attention_core(split_heads(q, h), split_heads(k, h),
-                             split_heads(v, h), bias, self.attn_dropout, deterministic)
+                             split_heads(v, h), bias, self.attn_dropout, deterministic,
+                             self.head0, self.num_heads)
         return merge_heads(ctx)
+
+    def local_columns(self, gate):
+        """This rank's heads' columns of a replicated [B, hidden] gate."""
+        if self.tp == 1:
+            return gate
+        width = gate.shape[-1] // self.tp
+        c0 = self.head0 // (self.num_heads // self.tp) * width
+        return dist.copy_to_model(gate, self.tp)[:, c0:c0 + width]
 
 
 class Attention(nn.Module):

@@ -25,6 +25,20 @@ or with the JAX package's K3M_COORDINATOR_ADDRESS / K3M_NUM_PROCESSES /
 K3M_PROCESS_ID (train/dist.py), each rank runs on cuda:LOCAL_RANK with
 `--train_batch_size / N` rows of a shard of the records, and a step is the
 one-process step on the global batch (root pretrain.py:168-199).
+
+Tensor parallelism: `--n_model M` lays the N ranks out as N / M data
+groups of M consecutive model ranks (k3m_tpu/train/mesh.py:30-38); the
+model ranks of a data group read the same `--train_batch_size / (N / M)`
+rows and each holds 1 / M of the attention heads, the FFN columns and the
+vocab (train/mesh.py). On N cards:
+
+    torchrun --nproc_per_node N -m k3m_tpu_torch.pretrain --n_model M ...
+
+Ranks that share one card run over gloo (NCCL refuses two ranks on one
+device): K3M_COORDINATOR_ADDRESS=127.0.0.1:<port> K3M_NUM_PROCESSES=N
+K3M_PROCESS_ID=r K3M_DIST_BACKEND=gloo per rank. `--n_model` must divide N
+and every head count, sharded width and the vocab; otherwise the run raises
+by name.
 """
 
 from __future__ import annotations
@@ -115,7 +129,6 @@ def refuse_unported(args) -> None:
     """Options of the JAX package the port does not have yet."""
     refused = {
         "--data_backend grain": args.data_backend == "grain",
-        "--n_model > 1 (tensor parallelism)": args.n_model > 1,
     }
     for name, hit in refused.items():
         if hit:
@@ -135,16 +148,19 @@ def find_config(args) -> Path:
 def main(argv=None):
     args = get_parser().parse_args(argv)
     refuse_unported(args)
-    from k3m_tpu_torch.train import dist
+    from k3m_tpu_torch.train import dist, mesh
 
-    world = dist.init_from_env(args.device)
+    config = resolve_config(args)
+    mesh.check_model_axis(config, args.n_model)
+    world = dist.init_from_env(args.device, args.n_model)
     try:
-        return _run(args, world)
+        return _run(args, world, config)
     finally:
         world.close()
 
 
-def _run(args, world):
+def resolve_config(args):
+    """The config file with the flags' overrides (root pretrain.py:116-140)."""
     from k3m_tpu_torch.config import K3MConfig
     config = K3MConfig.from_json_file(str(find_config(args)))
     overrides = dict(
@@ -160,8 +176,10 @@ def _run(args, world):
         overrides["v_target_size"] = config.v_feature_size
     if args.freeze > -1:
         overrides["fixed_t_layer"] = args.freeze
-    config = config.replace(**overrides)
+    return config.replace(**overrides)
 
+
+def _run(args, world, config):
     def path(split):
         name = args.file_name.format(split) if "{}" in args.file_name else args.file_name
         return os.path.join(args.data_dir, name)
@@ -180,7 +198,8 @@ def run_pretraining(args, config, world, train_path: str, valid_path=None, *,
     max(batches // gradient_accumulation_steps, 1), warmup the proportion
     of int(steps_per_epoch * epochs)), the model from `--seed`, the loads
     (`--pretrained_model_path` with its 0.1x-LR set, `--file_state_dict`),
-    the trainer, resume from `--file_checkpoint` (an epoch, or mid-epoch
+    the trainer (which splits the loaded model over the model ranks under
+    `--n_model`), resume from `--file_checkpoint` (an epoch, or mid-epoch
     from a step checkpoint), then `fit` with a checkpoint per epoch in
     `--output_dir`. Without `do_train`, the mean of each loss of
     `eval_step` over the validation loader instead (`eval`). Returns
@@ -205,8 +224,8 @@ def run_pretraining(args, config, world, train_path: str, valid_path=None, *,
                        v_feature_size=config.v_feature_size,
                        v_target_size=config.v_target_size)
 
-    # each rank's rows of the global batch, from its shard of the records
-    shard = dict(num_shards=world.size, shard_index=world.rank)
+    # each data group's rows of the global batch, from its shard of the records
+    shard = dict(num_shards=world.data_size, shard_index=world.data_rank)
     train_loader = PretrainLoader(train_path, tokenizer, shapes,
                                   batch_size=world.local_rows(args.train_batch_size,
                                                               "--train_batch_size"),
@@ -215,7 +234,8 @@ def run_pretraining(args, config, world, train_path: str, valid_path=None, *,
     val_loader = None
     if valid_path is not None:
         val_loader = PretrainLoader(valid_path, tokenizer, shapes,
-                                    batch_size=max(args.eval_batch_size // world.size, 1),
+                                    batch_size=max(args.eval_batch_size // world.data_size,
+                                                   1),
                                     shuffle=False, seed=args.seed,
                                     visual_target=args.visual_target, **shard)
 

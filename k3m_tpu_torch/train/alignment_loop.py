@@ -21,6 +21,9 @@ logged loss over the ranks and rank 0 writes the checkpoints; `evaluate`
 gathers every rank's probabilities and labels before the sweep, which
 every rank then computes alike (JAX alignment_loop.py:316-323);
 `predict` writes one part per rank, `<output>.part<rank>` (:339-340).
+Under tensor parallelism (train/mesh.py) "rank" reads the data axis: the
+model ranks of a data group read the same pairs, the gathers run over the
+data groups, and model rank 0 of each data group writes its part.
 """
 
 from __future__ import annotations
@@ -127,19 +130,23 @@ def predict(model, loader: Iterable, output_path: str, threshold: float = 0.5,
             world: Optional[World] = None) -> Dict:
     """Embedding dump in the JAX package's jsonl format (ref :1119-1212).
 
-    Returns the output path and, per batch, its pairs and the host seconds
-    from the end of the previous batch to this batch's results on the host
-    (loader wait, copies and the forward). `wire` defaults to K3M_WIRE,
-    else fp. Over a world of processes each rank writes its shard's pairs to
-    `<output_path>.part<rank>`; the parts together are the dump."""
+    Returns the output path (None on a model rank other than 0) and, per
+    batch, its pairs and the host seconds from the end of the previous batch
+    to this batch's results on the host (loader wait, copies and the
+    forward). `wire` defaults to K3M_WIRE, else fp. Over a world of
+    processes each data group writes its shard's pairs to
+    `<output_path>.part<data index>`, from its model rank 0; the parts
+    together are the dump."""
     device, wire = _device_of(model), wire_mode(wire)
     world = world or World(device=device)
-    if world.size > 1:
-        output_path = f"{output_path}.part{world.rank}"
-    os.makedirs(os.path.dirname(os.path.abspath(output_path)), exist_ok=True)
+    if world.data_size > 1:
+        output_path = f"{output_path}.part{world.data_rank}"
+    writer = world.model_rank == 0
+    if writer:
+        os.makedirs(os.path.dirname(os.path.abspath(output_path)), exist_ok=True)
     seconds, pairs = [], []
     t_prev = time.perf_counter()
-    with open(output_path, "w", encoding="utf-8") as w:
+    with open(output_path if writer else os.devnull, "w", encoding="utf-8") as w:
         for step, batch in enumerate(loader):
             e1, e2, _, _ = forward(model, batch_to_device(batch, device, model.cfg, wire),
                                    world)
@@ -158,8 +165,9 @@ def predict(model, loader: Iterable, output_path: str, threshold: float = 0.5,
                     "threshold": threshold}) + "\n")
             if log_steps and step % log_steps == 0:
                 logger.info("[Prediction] %d batches processed", step)
-    logger.info("[Prediction] finished -> %s", output_path)
-    return dict(output=output_path, batch_seconds=seconds, batch_pairs=pairs)
+    logger.info("[Prediction] finished -> %s", output_path if writer else os.devnull)
+    return dict(output=output_path if writer else None, batch_seconds=seconds,
+                batch_pairs=pairs)
 
 
 class AlignmentTrainer(Trainer):

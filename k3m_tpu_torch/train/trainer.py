@@ -22,7 +22,15 @@
     the same on every rank; the step's losses summed likewise; checkpoints
     written by rank 0 between two barriers. Micro slice i of an N-rank step
     is the union of the ranks' slices i: the one-process micro step on the
-    micro-major reordering of the global batch.
+    micro-major reordering of the global batch;
+  * tensor parallelism (`world.n_model` > 1, train/mesh.py): the model is
+    split over the model ranks at construction, after every load; the
+    broadcast, the gradient sum and the losses run over the data group
+    (each model rank its own shard; the replicated parameters' gradients
+    then averaged over the model group, train/dist.py), the non-finite
+    skip is agreed over the whole world, and a checkpoint holds the full
+    tensors, gathered over the model group (every rank takes part; rank 0
+    writes), which a restore cuts back to this rank's slices.
 """
 
 from __future__ import annotations
@@ -35,6 +43,7 @@ import torch
 
 from k3m_tpu_torch.model.random import StepRandom
 from k3m_tpu_torch.dist import World
+from k3m_tpu_torch.train import mesh
 from k3m_tpu_torch.train.dist import all_reduce_grads
 from k3m_tpu_torch.train.device_cache import DeviceEpochCache, cache_enabled
 from k3m_tpu_torch.train.optim import make_optimizer
@@ -117,9 +126,9 @@ class Trainer:
         if micro_steps < 1 or grad_accum_steps < 1:
             raise ValueError("micro_steps and grad_accum_steps must be at least 1")
         self.config = config
-        self.model = model
         self.device = next(model.parameters()).device
         self.world = world or World(device=self.device)
+        self.model = mesh.shard_model(model, self.world)
         # bytes and host seconds of the last update's gradient all-reduce
         self.allreduce = (0, 0.0)
         self.seed = seed
@@ -192,7 +201,7 @@ class Trainer:
         if self.world.group:
             self._all_reduce_grads()
         skipped = None
-        if self.skip_nonfinite and not self._grads_finite():
+        if self.skip_nonfinite and self._nonfinite():
             skipped = torch.ones((), device=self.device)
         else:
             # optax decays a parameter whose gradient is zero; torch's AdamW
@@ -224,32 +233,48 @@ class Trainer:
         if not self.world.distributed:
             return metrics
         keys = [k for k in metrics if k != "nonfinite_skipped"]
-        summed = self.world.all_reduce_sum(torch.stack([metrics[k].float() for k in keys]))
+        summed = self.world.all_reduce_sum(torch.stack([metrics[k].float() for k in keys]),
+                                           "data")
         return dict(metrics, **{k: summed[i] for i, k in enumerate(keys)})
 
     def save_checkpoint(self, save) -> Optional[str]:
         """`save(state_dict)` on rank 0, between two barriers, so that no
         rank reads a checkpoint before it is whole; its result there, None
-        on the other ranks."""
+        on the other ranks. Under tensor parallelism every rank gathers the
+        state, rank 0 alone writes it."""
         self.world.barrier()
-        out = save(self.state_dict()) if self.world.rank == 0 else None
+        tp = self.world.n_model > 1
+        state = self.state_dict() if tp or self.world.rank == 0 else None
+        out = save(state) if self.world.rank == 0 else None
         self.world.barrier()
         return out
 
-    def _grads_finite(self) -> bool:
+    def _nonfinite(self) -> bool:
+        """Whether a gradient is not finite: on any rank under tensor
+        parallelism, where each model rank holds other gradients."""
         grads = [p.grad for p in self.model.parameters() if p.grad is not None]
-        return bool(torch.stack([g.isfinite().all() for g in grads]).all())
+        bad = not bool(torch.stack([g.isfinite().all() for g in grads]).all())
+        return self.world.any_flag(bad) if self.world.n_model > 1 else bad
 
     # ---------------------------------------------------------- checkpoint
 
     def state_dict(self) -> dict:
-        return dict(model=self.model.state_dict(), optimizer=self.opt.state_dict(),
+        """The full state: under tensor parallelism the model and the AdamW
+        moments gathered to full shape (every rank of the model group calls
+        it)."""
+        return dict(model=mesh.full_state_dict(self.model, self.world),
+                    optimizer=mesh.full_optimizer_state(
+                        self.opt.state_dict(), mesh.optimizer_names(self.model, self.opt),
+                        self.world),
                     scheduler=self.sched.state_dict(), step=self.step,
                     micro=self._micro)
 
     def load_state_dict(self, state: dict) -> None:
-        self.model.load_state_dict(state["model"])
-        self.opt.load_state_dict(state["optimizer"])
+        """A full state (`state_dict`), cut to this rank's slices under
+        tensor parallelism."""
+        self.model.load_state_dict(mesh.local_state_dict(state["model"], self.world))
+        self.opt.load_state_dict(mesh.local_optimizer_state(
+            state["optimizer"], mesh.optimizer_names(self.model, self.opt), self.world))
         self.sched.load_state_dict(state["scheduler"])
         self.step, self._micro = int(state["step"]), int(state["micro"])
         self.world.broadcast_module(self.model)

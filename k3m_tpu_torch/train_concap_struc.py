@@ -18,12 +18,13 @@ holds the arguments, a blank line, then the config. Without `--do_train`,
 
 The loaders, the loads, the trainer, resume and the epochs are
 `k3m_tpu_torch.pretrain.run_pretraining`, which the pretraining CLI runs
-too; N ranks (torchrun, or the K3M_* variables) run as there.
+too; N ranks (torchrun, or the K3M_* variables) run as there, and
+`--n_model M` splits the model over M model ranks of each data group as
+there (tensor parallelism, k3m_tpu_torch/pretrain.py).
 
 Runs on the CUDA device unless `--device cpu` (or the reference's
-`--no_cuda`) asks for the CPU. `--n_model > 1` (tensor parallelism) is
-refused by name. Reference flags accepted without effect, as the JAX
-package's CLI accepts them:
+`--no_cuda`) asks for the CPU. Reference flags accepted without effect, as
+the JAX package's CLI accepts them:
   --fp16/--apex_fast/--loss_scale  -> use --bf16
   --local_rank/--distributed       -> the world comes from the launcher's
                                       variables (torchrun or K3M_*)
@@ -166,28 +167,27 @@ def main(argv=None):
     args = get_parser().parse_args(argv)
     if args.no_cuda:
         args.device = "cpu"
-    if args.n_model > 1:
-        raise NotImplementedError("--n_model > 1 (tensor parallelism) is not ported yet "
-                                  "(ROADMAP.md Queue 1, item 9)")
-    from k3m_tpu_torch.train import dist
+    from k3m_tpu_torch.train import dist, mesh
 
-    world = dist.init_from_env(args.device)
+    config = resolve_config(args)
+    mesh.check_model_axis(config, args.n_model)
+    world = dist.init_from_env(args.device, args.n_model)
     try:
-        return _run(args, world)
+        return _run(args, world, config)
     finally:
         world.close()
 
 
-def _run(args, world):
+def _run(args, world, config):
     from k3m_tpu_torch.pretrain import run_pretraining
 
     os.makedirs(args.output_dir, exist_ok=True)
-    config = resolve_config(args)
-    with open(os.path.join(args.output_dir, "hyperparamter.txt"), "w") as f:
-        # the reference (:192-196) writes the args, a blank line, the config
-        json.dump(vars(args), f, indent=2)
-        f.write("\n\n")
-        json.dump(config.to_dict(), f, indent=2)
+    if world.rank == 0:
+        with open(os.path.join(args.output_dir, "hyperparamter.txt"), "w") as f:
+            # the reference (:192-196) writes the args, a blank line, the config
+            json.dump(vars(args), f, indent=2)
+            f.write("\n\n")
+            json.dump(config.to_dict(), f, indent=2)
     train_path = find_records(args, "train")
     try:
         valid_path = find_records(args, "valid")

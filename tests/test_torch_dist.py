@@ -31,7 +31,8 @@ scenario, and the tests read its results:
 
 Also here: the loader shards against the JAX package's indices, the
 attention masks of a rank's rows (`row0`) against the global mask, and the
-launch variables (torchrun's WORLD_SIZE accepted, --n_model 2 refused).
+launch variables (torchrun's WORLD_SIZE accepted, an --n_model that divides
+neither the 8 image heads nor the world refused).
 """
 
 import functools
@@ -354,14 +355,17 @@ def _world_main(rank, size, tmp, cli_args):
         raise
 
 
-def spawn_world(target, size, tmp, *args):
-    """Run `target(rank, size, tmp, *args)` in `size` spawned processes;
-    fail if one exits non-zero or outlives JOIN_TIMEOUT_S."""
+def spawn_world(target, size, tmp, *args, during=None):
+    """Run `target(rank, size, tmp, *args)` in `size` spawned processes,
+    and `during()` in this one while they run; fail if one exits non-zero
+    or outlives JOIN_TIMEOUT_S."""
     ctx = mp.get_context("spawn")
     procs = [ctx.Process(target=target, args=(r, size, str(tmp)) + args)
              for r in range(size)]
     for p in procs:
         p.start()
+    if during is not None:
+        during()
     for p in procs:
         p.join(JOIN_TIMEOUT_S)
     hung = [r for r, p in enumerate(procs) if p.is_alive()]
@@ -635,8 +639,9 @@ def test_row0_masks_are_slices_of_the_global_mask():
 def test_launch_variables(monkeypatch, tmp_path):
     """torchrun's variables reach init_world (WORLD_SIZE=2 is accepted);
     WORLD_SIZE without RANK raises; the K3M_* variables give a tcp or an
-    init URL; without either the world is one process; --n_model 2 is
-    still refused by both CLIs."""
+    init URL; without either the world is one process; both CLIs refuse
+    --n_model 3 on the configs' 8 image heads before any world is made, and
+    --n_model 2 in a world of one."""
     from k3m_tpu_torch import finetune, pretrain
     calls = []
     monkeypatch.setattr(train_dist, "init_world", lambda *a: calls.append(a) or "world")
@@ -653,7 +658,7 @@ def test_launch_variables(monkeypatch, tmp_path):
     monkeypatch.setenv("MASTER_PORT", "29511")
     monkeypatch.setenv("K3M_DIST_BACKEND", "gloo")
     assert train_dist.init_from_env("cpu") == "world"
-    assert calls[-1] == (1, 2, "env://", torch.device("cpu"), "gloo", 1800.0)
+    assert calls[-1] == (1, 2, "env://", torch.device("cpu"), "gloo", 1800.0, 1)
     for k in ("WORLD_SIZE", "RANK"):
         monkeypatch.delenv(k)
     monkeypatch.setenv("K3M_COORDINATOR_ADDRESS", "host0:1234")
@@ -661,15 +666,22 @@ def test_launch_variables(monkeypatch, tmp_path):
     monkeypatch.setenv("K3M_PROCESS_ID", "3")
     monkeypatch.setenv("K3M_DIST_INIT_TIMEOUT", "60")
     train_dist.init_from_env("cpu")
-    assert calls[-1][:3] == (3, 4, "tcp://host0:1234") and calls[-1][-1] == 60.0
+    assert calls[-1][:3] == (3, 4, "tcp://host0:1234") and calls[-1][-2:] == (60.0, 1)
     monkeypatch.setenv("K3M_COORDINATOR_ADDRESS", f"file://{tmp_path}/x")
     train_dist.init_from_env("cpu")
     assert calls[-1][2] == f"file://{tmp_path}/x"
     args = ["--data_dir", str(tmp_path), "--output_dir", str(tmp_path), "--device", "cpu",
-            "--n_model", "2"]
+            "--use_image", "--with_coattention"]
     for cli, extra in ((pretrain, ["--file_name", "x"]), (finetune, [])):
-        with pytest.raises(NotImplementedError, match="n_model.*Queue 1"):
-            cli.main(args + extra)
+        with pytest.raises(ValueError, match="--n_model 3 does not divide "
+                                             "v_num_attention_heads 8.*Queue 1"):
+            cli.main(args + extra + ["--n_model", "3"])
+    monkeypatch.delenv("K3M_COORDINATOR_ADDRESS")
+    for cli, extra in ((pretrain, ["--file_name", "x"]), (finetune, [])):
+        with pytest.raises(ValueError, match="--n_model 2 does not divide the world of 1"):
+            cli.main(args + extra + ["--n_model", "2"])
+    with pytest.raises(ValueError, match="does not divide the world of 3"):
+        dist.World(size=3, n_model=2)
     with pytest.raises(ValueError, match="divisible"):
         dist.World(size=2).local_rows(5, "--train_batch_size")
     assert dist.World(rank=1, size=2).local_rows(6, "--train_batch_size") == 3

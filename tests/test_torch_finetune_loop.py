@@ -254,7 +254,8 @@ def test_cli_scores_with_its_own_finetuned_weights(nano_run):
         assert open(got["output"], encoding="utf-8").read() == want, extra[0]
 
 
-@pytest.mark.parametrize("flag", [["--n_model", "2"], ["WORLD_SIZE", "2"]])
+@pytest.mark.parametrize("flag", [["--n_model", "3"], ["WORLD_SIZE", "2"],
+                                  ["--n_model", "2"]])
 def test_cli_refuses_unported_options_by_name(nano_run, monkeypatch, flag):
     from k3m_tpu_torch import finetune
     tmp_path, cfg_path = nano_run
@@ -269,8 +270,14 @@ def test_cli_refuses_unported_options_by_name(nano_run, monkeypatch, flag):
         with pytest.raises(ValueError, match="WORLD_SIZE is set but RANK"):
             finetune.main(argv)
         return
+    # tensor parallelism is ported (tests/test_torch_tp.py), but --n_model
+    # must divide every head count (NANO's 2 heads) and the world (one process)
+    for k in ("WORLD_SIZE", "K3M_COORDINATOR_ADDRESS"):
+        monkeypatch.delenv(k, raising=False)
     argv += flag
-    with pytest.raises(NotImplementedError, match=flag[0]):
+    match = ("--n_model 3 does not divide num_attention_heads 2" if flag[1] == "3" else
+             "--n_model 2 does not divide the world of 1 processes")
+    with pytest.raises(ValueError, match=match):
         finetune.main(argv)
 
 

@@ -33,6 +33,12 @@ a failure:
      heads, image and co-attention 4/2) at batch 96, bf16 at rate 0.1 and
      fp32 at rate 0, the rank's heads the last of the layer's, their mask
      words bit for bit the head slice of the layer's mask (tp_kernel_rows);
+     then every kernel at the shapes the trunk options give it
+     (option_kernel_rows, batch 96, fp32 and bf16 at rate 0 and 0.1): #3/#4
+     at H12 D64 L51 and L257 (task tokens; L257 one row past four 64-row
+     tiles, its mask words bit for bit) and L87 (the single-stream
+     baseline), #5 at 37<->51, 37<->257 and 257<->51, #1/#2 on 96 x 257 pv
+     rows of 768;
   4. slice (serving): write 256 synthetic pair records at the full shapes
      of run_pred.sh and run `k3m_tpu_torch.finetune --do_pred --bf16` over
      them with the bert_base_6layer_6conect config (random weights from a
@@ -77,8 +83,9 @@ a failure:
      printed. Phases 6 and 8 train on the native producer (the CLIs'
      default) and then train one more epoch on the Python producer, so
      that samples/s and pairs/s of both stand side by side in one run;
- 11. preemption and resume: `k3m_tpu_torch.pretrain` at full width, batch
-     96, under torch.use_deterministic_algorithms: an uninterrupted epoch;
+ 11. preemption and resume: `k3m_tpu_torch.pretrain` (k3m_roberta_base at
+     DEPTH_CUT), batch 96, under torch.use_deterministic_algorithms: an
+     uninterrupted epoch;
      the same epoch with --save_steps, SIGTERM delivered mid-epoch (a step
      checkpoint, then the run returns); a run resumed from latest.json;
      every parameter and AdamW moment of the resumed run against the
@@ -91,8 +98,8 @@ a failure:
  13. int8 wire: one full-width bf16 train step with the int8 wire against
      the exact wire (losses within rtol 2e-2), and the host->card bytes of
      one batch under fp, int8 and exact;
- 14. device cache: two full-width epochs of `k3m_tpu_torch.pretrain
-     --device_cache`: the second replayed from the cache, whose batches
+ 14. device cache: two epochs of `k3m_tpu_torch.pretrain --device_cache`
+     (k3m_roberta_base at DEPTH_CUT): the second replayed from the cache, whose batches
      equal, bit for bit, the first epoch's streamed ones; the cached bytes
      against the budget;
  15. extract: write a seeded detectron2-layout pkl (1600 classes) and 16
@@ -114,18 +121,20 @@ a failure:
      proposal NMS, the class NMS sweep) run on the CPU from the card's
      continuous tensors equal the card's index for index;
  17. dp_train: phase 8's finetune (bf16, dropout 0.1, global batch 32, 3
-     steps and the sweep) as one plain process and as a world of one over
-     NCCL (torchrun's variables), side by side under
-     torch.use_deterministic_algorithms, then as two ranks sharing the card
-     over gloo (the K3M_* variables, K3M_DIST_BACKEND=gloo, LOCAL_RANK 0):
+     steps and the sweep; the config at DEPTH_CUT: 4 text layers, 2 image
+     layers, 2 co-attention blocks of each kind), all at once, as one
+     plain process and as a world of one over NCCL (torchrun's variables),
+     both under torch.use_deterministic_algorithms, and as two ranks
+     sharing the card over gloo (the K3M_* variables,
+     K3M_DIST_BACKEND=gloo, LOCAL_RANK 0):
      the NCCL world of one equals the plain run bit for bit; the two ranks
      end with bit-identical parameters and the same sweep, each launched
      the per-step kernel counts, and their global losses lie within 2^-6 of
      one process trained on the same global batches; pairs/s, step ms, the
      gradient all-reduce's ms and bytes a step, peak memory per rank (gloo
      through the host on one card: no scaling figure);
- 18. dp_crosscheck: one fp32 pretraining step at full width, global batch
-     4 = 2 ranks x 2 rows, dropout 0.1 and the step's own draws, a
+ 18. dp_crosscheck: one fp32 pretraining step (k3m_roberta_base at
+     DEPTH_CUT), global batch 4 = 2 ranks x 2 rows, dropout 0.1 and the step's own draws, a
      zero-pair item planted as rank 1's first row: two gloo ranks on the
      card against one process on the card, phase 7's limits on the four
      losses and every gradient after the all-reduce;
@@ -149,30 +158,57 @@ a failure:
      config gives (9 steps and 2 eval forwards), hyperparamter.txt and the
      epoch checkpoint; samples/s, step ms, peak memory, device busy ms of one
      more profiled step; then the first 3 steps of this CLI and of
-     `k3m_tpu_torch.pretrain` with the matching flags on the same records,
+     `k3m_tpu_torch.pretrain` with the matching flags on the same records
+     (the config at DEPTH_CUT),
      under torch.use_deterministic_algorithms: losses and parameters bit for
      bit; (b) the CLI's default shapes (title 36, pv 128, 20 pvs) at batch
-     96, 3 steps, counts as the config gives, then every kernel held against
+     96, 3 steps at DEPTH_CUT, counts as the config gives, then every kernel held against
      its plain version at these shapes as phase 3 holds them (#3/#4/#5 in
      bf16 at rate 0.1 and fp32 at rate 0, forward and backward; #1/#2 on
      these rows), timed with bound and library call; (c) a raw TSV of 96
-     rows with a valid sibling, converted once by find_records, one step,
-     reused by a second run;
+     rows with a valid sibling, converted once by find_records, one step
+     (DEPTH_CUT), reused by a second run;
  22. tp_crosscheck: two gloo ranks with --n_model 2 sharing the card
      against one process on the card, fp32, dropout 0.1 with the step's
-     own draws: one pretraining step at full width (k3m_roberta_base,
-     global batch 4), the four losses and every gathered gradient to phase
-     7's limits; one finetune step (loss inner, batch 2) to phase 9's;
+     own draws: one pretraining step (k3m_roberta_base at DEPTH_CUT, global
+     batch 4), the four losses and every gathered gradient to phase 7's
+     limits; one finetune step (bert_base_6layer_6conect at DEPTH_CUT, loss
+     inner, batch 2) to phase 9's; and
+     eight gloo ranks with --n_model 8 (k3m_roberta_base's widths and
+     heads, cut to 2 text layers, 1 image layer and one co-attention block
+     of each kind: the 12 text heads run replicated on every rank, the 8
+     image and co-attention heads one a rank), one pretraining step at
+     global batch 4 against one process at the same cut, phase 7's limits,
+     every attention call's mask words bit for bit one process's;
  23. tp_train: `k3m_tpu_torch.pretrain`, `finetune --do_train --do_eval
      --do_pred` and `train_concap_struc`, each with --n_model 2 as two gloo
-     ranks sharing the card, bf16, full width, 3 steps at small global
-     batches (pretraining 16, finetune 8 pairs, legacy 16): both model
-     ranks report the same losses, each launches every
+     ranks sharing the card, bf16, the shipped widths at DEPTH_CUT, 3 steps
+     at small global batches (pretraining 16, finetune 8 pairs, legacy
+     16): both model ranks report the same losses, each launches every
      kernel the count the config gives, rank 0's model file has full
      shapes and loads into a one-process model bit for bit, the predict
-     file equals phase 4's dump within 2^-6; step ms, the model-group
-     all-reduces' bytes and host ms a step, peak memory per rank;
- 24. print the kernel summary line and the final device line.
+     file equals one process's predict within 2^-6; step ms, the
+     model-group all-reduces' bytes and host ms a step, peak memory per
+     rank;
+ 24. trunk_options (run by phase 22 while its ranks run, after its
+     references): the config's trunk options at full width, each once
+     in bf16 with the launch counts the config gives and cross-checked in
+     fp32 card (kernels) vs CPU (plain versions) at batch 2, outputs at
+     phase 5's limit and every gradient at phase 7's: (a) K3MTrunk with
+     task_ids (bert_base_6layer_6conect, B8, text streams 51 and 257
+     long), forward and backward; (b) TriStreamEncoder with fast_mode
+     (k3m_roberta_base), forward and backward at equal batches of 8 and at
+     a text batch of 1 against 8, and in fp32 on the card equal to the
+     encoder fed the text row repeated; (c) TriStreamEncoder with
+     in_batch_pairs at b 8 (64 pair rows), forward and backward, and in
+     fp32 on the card equal to the encoder fed the rows repeated and tiled
+     per pass; (d) forward_with_attention on K3MTrunk with visualization
+     (bert_base_6layer_6conect, B4): the JAX package's count of maps per
+     site, rows summing to 1 within 2e-2, no attention kernel, and in fp32
+     the outputs of the kernel path; (e) BaseBertForPretraining, 12 layers
+     of 768 over title 50 + 37 image tokens, 3 bf16 AdamW steps at B32,
+     losses and gradients cross-checked;
+ 25. print the kernel summary line and the final device line.
 
 Phases 17-19 and 22-23 run their ranks as `python3 chip_smoke.py
 --dp-worker <spec>` processes (logs in chiprun_out/dp_*.log); a rank that
@@ -194,6 +230,7 @@ chiprun_out/chip_smoke.json.
 from __future__ import annotations
 
 import concurrent.futures
+import contextlib
 import json
 import logging
 import math
@@ -1086,7 +1123,8 @@ def phase_kernels(card):
     masks = {B: dropout_mask_check(card, B) for B in TRAINING_BATCHES}
     edges = forward_edge_check(card)
     torch.cuda.empty_cache()
-    return rows, launch_overhead(card), masks, edges, tp_kernel_rows(card)
+    return (rows, launch_overhead(card), masks, edges, tp_kernel_rows(card),
+            option_kernel_rows(card))
 
 
 # ------------------------------------------------------------ slice phase
@@ -1396,8 +1434,9 @@ def write_pretrain_records(path, n, seed=SEED + 1):
 
 
 def _pretrain_argv(data_dir, out_dir, *extra, epochs=1):
-    """`k3m_tpu_torch.pretrain` at full width: bf16, image on, batch 96,
-    the full shapes, random weights from SEED."""
+    """`k3m_tpu_torch.pretrain`: bf16, image on, batch 96, the full shapes,
+    random weights from SEED; full width unless `data_dir` holds a config
+    at DEPTH_CUT (write_cut_config)."""
     argv = ["--data_dir", str(data_dir), "--output_dir", str(out_dir),
             "--file_name", "{}_feat.k3mr", "--bf16", "--use_image",
             "--train_batch_size", str(TRAIN_BATCH), "--num_train_epochs", str(epochs),
@@ -1407,16 +1446,17 @@ def _pretrain_argv(data_dir, out_dir, *extra, epochs=1):
     return argv
 
 
-def expected_train_launches(cfg, steps, head_lns=3):
+def expected_train_launches(cfg, steps, head_lns=3, embedding_lns=3):
     """Kernel launches of `steps` trunk forwards and backwards (image and
     co-attention on), K3MForPretraining's by default: the forward as one
-    item forward of the serving path plus the heads' `head_lns` LNs (the
-    MLM transform for title and pv, the RoI transform); every LN and
+    item forward of the serving path (its `embedding_lns` LNs of the
+    embeddings; 0 for the encoder alone) plus the heads' `head_lns` LNs
+    (the MLM transform for title and pv, the RoI transform); every LN and
     attention has its backward, and each bi-attention two (one per
     direction)."""
     text, image, conn = 4 * cfg.num_hidden_layers, 2 * cfg.v_num_hidden_layers, \
         3 * cfg.num_coattention_layers
-    ln = 3 + 2 * (text + image) + 4 * conn + head_lns
+    ln = embedding_lns + 2 * (text + image) + 4 * conn + head_lns
     return dict(fused_layernorm=steps * ln, layernorm_bwd=steps * ln,
                 fused_attention=steps * (text + image),
                 attention_bwd=steps * (text + image + 2 * conn),
@@ -1924,7 +1964,7 @@ def _state_diff(a, b):
 
 
 def phase_resume(card):
-    """Preemption and resume at full width (batch 96, k3m_roberta_base, bf16)
+    """Preemption and resume (batch 96, k3m_roberta_base at DEPTH_CUT, bf16)
     on phase 6's records, under torch.use_deterministic_algorithms (and the
     CUBLAS_WORKSPACE_CONFIG main sets): an uninterrupted epoch of
     TRAIN_STEPS steps; the same epoch cut by SIGTERM, with --save_steps; the
@@ -1935,10 +1975,10 @@ def phase_resume(card):
     the learning rate (1e-4 each), since a last-bit difference in a gradient
     can flip the sign of an update whose moments are near zero."""
     from k3m_tpu_torch import kernels, pretrain
-    from k3m_tpu_torch.config import K3MConfig
     from k3m_tpu_torch.train.state import CheckpointManager
-    cfg = K3MConfig.from_json_file(str(ROBERTA))
-    data_dir = WORK / "pretrain_data"
+    data_dir = WORK / "resume_data"
+    cfg = write_cut_config(ROBERTA, data_dir)
+    os.symlink(WORK / "pretrain_data" / "train_feat.k3mr", data_dir / "train_feat.k3mr")
     full_dir, cut_dir, resumed_dir = (WORK / f"resume_{k}" for k in ("full", "cut", "resumed"))
     nondeterministic = None
     kernels.reset_launch_counts()
@@ -1972,8 +2012,8 @@ def phase_resume(card):
     finally:
         torch.use_deterministic_algorithms(False)
     counts = kernels.launch_counts()
-    shutil.rmtree(cut_dir)
-    shutil.rmtree(resumed_dir)
+    for d in (cut_dir, resumed_dir, data_dir):
+        shutil.rmtree(d)
     (hist,) = resumed["history"]
     if resumed["resumed"] is None or resumed["resumed"]["step"] != done \
             or len(hist["step_seconds"]) != TRAIN_STEPS - done:
@@ -2108,13 +2148,12 @@ CACHE_BATCHES = 3          # batches of the device-cache phase's epoch
 
 def phase_cache(card):
     """`k3m_tpu_torch.pretrain --device_cache`, two epochs of CACHE_BATCHES
-    batches of 96 at full width: the first streams and keeps its staged
+    batches of 96 (k3m_roberta_base at DEPTH_CUT): the first streams and keeps its staged
     batches, the second replays them; the kept batches equal, bit for bit,
     the first epoch's batches staged again from the loader."""
     from k3m_tpu_torch import kernels, pretrain
-    from k3m_tpu_torch.config import K3MConfig
-    cfg = K3MConfig.from_json_file(str(ROBERTA))
     data_dir, out_dir = WORK / "cache_data", WORK / "cache_out"
+    cfg = write_cut_config(ROBERTA, data_dir)
     write_pretrain_records(data_dir / "train_feat.k3mr", CACHE_BATCHES * TRAIN_BATCH,
                            seed=SEED + 3)
     kernels.reset_launch_counts()
@@ -2506,6 +2545,27 @@ WORLD_VARS = ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT",
               "K3M_DIST_BACKEND", "K3M_DIST_INIT_TIMEOUT")
 
 
+# the depth of the runs that check how ranks and runs agree (phases 11,
+# 14, 17, 18, 21's comparison, defaults and raw TSV, 22's two-rank steps,
+# 23), so that the script stays inside its time: the shipped
+# configs' widths and heads, 4 text layers, 2 image layers and 2
+# co-attention blocks of each kind
+DEPTH_CUT = dict(num_hidden_layers=4, v_num_hidden_layers=2, v_biattention_id=[0, 1],
+                 t_biattention_id=[2, 3])
+
+
+def write_cut_config(src, dest_dir):
+    """The shipped config `src` at DEPTH_CUT, written under its own name
+    into `dest_dir` (a data dir: `pretrain` and `train_concap_struc` look
+    there before the package's configs/; `finetune` is given its path);
+    returns it."""
+    from k3m_tpu_torch.config import K3MConfig
+    d = dict(json.loads(Path(src).read_text()), **DEPTH_CUT)
+    Path(dest_dir).mkdir(parents=True, exist_ok=True)
+    (Path(dest_dir) / Path(src).name).write_text(json.dumps(d, indent=1))
+    return K3MConfig.from_dict(d)
+
+
 def _free_port():
     import socket
     with socket.socket() as s:
@@ -2642,13 +2702,17 @@ def _dp_pretrain_step(spec):
     from k3m_tpu_torch.train.pretrain_loop import PretrainTrainer
     world = dist.init_from_env("cuda", spec.get("n_model", 1))
     try:
-        cfg = K3MConfig.from_json_file(str(ROBERTA)).replace(use_image=True, objective=2)
+        cfg = K3MConfig.from_json_file(str(ROBERTA)).replace(use_image=True, objective=2,
+                                                             **spec.get("cfg", {}))
         batch = torch.load(spec["batch"], weights_only=False)
         local = _batch_rows(batch, world.data_rank,
                             len(batch["input_ids"]) // world.data_size)
         trainer = PretrainTrainer(cfg, device=world.device, seed=SEED, objective=2, world=world)
-        loss, metrics = trainer.losses(trainer.stage(local), deterministic=False,
-                                       rng=StepRandom(SEED, 0, world.device))
+        with recording_masks() as masks:
+            loss, metrics = trainer.losses(trainer.stage(local), deterministic=False,
+                                           rng=StepRandom(SEED, 0, world.device))
+        if spec.get("masks"):
+            torch.save(masks, f"{spec['masks']}.{world.rank}")
         loss.backward()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -2665,6 +2729,32 @@ def _dp_pretrain_step(spec):
                     allreduce_s=seconds, traffic=world.traffic)
     finally:
         world.close()
+
+
+@contextlib.contextmanager
+def recording_masks():
+    """[(head0, mask words on the host)] of every attention and
+    bi-attention forward kernel call that keeps mask words (its backward
+    follows), in call order, while the enclosed code runs."""
+    from k3m_tpu_torch.kernels import attention, coattn
+    store, fwd_a, fwd_c = [], attention._forward, coattn._forward
+
+    def self_attention(*a, **kw):
+        out = fwd_a(*a, **kw)
+        if out[2] is not None:
+            store.append((kw.get("head0", 0), out[2].cpu()))
+        return out
+
+    def biattention(*a, **kw):
+        out = fwd_c(*a, **kw)
+        store.extend((kw.get("head0", 0), words.cpu()) for _, words in out[2:]
+                     if words is not None)
+        return out
+    attention._forward, coattn._forward = self_attention, biattention
+    try:
+        yield store
+    finally:
+        attention._forward, coattn._forward = fwd_a, fwd_c
 
 
 DP_MODES = {"finetune": _dp_finetune, "pretrain_step": _dp_pretrain_step,
@@ -2767,11 +2857,12 @@ def rank_order_losses(cfg, world_size, data_dir=None):
 
 def phase_dp_train(card):
     """Phase 8's finetune (bf16, dropout 0.1, global batch 32, DP_STEPS
-    steps over its own records and the sweep) three ways: one plain process
-    and a world of one over NCCL (torchrun's variables), both under
-    torch.use_deterministic_algorithms and run side by side; then two ranks
-    sharing the card over gloo (the K3M_* variables, LOCAL_RANK 0 for both),
-    while this process trains on the same global batches. The NCCL world of
+    steps over its own records and the sweep; bert_base_6layer_6conect at
+    DEPTH_CUT) three ways, all at once: one plain process and a world of
+    one over NCCL (torchrun's variables), both under
+    torch.use_deterministic_algorithms; two ranks sharing the card over
+    gloo (the K3M_* variables, LOCAL_RANK 0 for both); and meanwhile this
+    process trains on the same global batches. The NCCL world of
     one must equal the plain run bit for bit
     (losses, sweep, every parameter); the two ranks must end with
     bit-identical parameters and the same sweep, each having launched
@@ -2779,28 +2870,25 @@ def phase_dp_train(card):
     within DP_BF16_TOL of one process trained on the same global batches
     (rank 0's 16 pairs then rank 1's, as the JAX package lays them out;
     bf16, so sums in another order round apart)."""
-    from k3m_tpu_torch.config import K3MConfig
-    cfg = K3MConfig.from_json_file(str(BERT))
     data = WORK / "dp_data"
-    data.mkdir(parents=True, exist_ok=True)
+    cfg = write_cut_config(BERT, data)
     write_finetune_records(data, DP_STEPS * FT_BATCH)
-    argv = lambda out: _finetune_dp_argv(out, data_dir=data)
+    argv = lambda out: _finetune_dp_argv(out, "--config_file", str(data / BERT.name),
+                                         data_dir=data)
     det = dict(mode="finetune", deterministic=True)
-    one = run_workers([
-        ("train_plain", dict(det, argv=argv(WORK / "dp_plain")),
-         _dp_env("plain")),
-        ("train_nccl1", dict(det, argv=argv(WORK / "dp_nccl1")),
-         _dp_env("torchrun", 0, 1, _free_port()))], "dp_train")
-    plain, nccl = one["train_plain"], one["train_nccl1"]
     port = _free_port()
-    ref = []                             # one process, while the two ranks run
-    two = run_workers([(f"train_gloo{r}", dict(mode="finetune",
-                                               argv=argv(WORK / "dp_gloo")),
-                        _dp_env("gloo", r, 2, port)) for r in range(2)], "dp_train",
-                      during=lambda: ref.extend(rank_order_losses(cfg.replace(
-                          use_image=True, with_coattention=True, if_pre_sampling=1,
-                          loss_type="inner", dtype="bfloat16"), 2, data)))
-    ranks = [two["train_gloo0"], two["train_gloo1"]]
+    ref = []                             # one process, while the ranks run
+    got = run_workers([
+        ("train_plain", dict(det, argv=argv(WORK / "dp_plain")), _dp_env("plain")),
+        ("train_nccl1", dict(det, argv=argv(WORK / "dp_nccl1")),
+         _dp_env("torchrun", 0, 1, _free_port()))]
+        + [(f"train_gloo{r}", dict(mode="finetune", argv=argv(WORK / "dp_gloo")),
+            _dp_env("gloo", r, 2, port)) for r in range(2)], "dp_train",
+        during=lambda: ref.extend(rank_order_losses(cfg.replace(
+            use_image=True, with_coattention=True, if_pre_sampling=1,
+            loss_type="inner", dtype="bfloat16"), 2, data)))
+    plain, nccl = got["train_plain"], got["train_nccl1"]
+    ranks = [got["train_gloo0"], got["train_gloo1"]]
     if nccl["world"] != dict(rank=0, size=1, backend="nccl") or \
             [r["world"] for r in ranks] != [dict(rank=r, size=2, backend="gloo")
                                             for r in range(2)]:
@@ -2843,8 +2931,8 @@ def phase_dp_train(card):
     ar_gib = h0["allreduce_bytes"][0] / 2 ** 30
     plain_ms = [1e3 * t for t in plain["history"]["step_seconds"][1:]]
     log(f"dp_train: two gloo ranks on one card: {pairs_per_s:.2f} global pairs/s, step ms "
-        f"mean {np.mean(step_ms):.2f} (plain run, deterministic algorithms, beside the NCCL "
-        f"run: {np.mean(plain_ms):.2f}), gradient all-reduce {ar_gib:.3f} GiB a step in "
+        f"mean {np.mean(step_ms):.2f} (plain run, deterministic algorithms, beside the other "
+        f"runs: {np.mean(plain_ms):.2f}), gradient all-reduce {ar_gib:.3f} GiB a step in "
         f"{np.mean(ar_ms):.2f} ms mean (host copies and gloo over loopback), peak memory "
         f"{ranks[0]['peak_gib']:.2f} / {ranks[1]['peak_gib']:.2f} GiB (ranks 0 / 1), sweep at "
         f"0.5 {h0['sweep']['0.5']}. Gloo through the host on one card: not a scaling "
@@ -2965,7 +3053,7 @@ def phase_dp_cards(card, n):
 
 
 def phase_dp_crosscheck(card):
-    """One fp32 pretraining train step at full width (k3m_roberta_base),
+    """One fp32 pretraining train step (k3m_roberta_base at DEPTH_CUT),
     global batch 4 of phase 6's records with a zero-pair item planted at
     global row 2 (rank 1's first), dropout 0.1 and the step's own draws:
     two gloo ranks of 2 rows on the card against one process of 4 rows on
@@ -2979,7 +3067,8 @@ def phase_dp_crosscheck(card):
     from k3m_tpu_torch.config import K3MConfig
     from k3m_tpu_torch.model.random import StepRandom
     from k3m_tpu_torch.train.pretrain_loop import PretrainTrainer
-    cfg = K3MConfig.from_json_file(str(ROBERTA)).replace(use_image=True, objective=2)
+    cfg = K3MConfig.from_json_file(str(ROBERTA)).replace(use_image=True, objective=2,
+                                                         **DEPTH_CUT)
     batch = next(iter(_pretrain_loader(WORK / "pretrain_data" / "train_feat.k3mr", cfg, 4)))
     for key in ("index_p", "index_v"):
         batch[key][2] = 0
@@ -3000,7 +3089,7 @@ def phase_dp_crosscheck(card):
         torch.cuda.empty_cache()
     port = _free_port()
     spec = dict(mode="pretrain_step", batch=str(d / "crosscheck_batch.pt"),
-                grads=str(d / "crosscheck_grads.pt"))
+                grads=str(d / "crosscheck_grads.pt"), cfg=DEPTH_CUT)
     res = run_workers([(f"crosscheck_gloo{r}", spec, _dp_env("gloo", r, 2, port))
                        for r in range(2)], "dp_crosscheck", during=one_process)
     want_losses, want = one["losses"], one["grads"]
@@ -3333,12 +3422,13 @@ def phase_legacy_train(card):
     hyperparamter.txt and the epoch checkpoint; samples/s, step ms, peak
     memory, device busy ms of one more profiled step. Then the first 3
     steps of this CLI and of `k3m_tpu_torch.pretrain` with the matching
-    flags on the same records, under torch.use_deterministic_algorithms:
-    losses and parameters bit for bit. (b) The CLI's default shapes
-    (36/128/20) at batch 96 for 3 steps: launch counts, then every kernel
+    flags on the same records (the config at DEPTH_CUT), under
+    torch.use_deterministic_algorithms: losses and parameters bit for bit.
+    (b) The CLI's default shapes (36/128/20) at batch 96 for 3 steps at
+    DEPTH_CUT: launch counts, then every kernel
     held at these shapes (legacy_kernel_rows). (c) A raw TSV of 96 rows
-    with a valid sibling: converted by find_records, one step; a second run
-    reuses the conversion."""
+    with a valid sibling: converted by find_records, one step (the config
+    at DEPTH_CUT); a second run reuses the conversion."""
     from k3m_tpu_torch import kernels, pretrain
     from k3m_tpu_torch.config import K3MConfig
     cfg = K3MConfig.from_json_file(str(BERT))
@@ -3381,6 +3471,7 @@ def phase_legacy_train(card):
 
     # the first 3 steps of the legacy CLI and of the pretraining CLI
     cmp_data = WORK / "legacy_cmp_data"
+    cut = write_cut_config(BERT, cmp_data)
     write_pretrain_records(cmp_data / "train_feat.k3mr", LEGACY_CMP_STEPS * TRAIN_BATCH,
                            seed=SEED + 4)
     plain_argv = ["--data_dir", str(cmp_data), "--output_dir", str(WORK / "legacy_cmp_p"),
@@ -3393,7 +3484,7 @@ def phase_legacy_train(card):
     try:
         a, ha, _, _ = _legacy_run(_legacy_argv(cmp_data, WORK / "legacy_cmp_l", "--do_train",
                                                *_readme_shapes()),
-                                  expected_train_launches(cfg, LEGACY_CMP_STEPS),
+                                  expected_train_launches(cut, LEGACY_CMP_STEPS),
                                   "legacy_train (a) legacy CLI, 3 steps")
         params_a = {k: v.detach().clone() for k, v in a["trainer"].model.state_dict().items()}
         config_a = a["trainer"].config.to_dict()
@@ -3425,7 +3516,7 @@ def phase_legacy_train(card):
     # (b) the CLI's default shapes
     run, hist, counts, peak = _legacy_run(
         _legacy_argv(cmp_data, WORK / "legacy_defaults", "--do_train"),
-        expected_train_launches(cfg, LEGACY_CMP_STEPS), "legacy_train (b)")
+        expected_train_launches(cut, LEGACY_CMP_STEPS), "legacy_train (b)")
     timed = hist["step_seconds"][1:]
     res["defaults"] = dict(launches=counts, step_losses=hist["step_losses"], peak_gib=peak,
                            samples_per_s=sum(hist["step_samples"][1:]) / sum(timed),
@@ -3440,7 +3531,7 @@ def phase_legacy_train(card):
     # (c) a raw TSV with a valid sibling, converted once
     from k3m_tpu_torch.tokenization import build_synthetic_vocab
     raw = WORK / "legacy_raw"
-    raw.mkdir(parents=True, exist_ok=True)
+    write_cut_config(BERT, raw)
     rng, vocab = np.random.default_rng(SEED + 5), build_synthetic_vocab()
     for name, n in (("train_raw.tsv", TRAIN_BATCH), ("valid_raw.tsv", 8)):
         with open(raw / name, "w", encoding="utf-8") as f:
@@ -3448,7 +3539,7 @@ def phase_legacy_train(card):
                 it = _synthetic_item(rng, vocab, i, n_boxes=0)
                 f.write(f"{name[:5]}{i}\t{it['title']}\thttp://img.example/{i}.jpg\t"
                         f"{it['pv'].replace(':', '#:#')}\t{it['category']}\n")
-    expected = _plus(expected_train_launches(cfg, 1), expected_eval_launches(cfg, 1))
+    expected = _plus(expected_train_launches(cut, 1), expected_eval_launches(cut, 1))
     stamps = []
     for k in range(2):
         run, hist, counts, _ = _legacy_run(
@@ -3573,11 +3664,12 @@ def _tp_finetune_step(spec):
 
 
 def _tp_finetune_cfg():
-    """Phase 22's finetune: bert_base_6layer_6conect, loss inner, dropout
-    at the config's 0.1."""
+    """Phase 22's finetune: bert_base_6layer_6conect at DEPTH_CUT, loss
+    inner, dropout at the config's 0.1."""
     from k3m_tpu_torch.config import K3MConfig
     return K3MConfig.from_json_file(str(BERT)).replace(
-        use_image=True, with_coattention=True, loss_type="inner", if_pre_sampling=1)
+        use_image=True, with_coattention=True, loss_type="inner", if_pre_sampling=1,
+        **DEPTH_CUT)
 
 
 def _tp_cli(spec):
@@ -3664,11 +3756,11 @@ def _check_tp_grads(what, want_losses, want, r0, r1, got, zero_grad_scale, card)
     struc_w2.weight's scale, as phases 9 and 18 hold it). Returns the
     worst error/tolerance and its tensor."""
     if r0["grads_sha"] != r1["grads_sha"] or r0["losses"] != r1["losses"]:
-        raise AssertionError(f"{what}: the two model ranks hold different gradients or "
+        raise AssertionError(f"{what}: the model ranks hold different gradients or "
                              "losses")
     for k, w in want_losses.items():
         err, tol = abs(r0["losses"][k] - w), 1e-4 * max(1.0, abs(w))
-        log(f"{what} {k}: two model ranks {r0['losses'][k]:.6f} one process {w:.6f} "
+        log(f"{what} {k}: the model ranks {r0['losses'][k]:.6f} one process {w:.6f} "
             f"(tol {tol:.1e})")
         if not (math.isfinite(r0["losses"][k]) and err <= tol):
             raise AssertionError(f"{what} {k}: {err} > {tol}")
@@ -3684,21 +3776,58 @@ def _check_tp_grads(what, want_losses, want, r0, r1, got, zero_grad_scale, card)
             worst, worst_name = ratio, name
         if not (torch.isfinite(g).all() and ratio <= 1.0):
             raise AssertionError(f"{what} gradient {name}: {max_err(g, a)} > {tol}")
-    log(f"{what}: {len(got)} gradient tensors of two model ranks (gathered) agree with one "
+    log(f"{what}: {len(got)} gradient tensors of the model ranks (gathered) agree with one "
         f"process; worst error/tolerance {worst:.3e} ({worst_name}) | {card}")
     return worst, worst_name
 
 
-def phase_tp_crosscheck(card):
+# phase 22's --n_model 8 step: k3m_roberta_base's widths and heads, cut to
+# 2 text layers, 1 image layer and one co-attention block of each kind
+TP8_CUT = dict(num_hidden_layers=2, v_num_hidden_layers=1, v_biattention_id=[0],
+               t_biattention_id=[1])
+
+
+def _check_tp_masks(one, prefix, M, card):
+    """Each model rank's mask words, call by call, against one process's:
+    a layer whose heads M divides drew its rank's head slice, one whose
+    heads it does not (the 12 text heads at 8) drew all of them, bit for
+    bit. Returns (calls, replicated calls) per rank."""
+    out = []
+    for r in range(M):
+        calls = torch.load(f"{prefix}.{r}")
+        Path(f"{prefix}.{r}").unlink()
+        if len(calls) != len(one) or not calls:
+            raise AssertionError(f"tp masks rank {r}: {len(calls)} calls, one process "
+                                 f"{len(one)}")
+        full = 0
+        for i, ((h0, words), (_, whole)) in enumerate(zip(calls, one)):
+            H = words.shape[1]
+            full += H == whole.shape[1]
+            if not torch.equal(words, whole[:, h0:h0 + H]):
+                raise AssertionError(f"tp masks rank {r} call {i}: heads {h0}..{h0 + H - 1} "
+                                     "differ from one process's")
+        out.append((len(calls), full))
+    if not all(f and f < n for n, f in out):
+        raise AssertionError(f"tp masks: calls and replicated calls per rank {out}")
+    log(f"tp_crosscheck --n_model {M}: every rank's mask words equal one process's "
+        f"(calls, of them all heads) {out[0]} | {card}")
+    return out
+
+
+def phase_tp_crosscheck(card, during=None):
     """Two gloo ranks with --n_model 2 sharing the card against one process
     on the card (computed while the ranks run), fp32, dropout 0.1 with the
     step's own draws (the Philox masks keyed by global head): one
-    pretraining train step at full width (k3m_roberta_base) on phase 18's
+    pretraining train step (k3m_roberta_base at DEPTH_CUT) on phase 18's
     global batch of 4 and its zero-pair item, the four losses and every
     gathered gradient to phase 7's limits; one finetune train step
-    (bert_base_6layer_6conect, loss inner) at batch 2 of phase 8's pairs,
-    the loss and every gradient to phase 9's. The two pairs of ranks run
-    at once."""
+    (bert_base_6layer_6conect at DEPTH_CUT, loss inner) at batch 2 of
+    phase 8's pairs,
+    the loss and every gradient to phase 9's; eight gloo ranks with
+    --n_model 8 at the TP8_CUT depth, the pretraining step against one
+    process at the same cut, and every mask word against one process's
+    (_check_tp_masks). The three worlds run at once; this process computes
+    the references while they run, then `during()` (phase 24)."""
     from k3m_tpu_torch.config import K3MConfig
     from k3m_tpu_torch.model.random import StepRandom
     from k3m_tpu_torch.train.alignment_loop import AlignmentTrainer, decode_items
@@ -3720,14 +3849,17 @@ def phase_tp_crosscheck(card):
                 if p.grad is not None}
 
     def one_process():                  # while the ranks run
-        trainer = PretrainTrainer(cfg, device="cuda", seed=SEED, objective=2)
-        loss, metrics = trainer.losses(trainer.stage(batch), deterministic=False,
-                                       rng=StepRandom(SEED, 0, "cuda"))
-        loss.backward()
-        one["pretrain"] = ({k: float(metrics[k]) for k in (
-            "masked_lm_loss", "masked_img_loss", "masked_lm_loss_pv", "loss_struc")},
-            grads_of(trainer.model))
-        del trainer, loss, metrics
+        for what, c in (("pretrain", cfg.replace(**DEPTH_CUT)),
+                        ("pretrain_m8", cfg.replace(**TP8_CUT))):
+            trainer = PretrainTrainer(c, device="cuda", seed=SEED, objective=2)
+            with recording_masks() as masks:
+                loss, metrics = trainer.losses(trainer.stage(batch), deterministic=False,
+                                               rng=StepRandom(SEED, 0, "cuda"))
+            loss.backward()
+            one[what] = ({k: float(metrics[k]) for k in (
+                "masked_lm_loss", "masked_img_loss", "masked_lm_loss_pv", "loss_struc")},
+                grads_of(trainer.model), masks)
+            del trainer, loss, metrics
         trainer = AlignmentTrainer(fcfg, device="cuda", seed=SEED)
         b = decode_items(trainer.stage(pairs), fcfg)
         loss = trainer.model(b["label"], b["item1"], b["item2"], deterministic=False,
@@ -3737,24 +3869,39 @@ def phase_tp_crosscheck(card):
         del trainer, loss
         torch.cuda.empty_cache()
     jobs = []
-    for what, mode, data in (("pretrain", "pretrain_step", "tp_batch.pt"),
-                             ("finetune", "finetune_step", "tp_pairs.pt")):
+    for what, mode, data, M, extra in (
+            ("pretrain", "pretrain_step", "tp_batch.pt", 2, dict(cfg=DEPTH_CUT)),
+            ("finetune", "finetune_step", "tp_pairs.pt", 2, {}),
+            ("pretrain_m8", "pretrain_step", "tp_batch.pt", 8,
+             dict(cfg=TP8_CUT, masks=str(d / "tp_masks_m8")))):
         port = _free_port()
-        spec = dict(mode=mode, n_model=2, batch=str(d / data),
-                    grads=str(d / f"tp_grads_{what}.pt"))
-        jobs += [(f"tp_cross_{what}{r}", spec, _dp_env("gloo", r, 2, port)) for r in range(2)]
-    res = run_workers(jobs, "tp_crosscheck", during=one_process)
+        spec = dict(mode=mode, n_model=M, batch=str(d / data),
+                    grads=str(d / f"tp_grads_{what}.pt"), **extra)
+        jobs += [(f"tp_cross_{what}{r}", spec, _dp_env("gloo", r, M, port)) for r in range(M)]
+    def this_process():                 # the references, then `during`
+        one_process()
+        if during is not None:
+            during()
+    res = run_workers(jobs, "tp_crosscheck", during=this_process)
     out = {}
-    for what in ("pretrain", "finetune"):
-        r0, r1 = res[f"tp_cross_{what}0"], res[f"tp_cross_{what}1"]
-        want_losses, want = one[what]
-        worst = _check_tp_grads(f"tp_crosscheck {what}", want_losses, want, r0, r1,
+    for what, M in (("pretrain", 2), ("finetune", 2), ("pretrain_m8", 8)):
+        ranks = [res[f"tp_cross_{what}{r}"] for r in range(M)]
+        r0 = ranks[0]
+        want_losses, want = one[what][:2]
+        for r in ranks[2:]:
+            if r["grads_sha"] != r0["grads_sha"] or r["losses"] != r0["losses"]:
+                raise AssertionError(f"tp_crosscheck {what}: the model ranks hold different "
+                                     "gradients or losses")
+        worst = _check_tp_grads(f"tp_crosscheck {what}", want_losses, want, r0, ranks[1],
                                 torch.load(d / f"tp_grads_{what}.pt"), True, card)
-        out[what] = dict(losses_one=want_losses, losses_two=r0["losses"],
+        out[what] = dict(losses_one=want_losses, losses_ranks=r0["losses"],
                          worst_grad_ratio=worst[0], worst_grad=worst[1],
-                         peak_gib=[r0["peak_gib"], r1["peak_gib"]],
-                         launches=dict(gloo0=r0["launches"], gloo1=r1["launches"]))
+                         peak_gib=[r["peak_gib"] for r in ranks],
+                         launches={f"gloo{i}": r["launches"] for i, r in enumerate(ranks)},
+                         traffic=r0.get("traffic"))
         (d / f"tp_grads_{what}.pt").unlink()
+    out["pretrain_m8"]["masks"] = _check_tp_masks(one["pretrain_m8"][2],
+                                                  d / "tp_masks_m8", 8, card)
     for f in ("tp_batch.pt", "tp_pairs.pt"):
         (d / f).unlink()
     return out
@@ -3779,8 +3926,9 @@ def _one_process_sha(build, path):
 def phase_tp_train(card):
     """The three training CLIs with --n_model 2, each as two gloo ranks
     sharing the card (the K3M_* variables, K3M_DIST_BACKEND=gloo), the
-    three pairs at once, bf16, full width, TP_STEPS steps each, at small
-    global batches (gloo's host path: no speed figure):
+    three pairs at once, bf16, the shipped widths at DEPTH_CUT, TP_STEPS
+    steps each, at small global batches (gloo's host path: no speed
+    figure):
     `k3m_tpu_torch.pretrain` (k3m_roberta_base, batch 16), `finetune
     --do_train --do_eval --do_pred` (bert_base_6layer_6conect with phase
     4's flags, 8 pairs, the sweep and predict at batch TP_EVAL_PAIRS, over
@@ -3792,22 +3940,21 @@ def phase_tp_train(card):
     checkpoint, whose `pytorch_model.bin` has full shapes and loads into a
     one-process model with those parameters bit for bit; model rank 0's
     predict file (one data group: no part suffix) holds those pairs with
-    phase 4's scores within 2^-6. Step ms, the model-group all-reduces'
+    the scores of one process's predict (run while the ranks run) within
+    2^-6. Step ms, the model-group all-reduces'
     count, bytes and host ms a step, peak memory per rank."""
     import importlib
-    from k3m_tpu_torch.config import K3MConfig
     from k3m_tpu_torch.model.alignment import K3MForItemAlignment
     from k3m_tpu_torch.model.pretrain import K3MForPretraining
-    roberta, bert = K3MConfig.from_json_file(str(ROBERTA)), K3MConfig.from_json_file(str(BERT))
     data, ft_data = WORK / "tp_data", WORK / "tp_ft_data"
-    for p in (data, ft_data):
-        p.mkdir(parents=True, exist_ok=True)
+    roberta, bert = write_cut_config(ROBERTA, data), write_cut_config(BERT, data)
+    write_cut_config(BERT, ft_data)
     write_pretrain_records(data / "train_feat.k3mr", TP_STEPS * TP_PRETRAIN_BATCH)
     write_finetune_records(ft_data, TP_STEPS * TP_FT_BATCH, TP_EVAL_PAIRS)
     write_pair_records(ft_data / "test_item_alignment.k3mr", TP_EVAL_PAIRS)
     tp = ("--n_model", "2")
     ft_argv = ["--data_dir", str(ft_data), "--output_dir", str(WORK / "tp_finetune"),
-               "--config_file", "bert_base_6layer_6conect.json", "--use_image",
+               "--config_file", str(ft_data / BERT.name), "--use_image",
                "--with_coattention", "--do_train", "--do_eval", "--do_pred", "--bf16",
                "--train_batch_size", str(TP_FT_BATCH), "--eval_batch_size",
                str(TP_EVAL_PAIRS),
@@ -3830,7 +3977,16 @@ def phase_tp_train(card):
         port = _free_port()
         jobs += [(f"tp_{cli}{r}", dict(mode="cli", cli=cli, argv=argv),
                   _dp_env("gloo", r, 2, port)) for r in range(2)]
-    got = run_workers(jobs, "tp_train")
+    one = {}
+
+    def one_process_predict():          # the reference, while the ranks run
+        from k3m_tpu_torch import finetune
+        argv = [a for a in ft_argv if a not in ("--do_train", "--do_eval")]
+        del argv[argv.index("--n_model"):argv.index("--n_model") + 2]
+        argv[argv.index("--output_dir") + 1] = str(WORK / "tp_predict_one")
+        one["output"] = finetune.main(argv)["output"]
+        torch.cuda.empty_cache()
+    got = run_workers(jobs, "tp_train", during=one_process_predict)
     res = {}
     for cli, (argv, expected, model_class) in runs.items():
         ranks = [got[f"tp_{cli}{r}"] for r in range(2)]
@@ -3878,20 +4034,18 @@ def phase_tp_train(card):
                                      f"{ranks[1]['output']}")
             read = lambda p: {(x["src_item_id"], x["tgt_item_id"]): x
                               for x in map(json.loads, Path(p).read_text().splitlines())}
-            part = read(ranks[0]["output"])
-            want = {k: v for k, v in read(WORK / "out" / "deepAI_result_threshold=0.5.jsonl")
-                    .items() if k in part}
-            if len(part) != TP_EVAL_PAIRS or len(want) != TP_EVAL_PAIRS:
-                raise AssertionError(f"{what}: {len(part)} predicted pairs, {len(want)} of "
-                                     "them in phase 4's dump")
+            part, want = read(ranks[0]["output"]), read(one["output"])
+            if len(part) != TP_EVAL_PAIRS or set(want) != set(part):
+                raise AssertionError(f"{what}: {len(part)} predicted pairs, {len(want)} in "
+                                     "one process's predict")
             entry["worst_score_diff"] = max(
                 abs(float(part[k][s]) - float(x[s])) for k, x in want.items()
                 for s in ("src_item_emb", "tgt_item_emb"))
             if entry["worst_score_diff"] > DP_BF16_TOL:
-                raise AssertionError(f"{what}: scores differ from phase 4's by "
+                raise AssertionError(f"{what}: scores differ from one process's by "
                                      f"{entry['worst_score_diff']}")
             note = (f"; predict of {TP_EVAL_PAIRS} pairs within "
-                    f"{entry['worst_score_diff']:.3e} of phase 4's dump")
+                    f"{entry['worst_score_diff']:.3e} of one process's")
         log(f"{what}: two model ranks on one card over gloo (three CLIs at once): losses "
             f"equal on both, {TP_STEPS} steps, step ms {[round(x, 1) for x in entry['step_ms']]}; "
             f"a step's model-group all-reduces {entry['model_allreduces']} of "
@@ -3904,7 +4058,7 @@ def phase_tp_train(card):
         shutil.rmtree(Path(argv[argv.index("--output_dir") + 1]), ignore_errors=True)
         res[cli] = entry
         res[f"{cli}_launches"] = {f"gloo{r}": ranks[r]["launches"] for r in range(2)}
-    for p in (data, ft_data):
+    for p in (data, ft_data, WORK / "tp_predict_one"):
         shutil.rmtree(p, ignore_errors=True)
     return res
 
@@ -3974,6 +4128,502 @@ def phase_tp_cards(card, n):
     return dict(res, n=n)
 
 
+# ------------------------------------------------- trunk options (phase 24)
+
+OPTION_ATTN_SHAPES = ((12, 51, 64, "title+task"), (12, 257, 64, "pv+task"),
+                      (12, 87, 64, "basebert"))
+OPTION_BIATTN_SHAPES = ((37, 51, 128, "c_layer task"), (37, 257, 128, "c_layer_pv_v task"),
+                        (257, 51, 96, "c_layer_pv_t task"))
+OPTION_BATCH = 8            # (a)-(c); (c) makes 64 pair rows of it
+MAPS_BATCH = 4              # (d)
+CROSS_BATCH = 2             # every part's fp32 card-vs-CPU cross-check
+BASEBERT_BATCH = 32         # (e)
+BASEBERT_STEPS = 3
+
+
+def option_kernel_rows(card):
+    """#1-#5 at the shapes the trunk options and the single-stream baseline
+    give them, at batch 96, fp32 and bf16 at rate 0 and 0.1, held and timed
+    as phase 3 holds them: the task token's L51 and L257 (one row past four
+    64-row tiles, nine mask words, held bit for bit to the plain mask), the
+    baseline's L87 (50 title + 37 image tokens), the co-attention at
+    37<->51, 37<->257 and 257<->51; #1/#2 on the 96 x 257 pv rows of 768."""
+    f32, bf16 = torch.float32, torch.bfloat16
+    B, rows = TRAIN_BATCH, []
+    ln = ((B * 257, 768, "pv+task"),)
+    kernel_phase_layernorm(card, rows, cases=[(B, s, ((f32, f32), (bf16, bf16))) for s in ln])
+    kernel_phase_layernorm_bwd(card, rows, cases=[(B, s, (f32, bf16)) for s in ln])
+    cases = [(B, dt, rate) for dt in (f32, bf16) for rate in RATES]
+    kernel_phase_attention(card, rows, cases=cases, shapes=OPTION_ATTN_SHAPES)
+    kernel_phase_biattention(card, rows, cases=cases, shapes=OPTION_BIATTN_SHAPES)
+    kernel_phase_attention_bwd(card, rows, runs=((B, (f32, bf16), RATES),),
+                               attn_shapes=OPTION_ATTN_SHAPES, bi_shapes=OPTION_BIATTN_SHAPES)
+    torch.cuda.empty_cache()
+    return rows
+
+
+def _check_launches(what, got, want, card):
+    from k3m_tpu_torch import kernels
+    want = {k: want.get(k, 0) for k in kernels.WRAPPERS}
+    log(f"{what}: kernel launches {got} | {card}")
+    if got != want:
+        raise AssertionError(f"{what}: launches {got}, the config gives {want}")
+
+
+def _seeded(make, cfg, device, states):
+    """`make()` with random weights from SEED (drawn once per parameter
+    layout into `states`, then copied), computing in the config's dtype,
+    on `device`."""
+    from k3m_tpu_torch.model.layers import compute_dtype, init_weights, set_compute_dtype
+    with torch.device("meta"):
+        module = make()
+    key = tuple((k, tuple(v.shape)) for k, v in module.state_dict().items())
+    if key not in states:
+        states[key] = init_weights(make(), SEED, cfg.initializer_range).state_dict()
+    module.load_state_dict({k: v.clone() for k, v in states[key].items()}, assign=True)
+    return set_compute_dtype(module, compute_dtype(cfg)).to(device)
+
+
+def _ragged(rng, b, n):
+    m = np.ones((b, n), np.int64)
+    for i in range(1, b):
+        m[i, rng.integers(n // 2, n):] = 0
+    return m
+
+
+def _trunk_inputs(cfg, B, seed, device, task=False):
+    """K3MTrunk's positional inputs at the full shapes (title 50, pv 256,
+    36 RoIs and the global token), ragged masks, on `device`; with `task`,
+    the task ids."""
+    rng = np.random.default_rng(seed)
+    L, Lpv, R = SHAPES["max_seq_length"], SHAPES["max_seq_length_pv"], \
+        SHAPES["max_region_length"] + 1
+    ids = lambda n: torch.from_numpy(rng.integers(1, cfg.vocab_size, (B, n)))
+    args = [ids(L), torch.from_numpy(rng.standard_normal((B, R, cfg.v_feature_size))).float(),
+            torch.from_numpy(rng.random((B, R, 5))).float(), torch.zeros(B, L, dtype=torch.long),
+            torch.from_numpy(_ragged(rng, B, L)), torch.from_numpy(_ragged(rng, B, R)),
+            ids(Lpv), torch.zeros(B, Lpv, dtype=torch.long),
+            torch.from_numpy(_ragged(rng, B, Lpv))]
+    kw = dict(task_ids=torch.from_numpy(rng.integers(0, 20, (B,)))) if task else {}
+    to = lambda t: t.to(device)
+    return [to(a) for a in args], {k: to(v) for k, v in kw.items()}
+
+
+def _encoder_inputs(cfg, Bt, B, seed, device, dtype, grad=False):
+    """TriStreamEncoder's inputs at the full shapes: text embeddings of Bt
+    rows, image and pv embeddings of B rows (N(0, 1) in `dtype`; leaves
+    with a gradient under `grad`), their fp32 key biases and the [B, L, 1]
+    text masks."""
+    from k3m_tpu_torch.model.layers import mask_to_bias
+    rng = np.random.default_rng(seed)
+    L, Lpv, R = SHAPES["max_seq_length"], SHAPES["max_seq_length_pv"], \
+        SHAPES["max_region_length"] + 1
+
+    def emb(b, n, h):
+        t = torch.from_numpy(rng.standard_normal((b, n, h))).to(device, dtype)
+        return t.requires_grad_(grad)
+    txt, img, pv = emb(Bt, L, cfg.hidden_size), emb(B, R, cfg.v_hidden_size), \
+        emb(B, Lpv, cfg.hidden_size)
+    tm, im, pm = (torch.from_numpy(_ragged(rng, b, n)).to(device)
+                  for b, n in ((Bt, L), (B, R), (B, Lpv)))
+    return [txt, img, mask_to_bias(tm), tm.to(dtype)[:, :, None], mask_to_bias(im), pv,
+            mask_to_bias(pm), pm.to(dtype)[:, :, None]]
+
+
+def _probe_loss(outs):
+    """sum_i <outs[i], r_i> with r_i ~ N(0, 1) drawn on the CPU from seed
+    i, the same on every device: a loss whose gradient reaches every
+    weight (a plain sum would not pass a LayerNorm with uniform scales:
+    its normalized rows sum to zero)."""
+    total = 0.0
+    for i, o in enumerate(outs):
+        r = torch.randn(o.shape, generator=torch.Generator().manual_seed(i))
+        total = total + (o.float() * r.to(o.device)).sum()
+    return total
+
+
+def _train_pass(model, run, card, what, want, dev):
+    """One bf16 training forward (dropout 0.1 from a StepRandom) and its
+    backward of `_probe_loss` of `run(model)`'s outputs: finite outputs,
+    the launch counts the config gives. Returns the seconds."""
+    from k3m_tpu_torch import kernels
+    from k3m_tpu_torch.model import random as k3m_random
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    with k3m_random.use(k3m_random.StepRandom(SEED, 0, dev)):
+        outs = run(model)
+        loss = _probe_loss(outs)
+    loss.backward()
+    _sync(dev)
+    seconds = time.perf_counter() - t0
+    if not all(torch.isfinite(o).all() for o in outs) or not torch.isfinite(loss):
+        raise AssertionError(f"{what}: non-finite outputs")
+    _check_launches(what, kernels.launch_counts(), want, card)
+    return seconds
+
+
+def _sync(dev):
+    if torch.device(dev).type == "cuda":
+        torch.cuda.synchronize()
+
+
+KEY_BIAS = re.compile(r"(key[12]?)\.bias$")
+
+
+def _hold(what, want, got, kind, card):
+    """`got` against `want` tensor by tensor: outputs at phase 5's limit
+    (1e-4 of max(1, scale)), gradients at phase 7's (1e-3 of the tensor's
+    scale + 1e-7). A key projection's bias has a gradient that is zero in
+    exact arithmetic (it adds q . b_k to every key of a query alike, which
+    the softmax ignores), so only rounding remains there: it is held at
+    its weight's gradient scale, as phases 9 and 18 hold struc_w2.bias at
+    struc_w2.weight's. Returns the worst error/tolerance."""
+    if set(want) != set(got) or not want:
+        raise AssertionError(f"{what}: the two runs gave different {kind}s")
+    worst, worst_name = 0.0, None
+    for name, a in want.items():
+        b = got[name]
+        scale = want[KEY_BIAS.sub(r"\1.weight", name)] if kind == "gradient" \
+            and KEY_BIAS.search(name) else a
+        tol = (1e-4 * max(1.0, float(a.abs().max())) if kind == "output"
+               else 1e-3 * float(scale.abs().max()) + 1e-7)
+        ratio = max_err(a, b) / tol
+        if ratio > worst:
+            worst, worst_name = ratio, name
+        if not (torch.isfinite(b).all() and ratio <= 1.0):
+            raise AssertionError(f"{what} {kind} {name}: {max_err(a, b)} > {tol}")
+    log(f"{what}: {len(want)} {kind}s agree; worst error/tolerance {worst:.3e} "
+        f"({worst_name}) | {card}")
+    return worst
+
+
+def _outputs(outs):
+    """{out<i>: tensor} of a module's outputs (a dict's in key order, the
+    word table left out: it is a parameter)."""
+    if isinstance(outs, dict):
+        outs = [outs[k] for k in sorted(outs) if k != "word_embedding_table"]
+    return {f"out{i}": o for i, o in enumerate(outs)}
+
+
+def _fp32_run(build, inputs, device, grads_of_inputs=()):
+    """fp32 deterministic forward and backward of `_probe_loss` of the
+    outputs of `build(device)(*inputs(device))`: ({output: tensor},
+    {parameter or input<i>: gradient}), on the host."""
+    model = build(device)
+    args = inputs(device)
+    outs = _outputs(model(*args))
+    _probe_loss(list(outs.values())).backward()
+    got = {k: o.detach().float().cpu() for k, o in outs.items()}
+    grads = {n: p.grad.float().cpu() for n, p in model.named_parameters() if p.grad is not None}
+    grads.update({f"input{i}": args[i].grad.float().cpu() for i in grads_of_inputs})
+    del model, args, outs
+    torch.cuda.empty_cache()
+    return got, grads
+
+
+def _cross(what, build, inputs, card, dev, grads_of_inputs=()):
+    """The fp32 cross-check of one part at CROSS_BATCH: `dev` (the card)
+    against the CPU, outputs and every gradient."""
+    cpu = _fp32_run(build, inputs, "cpu", grads_of_inputs)
+    card_ = _fp32_run(build, inputs, dev, grads_of_inputs)
+    return dict(outputs=_hold(f"{what} fp32 card vs cpu", cpu[0], card_[0], "output", card),
+                grads=_hold(f"{what} fp32 card vs cpu", cpu[1], card_[1], "gradient", card))
+
+
+def _no_grad_outputs(model, *args):
+    with torch.no_grad():
+        return {k: v.float().cpu() for k, v in _outputs(model(*args)).items()}
+
+
+class _TaskTrunk(torch.nn.Module):
+    """K3MTrunk called positionally with its keywords last (deterministic,
+    gumbel_noise, task_ids), as the cross-checks call every part."""
+
+    def __init__(self, cfg):
+        super().__init__()
+        from k3m_tpu_torch.model.pretrain import K3MTrunk
+        self.trunk = K3MTrunk(cfg)
+
+    def forward(self, *args):
+        *a, det, noise, task = args
+        return self.trunk(*a, deterministic=det, gumbel_noise=noise, task_ids=task)
+
+
+def _options_task_tokens(card, dev, states):
+    """(a) K3MTrunk with task_ids (bert_base_6layer_6conect): a bf16
+    training pass at OPTION_BATCH, both text streams one longer (51 and
+    257); the fp32 cross-check (soft fusion, no Gumbel draw)."""
+    from k3m_tpu_torch.config import K3MConfig
+    cfg = K3MConfig.from_json_file(str(BERT)).replace(use_image=True,
+                                                      task_specific_tokens=True)
+    bf = cfg.replace(dtype="bfloat16")
+    model = _seeded(lambda: _TaskTrunk(bf), bf, dev, states)
+    args, kw = _trunk_inputs(bf, OPTION_BATCH, SEED + 30, dev, task=True)
+    shapes = {}
+
+    def run(m):
+        out = m(*args, False, None, kw["task_ids"])
+        shapes.update(seq_t=out["seq_t"].shape[1], seq_pv=out["seq_pv"].shape[1])
+        return list(_outputs(out).values())
+    seconds = _train_pass(model, run, card, "options (a) task tokens bf16",
+                          expected_train_launches(bf, 1, head_lns=0), dev)
+    want = dict(seq_t=SHAPES["max_seq_length"] + 1, seq_pv=SHAPES["max_seq_length_pv"] + 1)
+    if shapes != want:
+        raise AssertionError(f"options (a): text streams {shapes} long, not {want}")
+    del model
+    soft = cfg.replace(if_pre_sampling=2)
+
+    def inputs(d):
+        a, k = _trunk_inputs(soft, CROSS_BATCH, SEED + 31, d, task=True)
+        return a + [True, None, k["task_ids"]]
+    return dict(bf16_seconds=seconds, lengths=shapes,
+                cross=_cross("options (a) task tokens",
+                             lambda d: _seeded(lambda: _TaskTrunk(soft), soft, d, states),
+                             inputs, card, dev))
+
+
+def _plain_encoder(cfg, model):
+    """An encoder without the row options, holding `model`'s weights."""
+    from k3m_tpu_torch.model.encoder import TriStreamEncoder
+    from k3m_tpu_torch.model.layers import compute_dtype, set_compute_dtype
+    with torch.device("meta"):
+        plain = TriStreamEncoder(cfg.replace(fast_mode=False, in_batch_pairs=False))
+    plain.load_state_dict(model.state_dict(), assign=True)
+    return set_compute_dtype(plain, compute_dtype(cfg)).eval()
+
+
+def _options_fast_mode(card, dev, states):
+    """(b) TriStreamEncoder with fast_mode (k3m_roberta_base): bf16
+    training passes at equal batches (8) and at a text batch of 1 against
+    8 images and pvs; fp32 on the card, held to the encoder fed the text
+    row repeated; the fp32 cross-check at a text batch of 1 against 2."""
+    from k3m_tpu_torch.config import K3MConfig
+    from k3m_tpu_torch.model.encoder import TriStreamEncoder
+    cfg = K3MConfig.from_json_file(str(ROBERTA)).replace(use_image=True, fast_mode=True)
+    bf = cfg.replace(dtype="bfloat16")
+    model = _seeded(lambda: TriStreamEncoder(bf), bf, dev, states)
+    out = {}
+    for Bt in (OPTION_BATCH, 1):
+        args = _encoder_inputs(bf, Bt, OPTION_BATCH, SEED + 40 + Bt, dev, torch.bfloat16,
+                               grad=True)
+        out[f"bf16_seconds_text{Bt}"] = _train_pass(
+            model, lambda m: m(*args, False), card,
+            f"options (b) fast mode bf16 text {Bt} x {OPTION_BATCH}",
+            expected_train_launches(bf, 1, head_lns=0, embedding_lns=0), dev)
+    del model, args
+    model = _seeded(lambda: TriStreamEncoder(cfg), cfg, dev, states).eval()
+    args = _encoder_inputs(cfg, 1, OPTION_BATCH, SEED + 42, dev, torch.float32)
+    rep = [a.expand((OPTION_BATCH,) + tuple(a.shape[1:])).contiguous() if i in (0, 2, 3)
+           else a for i, a in enumerate(args)]
+    out["repeat_worst"] = _hold("options (b) fast mode vs the text row repeated (fp32)",
+                                _no_grad_outputs(_plain_encoder(cfg, model), *rep),
+                                _no_grad_outputs(model, *args), "output", card)
+    del model, args, rep
+    inputs = lambda d: _encoder_inputs(cfg, 1, CROSS_BATCH, SEED + 43, d, torch.float32,
+                                       grad=True) + [True]
+    out["cross"] = _cross("options (b) fast mode",
+                          lambda d: _seeded(lambda: TriStreamEncoder(cfg), cfg, d, states),
+                          inputs, card, dev, (0, 1, 5))
+    return out
+
+
+def _options_pairs(card, dev, states):
+    """(c) TriStreamEncoder with in_batch_pairs (k3m_roberta_base): a bf16
+    training pass at b 8 (64 pair rows); fp32 on the card, held per pass to
+    the encoder fed the text side's rows repeated and the other stream's
+    tiled (t<->v and pv<->v: text and pv repeated, images tiled; t<->pv:
+    text repeated, pv tiled); the fp32 cross-check at b 2."""
+    from k3m_tpu_torch.config import K3MConfig
+    from k3m_tpu_torch.model.encoder import TriStreamEncoder
+    cfg = K3MConfig.from_json_file(str(ROBERTA)).replace(use_image=True, in_batch_pairs=True)
+    bf = cfg.replace(dtype="bfloat16")
+    b = OPTION_BATCH
+    model = _seeded(lambda: TriStreamEncoder(bf), bf, dev, states)
+    args = _encoder_inputs(bf, b, b, SEED + 50, dev, torch.bfloat16, grad=True)
+    rows = []
+
+    def run(m):
+        outs = m(*args, False)
+        rows.extend(o.shape[0] for o in outs)
+        return outs
+    out = dict(bf16_seconds=_train_pass(model, run, card,
+                                        f"options (c) in-batch pairs bf16 b {b}",
+                                        expected_train_launches(bf, 1, head_lns=0, embedding_lns=0), dev))
+    if rows != [b * b] * 6:
+        raise AssertionError(f"options (c): rows {rows}, not {b * b}")
+    del model, args
+    torch.cuda.empty_cache()
+    model = _seeded(lambda: TriStreamEncoder(cfg), cfg, dev, states).eval()
+    plain = _plain_encoder(cfg, model)
+    txt, img, tb, tm2, ib, pv, pb, pm2 = args = _encoder_inputs(cfg, b, b, SEED + 51, dev,
+                                                                 torch.float32)
+    rep = lambda t: t.repeat_interleave(b, dim=0)
+    tile = lambda t: t.repeat((b,) + (1,) * (t.dim() - 1))
+    got = _no_grad_outputs(model, *args)
+    with_img = _no_grad_outputs(plain, rep(txt), tile(img), rep(tb), rep(tm2), tile(ib),
+                                rep(pv), rep(pb), rep(pm2))
+    two_text = _no_grad_outputs(plain, rep(txt), tile(img), rep(tb), rep(tm2), tile(ib),
+                                tile(pv), tile(pb), tile(pm2))
+    want = {k: (with_img if int(k[3:]) < 4 else two_text)[k] for k in got}
+    out["repeat_worst"] = _hold("options (c) in-batch pairs vs the rows repeated and tiled "
+                                "(fp32)", want, got, "output", card)
+    del model, plain, args, got, with_img, two_text, want
+    torch.cuda.empty_cache()
+    inputs = lambda d: _encoder_inputs(cfg, CROSS_BATCH, CROSS_BATCH, SEED + 52, d,
+                                       torch.float32, grad=True) + [True]
+    out["cross"] = _cross("options (c) in-batch pairs",
+                          lambda d: _seeded(lambda: TriStreamEncoder(cfg), cfg, d, states),
+                          inputs, card, dev, (0, 1, 5))
+    return out
+
+
+def _options_maps(card, dev, states):
+    """(d) forward_with_attention on K3MTrunk (bert_base_6layer_6conect
+    with visualization, soft fusion) at MAPS_BATCH in bf16: as many maps
+    per site as the JAX package sows (4 per text layer, 2 per image layer,
+    attn1 and attn2 once per co-attention layer), each row summing to 1
+    within 2e-2 (the JAX test's limit), no attention kernel launched and
+    the LN kernel at its count; in fp32 the outputs equal the kernel
+    path's (visualization off) at phase 5's limit."""
+    from k3m_tpu_torch import kernels
+    from k3m_tpu_torch.config import K3MConfig
+    from k3m_tpu_torch.model.pretrain import K3MTrunk
+    from k3m_tpu_torch.model.visualize import flatten_attention, forward_with_attention
+    cfg = K3MConfig.from_json_file(str(BERT)).replace(use_image=True, visualization=True,
+                                                      if_pre_sampling=2)
+    bf = cfg.replace(dtype="bfloat16")
+    model = _seeded(lambda: K3MTrunk(bf), bf, dev, states).eval()
+    args, _ = _trunk_inputs(bf, MAPS_BATCH, SEED + 60, dev)
+    kernels.reset_launch_counts()
+    with torch.no_grad():
+        _, maps = forward_with_attention(model, *args)
+    _sync(dev)
+    _check_launches("options (d) attention maps bf16", kernels.launch_counts(),
+                    dict(fused_layernorm=expected_launches(bf, 1)["fused_layernorm"]), card)
+    counts = {p: {n: len(v) for n, v in s.items()} for p, s in maps.items()}
+    want = {**{f"encoder.layer.{i}.attention.self": {"attention_probs": 4}
+               for i in range(cfg.num_hidden_layers)},
+            **{f"encoder.v_layer.{i}.attention.self": {"attention_probs": 2}
+               for i in range(cfg.v_num_hidden_layers)},
+            **{f"encoder.{s}.{i}.biattention": {"attn1": 1, "attn2": 1}
+               for s in ("c_layer", "c_layer_pv_v", "c_layer_pv_t")
+               for i in range(cfg.num_coattention_layers)}}
+    if counts != want:
+        raise AssertionError(f"options (d): maps per site {counts}, not {want}")
+    flat = flatten_attention(maps)
+    worst_row = 0.0
+    for key, p in flat.items():
+        err = float((p.float().sum(-1) - 1).abs().max())
+        worst_row = max(worst_row, err)
+        if p.dim() != 4 or not err <= 2e-2:
+            raise AssertionError(f"options (d) {key}: rows sum to 1 within {err}")
+    log(f"options (d): {len(flat)} maps at {len(maps)} sites, rows sum to 1 within "
+        f"{worst_row:.3e} | {card}")
+    del model, maps, flat
+    model = _seeded(lambda: K3MTrunk(cfg), cfg, dev, states).eval()
+    off = _seeded(lambda: K3MTrunk(cfg.replace(visualization=False)), cfg, dev, states).eval()
+    args, _ = _trunk_inputs(cfg, MAPS_BATCH, SEED + 61, dev)
+    with torch.no_grad():
+        got = {k: v.float().cpu() for k, v in
+               _outputs(forward_with_attention(model, *args)[0]).items()}
+    worst = _hold("options (d) fp32 maps on vs the kernel path", _no_grad_outputs(off, *args),
+                  got, "output", card)
+    return dict(sites=len(counts), maps=sum(sum(c.values()) for c in counts.values()),
+                worst_row_sum_err=worst_row, fp32_vs_kernels=worst)
+
+
+def _basebert_batch(cfg, B, seed, device):
+    """The baseline's inputs at bert_base's title of 50 and 37 image tokens:
+    ragged masks, soft labels over v_target_size, about 15% of the tokens
+    and RoIs masked."""
+    rng = np.random.default_rng(seed)
+    L, R = SHAPES["max_seq_length"], SHAPES["max_region_length"] + 1
+    tgt = rng.random((B, R - 1, cfg.v_target_size)).astype(np.float32)
+    tgt /= tgt.sum(-1, keepdims=True)
+    x = dict(input_ids=rng.integers(1, cfg.vocab_size, (B, L)),
+             image_feat=rng.standard_normal((B, R, cfg.v_feature_size)).astype(np.float32),
+             image_target=tgt, image_loc=rng.random((B, R, 5)).astype(np.float32),
+             token_type_ids=np.zeros((B, L), np.int64), attention_mask=_ragged(rng, B, L),
+             image_attention_mask=_ragged(rng, B, R),
+             masked_lm_labels=np.where(rng.random((B, L)) < 0.15,
+                                       rng.integers(1, cfg.vocab_size, (B, L)), -1),
+             image_label=np.where(rng.random((B, R - 1)) < 0.15, 1, -1),
+             next_sentence_label=rng.integers(0, 2, (B,)))
+    return {k: torch.from_numpy(v).to(device) for k, v in x.items()}
+
+
+class _BaseBertLosses(torch.nn.Module):
+    """BaseBertForPretraining on a batch dict, called positionally."""
+
+    def __init__(self, cfg):
+        super().__init__()
+        from k3m_tpu_torch.model.basebert import BaseBertForPretraining
+        self.model = BaseBertForPretraining(cfg)
+
+    def forward(self, batch, det=True, rng=None):
+        return list(self.model(**batch, deterministic=det, rng=rng))
+
+
+def _options_basebert(card, dev, states):
+    """(e) BaseBertForPretraining at the bert_base text geometry (12 layers
+    of 768, 12 heads) with v_hidden_size 768: BASEBERT_STEPS bf16 AdamW
+    steps at BASEBERT_BATCH (dropout 0.1), finite losses, every kernel at
+    the count a step gives (28 LNs: 2 embeddings, 2 a layer, 2 heads; 12
+    attentions; each with its backward); the fp32 cross-check at batch 2:
+    the three losses and every gradient."""
+    from k3m_tpu_torch import kernels
+    from k3m_tpu_torch.config import K3MConfig
+    from k3m_tpu_torch.model.random import StepRandom
+    cfg = K3MConfig.from_json_file(str(BERT))
+    cfg = cfg.replace(v_hidden_size=cfg.hidden_size,
+                      v_num_attention_heads=cfg.num_attention_heads)
+    bf = cfg.replace(dtype="bfloat16")
+    model = _seeded(lambda: _BaseBertLosses(bf), bf, dev, states)
+    opt = torch.optim.AdamW(model.parameters(), lr=1e-4, betas=(0.9, 0.98))
+    batch = _basebert_batch(bf, BASEBERT_BATCH, SEED + 70, dev)
+    kernels.reset_launch_counts()
+    losses, step_s = [], []
+    for step in range(BASEBERT_STEPS):
+        t0 = time.perf_counter()
+        out = model(batch, False, StepRandom(SEED, step, dev))
+        sum(out).backward()
+        opt.step()
+        opt.zero_grad(set_to_none=True)
+        losses.append([v.item() for v in out])
+        step_s.append(time.perf_counter() - t0)
+    if not all(math.isfinite(v) for s in losses for v in s):
+        raise AssertionError(f"options (e) basebert: non-finite losses {losses}")
+    n_ln, n_at = 2 + 2 * cfg.num_hidden_layers + 2, cfg.num_hidden_layers
+    _check_launches("options (e) basebert bf16", kernels.launch_counts(),
+                    {k: BASEBERT_STEPS * v for k, v in dict(
+                        fused_layernorm=n_ln, layernorm_bwd=n_ln, fused_attention=n_at,
+                        attention_bwd=n_at).items()}, card)
+    log(f"options (e) basebert: losses (mlm, img, nsp) {losses}, step s {step_s} | {card}")
+    del model, opt, batch
+    torch.cuda.empty_cache()
+    cross = _cross("options (e) basebert",
+                   lambda d: _seeded(lambda: _BaseBertLosses(cfg), cfg, d, states),
+                   lambda d: [_basebert_batch(cfg, CROSS_BATCH, SEED + 71, d)], card, dev)
+    return dict(losses=losses, step_seconds=step_s, cross=cross)
+
+
+def phase_trunk_options(card, dev="cuda"):
+    """Phase 24: the trunk options at full width, each once in bf16 with
+    its launch counts and cross-checked in fp32 card vs CPU at batch 2:
+    (a) task tokens, (b) fast mode, (c) in-batch pairs, (d) attention maps,
+    (e) the single-stream baseline."""
+    out, states = {}, {}
+    for name, part in (("task_tokens", _options_task_tokens), ("fast_mode", _options_fast_mode),
+                       ("in_batch_pairs", _options_pairs), ("attention_maps", _options_maps),
+                       ("basebert", _options_basebert)):
+        t0 = time.perf_counter()
+        out[name] = part(card, dev, states)
+        out[name]["seconds"] = time.perf_counter() - t0
+        log(f"options {name}: {out[name]['seconds']:.1f} s")
+        torch.cuda.empty_cache()
+    return out
+
+
 SUMMARY = {
     # name: (source, TPU kernel, heaviest main-path row: shape part, dtype, rate)
     "fused_layernorm": ("k3m_tpu_torch/kernels/csrc/layernorm.cu",
@@ -4014,7 +4664,17 @@ TP_SUMMARY = {
 }
 
 
-def summarize(krows, paths, legacy, tp_rows):
+OPTION_SUMMARY = {
+    # name: the new shapes of the trunk options' rows (bf16, rate 0.1)
+    "fused_layernorm": ("pv+task", "bfloat16->bfloat16", None),
+    "layernorm_bwd": ("pv+task", "bfloat16", None),
+    "fused_attention": ("L257", "bfloat16", 0.1),
+    "attention_bwd": ("L257 D64", "bfloat16", 0.1),
+    "fused_biattention": ("L37<->257", "bfloat16", 0.1),
+}
+
+
+def summarize(krows, paths, legacy, tp_rows, option_rows):
     """One entry per kernel: the row of its heaviest main-path shape (the
     pretraining batch), `launches` from the pretraining run, the launches
     of every path's run (serving, pretraining, finetune, phases 11-14, each
@@ -4041,6 +4701,8 @@ def summarize(krows, paths, legacy, tp_rows):
         lg = _row(legacy["kernel_rows"], name, *LEGACY_SUMMARY[name], TRAIN_BATCH)
         entry["legacy_row"] = dict({k: lg[k] for k in keys},
                                    launches_per_step=legacy["per_step"][name])
+        op = _row(option_rows, name, *OPTION_SUMMARY[name], TRAIN_BATCH)
+        entry["option_row"] = {k: op[k] for k in keys}
         if name in TP_SUMMARY:
             part, dt, rt = TP_SUMMARY[name]
             entry["tp_rows"] = {f"n_model {M}": {k: r[k] for k in keys} for M in TP_MS
@@ -4084,11 +4746,12 @@ def main(argv):
         native_build = None if kernels_only else pool.submit(phase_native_build, card)
         build_s, ptxas = run("build", phase_build)
         native_built = native_build.result() if native_build else None
-    krows, host_us, masks, edges, tp_rows = run("kernels", phase_kernels, card)
+    krows, host_us, masks, edges, tp_rows, option_rows = run("kernels", phase_kernels, card)
     if kernels_only:                   # quick check of a kernel change
         OUT_JSON.parent.mkdir(parents=True, exist_ok=True)
         OUT_JSON.write_text(json.dumps(dict(card=card, build_s=build_s, ptxas=ptxas,
                                             kernels=krows, tp_kernels=tp_rows,
+                                            option_kernels=option_rows,
                                             dropout_masks=masks, forward_edges=edges,
                                             host_us_per_call=host_us), indent=1))
         return 0
@@ -4113,7 +4776,16 @@ def main(argv):
     dp_predict = run("dp_predict", phase_dp_predict, card)
     legacy_extract = run("legacy_extract", phase_legacy_extract, card)
     legacy = run("legacy_train", phase_legacy_train, card)
-    tp_cross = run("tp_crosscheck", phase_tp_crosscheck, card)
+    nested = {}
+
+    def trunk_options():               # phase 24, while phase 22's ranks run
+        t0 = time.perf_counter()
+        nested["result"] = phase_trunk_options(card)
+        nested["trunk_options (within tp_crosscheck)"] = time.perf_counter() - t0
+        log(f"trunk_options: phase took {nested['trunk_options (within tp_crosscheck)']:.1f} "
+            "s, while tp_crosscheck's ranks ran")
+    tp_cross = run("tp_crosscheck", phase_tp_crosscheck, card, during=trunk_options)
+    options = nested.pop("result")
     tp_train = run("tp_train", phase_tp_train, card)
     dp_paths = {f"dp_train_{k}": dict(launches=v) for k, v in dp_train["launches"].items()}
     dp_paths.update({f"dp_predict_{k}": dict(launches=v)
@@ -4126,7 +4798,8 @@ def main(argv):
                                     extract=extract, **dp_paths, legacy_extract=legacy_extract,
                                     legacy_readme=legacy["readme"],
                                     legacy_defaults=legacy["defaults"],
-                                    legacy_raw=legacy["raw"]), legacy, tp_rows)
+                                    legacy_raw=legacy["raw"]), legacy, tp_rows,
+                        option_rows)
     OUT_JSON.parent.mkdir(parents=True, exist_ok=True)
     OUT_JSON.write_text(json.dumps(dict(card=card, build_s=build_s, ptxas=ptxas,
                                         kernels=krows, tp_kernels=tp_rows,
@@ -4141,10 +4814,13 @@ def main(argv):
                                         dp_train=dp_train, dp_crosscheck=dp_cross,
                                         dp_predict=dp_predict, legacy_extract=legacy_extract,
                                         legacy_train=legacy, tp_crosscheck=tp_cross,
-                                        tp_train=tp_train, phase_seconds=seconds,
+                                        tp_train=tp_train, option_kernels=option_rows,
+                                        trunk_options=options, phase_seconds=seconds,
+                                        nested_phase_seconds=nested,
                                         summary=summary), indent=1, default=float))
     log(f"phase seconds {({k: round(v, 1) for k, v in seconds.items()})}, "
-        f"{sum(seconds.values()):.1f} s in all")
+        f"{sum(seconds.values()):.1f} s in all; within them "
+        f"{({k: round(v, 1) for k, v in nested.items()})}")
     print(card, flush=True)
     print(json.dumps({"kernels": summary}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -3,7 +3,8 @@
   * `from_jax_params(flat)`: '/'-joined flax parameter paths of the JAX
     package (e.g. `trunk/encoder/layer_0/attention/query/kernel`) -> the
     port's state-dict names (`encoder.layer.0.attention.self.query.weight`),
-    with Dense kernels transposed to torch's [out, in].
+    with Dense kernels transposed to torch's [out, in]; the single-stream
+    baseline's tree (`bert/...`, model/basebert.py) too.
   * `load_pretrained(model, path, strict=..., require_complete=...)`: a
     reference or HF checkpoint (a torch file or a TF1 checkpoint,
     `load_tf_state_dict`) into a model, with the JAX package's strict-load
@@ -89,7 +90,9 @@ def reference_to_flat(sd: Dict, trunk: str = "trunk") -> Dict:
     for tname, fname in (("embeddings.position_embeddings.weight",
                           f"{trunk}/embeddings/position_embeddings"),
                          ("embeddings.token_type_embeddings.weight",
-                          f"{trunk}/embeddings/token_type_embeddings")):
+                          f"{trunk}/embeddings/token_type_embeddings"),
+                         ("embeddings.task_embeddings.weight",
+                          f"{trunk}/embeddings/task_embeddings")):
         if tname in sd:
             out[fname] = sd[tname]
     _layernorm(out, f"{trunk}/embeddings/LayerNorm", sd, "embeddings.LayerNorm")
@@ -165,7 +168,7 @@ def _torch_name_universe(max_layers: int = 48):
     bounds."""
     lin = lambda base: [base + ".weight", base + ".bias"]
     U = ["embeddings.word_embeddings.weight", "embeddings.position_embeddings.weight",
-         "embeddings.token_type_embeddings.weight"]
+         "embeddings.token_type_embeddings.weight", "embeddings.task_embeddings.weight"]
     U += lin("embeddings.LayerNorm") + lin("v_embeddings.image_embeddings")
     U += lin("v_embeddings.image_location_embeddings") + lin("v_embeddings.LayerNorm")
     for i in range(max_layers):
@@ -200,23 +203,98 @@ def _torch_name_universe(max_layers: int = 48):
     return U + ["cls.predictions.bias"]
 
 
+def _text_layer(dst, f, sd, t):
+    """One TextLayer's weights: torch prefix `t`, flax prefix `f`."""
+    for proj in ("query", "key", "value"):
+        _linear(dst, f"{f}/attention/{proj}", sd, f"{t}.attention.self.{proj}")
+    _linear(dst, f"{f}/attention_output", sd, f"{t}.attention.output.dense")
+    _layernorm(dst, f"{f}/attention_LayerNorm", sd, f"{t}.attention.output.LayerNorm")
+    _linear(dst, f"{f}/intermediate", sd, f"{t}.intermediate.dense")
+    _linear(dst, f"{f}/output", sd, f"{t}.output.dense")
+    _layernorm(dst, f"{f}/output_LayerNorm", sd, f"{t}.output.LayerNorm")
+
+
+def basebert_to_flat(sd: Dict, max_layers: int = 48) -> Dict:
+    """The single-stream baseline's torch names (model/basebert.py, the
+    reference basebert's modules) -> the JAX package's flax paths
+    (k3m_tpu/model/basebert.py)."""
+    out: Dict = {}
+    for tname, fname in (("bert.embeddings.word_embeddings.weight", "bert/word_embeddings"),
+                         ("bert.embeddings.position_embeddings.weight",
+                          "bert/embeddings/position_embeddings"),
+                         ("bert.embeddings.token_type_embeddings.weight",
+                          "bert/embeddings/token_type_embeddings"),
+                         ("bert.v_embeddings.token_type_embeddings.weight",
+                          "bert/image_embeddings/token_type_embeddings"),
+                         ("cls.predictions.bias", "cls/predictions_bias")):
+        if tname in sd:
+            out[fname] = sd[tname]
+    _layernorm(out, "bert/embeddings/LayerNorm", sd, "bert.embeddings.LayerNorm")
+    for proj in ("image_embeddings", "image_location_embeddings"):
+        _linear(out, f"bert/image_embeddings/{proj}", sd, f"bert.v_embeddings.{proj}")
+    _layernorm(out, "bert/image_embeddings/LayerNorm", sd, "bert.v_embeddings.LayerNorm")
+    for i in range(max_layers):
+        _text_layer(out, f"bert/layer_{i}", sd, f"bert.encoder.layer.{i}")
+    _linear(out, "bert/pooler", sd, "bert.pooler.dense")
+    for head, flax_head in (("predictions", "predictions_transform"),
+                            ("imagePredictions", "image_predictions_transform")):
+        _linear(out, f"cls/{flax_head}/dense", sd, f"cls.{head}.transform.dense")
+        _layernorm(out, f"cls/{flax_head}/LayerNorm", sd, f"cls.{head}.transform.LayerNorm")
+    _linear(out, "cls/image_decoder", sd, "cls.imagePredictions.decoder")
+    _linear(out, "cls/seq_relationship", sd, "cls.seq_relationship")
+    _linear(out, "vil_prediction/fc1", sd, "vil_prediction.main.0")
+    _linear(out, "vil_prediction/fc2", sd, "vil_prediction.main.3")
+    for head in ("vil_logit", "vision_logit", "linguistic_logit"):
+        _linear(out, head, sd, head)
+    return out
+
+
+def _basebert_name_universe(max_layers: int = 48):
+    lin = lambda base: [base + ".weight", base + ".bias"]
+    U = ["bert.embeddings.word_embeddings.weight", "bert.embeddings.position_embeddings.weight",
+         "bert.embeddings.token_type_embeddings.weight",
+         "bert.v_embeddings.token_type_embeddings.weight", "cls.predictions.bias"]
+    U += lin("bert.embeddings.LayerNorm") + lin("bert.v_embeddings.image_embeddings")
+    U += lin("bert.v_embeddings.image_location_embeddings") + lin("bert.v_embeddings.LayerNorm")
+    for i in range(max_layers):
+        t = f"bert.encoder.layer.{i}"
+        for part in ("attention.self.query", "attention.self.key", "attention.self.value",
+                     "attention.output.dense", "attention.output.LayerNorm",
+                     "intermediate.dense", "output.dense", "output.LayerNorm"):
+            U += lin(f"{t}.{part}")
+    for part in ("bert.pooler.dense", "cls.predictions.transform.dense",
+                 "cls.predictions.transform.LayerNorm", "cls.imagePredictions.transform.dense",
+                 "cls.imagePredictions.transform.LayerNorm", "cls.imagePredictions.decoder",
+                 "cls.seq_relationship", "vil_prediction.main.0", "vil_prediction.main.3",
+                 "vil_logit", "vision_logit", "linguistic_logit"):
+        U += lin(part)
+    return U
+
+
 @functools.cache
 def _flax_to_torch():
     """flax path -> _Sym(torch name), by running the table over names."""
     return reference_to_flat({n: _Sym(n) for n in _torch_name_universe()})
 
 
+@functools.cache
+def _basebert_flax_to_torch():
+    """The same for the single-stream baseline's tree."""
+    return basebert_to_flat({n: _Sym(n) for n in _basebert_name_universe()})
+
+
 def from_jax_params(flat: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
     """'/'-joined flax paths -> the port's state-dict names, fp32 tensors,
-    Dense kernels transposed. A leading `params/` is ignored. Raises on a
-    path the table does not know."""
-    table = _flax_to_torch()
+    Dense kernels transposed: the K3M models' tree, or the single-stream
+    baseline's (`bert/...`). A leading `params/` is ignored. Raises on a
+    path the tables do not know."""
+    table, basebert = _flax_to_torch(), _basebert_flax_to_torch()
     out: Dict[str, torch.Tensor] = {}
     unknown = []
     for path, value in flat.items():
         if path.startswith("params/"):
             path = path[len("params/"):]
-        sym = table.get(path)
+        sym = table.get(path) or basebert.get(path)
         if sym is None:
             unknown.append(path)
             continue

@@ -26,7 +26,8 @@ by `use(world, rows)`, where `rows` is this rank's batch rows in that
 forward; `window(n)` gives (this rank's first global row, the global rows)
 for a tensor whose dim 0 is those rows, and raises for any other leading
 size, so a tensor of some other layout (two items stacked into 2B rows,
-rows flattened with positions) cannot be taken for the batch. With no
+rows flattened with positions) cannot be taken for the batch; the
+in_batch_pairs rows enter by name (`pair_rows`). With no
 world active, or a world of one, the model runs the one-process code and
 keeps its numbers bit for bit.
 
@@ -287,6 +288,30 @@ class _ReduceFromModel(torch.autograd.Function):
         return grad, None
 
 
+class _GatherFromModel(torch.autograd.Function):
+    """Every model rank's column slice of `x` [..., n] gathered into the
+    full [..., n * n_model] on each rank (placed in a zeroed buffer and
+    summed over the model group: exact in any type). Backward: each model
+    rank's copy of the gathered tensor feeds only its own part of the
+    model, so the gradient of the one gathered tensor is the sum of the
+    ranks' incoming gradients, of which this rank keeps its columns."""
+
+    @staticmethod
+    def forward(ctx, x, world: World):
+        ctx.world = world
+        n = x.shape[-1]
+        buf = x.new_zeros(tuple(x.shape[:-1]) + (n * world.n_model,))
+        buf[..., world.model_rank * n:(world.model_rank + 1) * n] = x
+        return world.all_reduce_sum(buf, "model")
+
+    @staticmethod
+    def backward(ctx, grad):
+        world = ctx.world
+        g = world.all_reduce_sum(grad.contiguous().clone(), "model")
+        n = g.shape[-1] // world.n_model
+        return g[..., world.model_rank * n:(world.model_rank + 1) * n], None
+
+
 def model_world(n_model: int, world: Optional[World] = None) -> World:
     """`world`, else the active world; it must have the `n_model` model
     ranks a sharded layer was split over (train/mesh.py `shard_model`)."""
@@ -316,6 +341,17 @@ def reduce_from_model(x: torch.Tensor, n_model: int,
     return _ReduceFromModel.apply(x, model_world(n_model, world))
 
 
+def gather_from_model(x: torch.Tensor, n_model: int,
+                      world: Optional[World] = None) -> torch.Tensor:
+    """The full last dim of a column-parallel output `x` (_GatherFromModel)
+    on every one of the `n_model` model ranks: where a layer's heads do not
+    divide n_model, each rank runs every head on the gathered Q/K/V;
+    `x` itself where n_model is 1."""
+    if n_model == 1:
+        return x
+    return _GatherFromModel.apply(x, model_world(n_model, world))
+
+
 def model_max(x: torch.Tensor, n_model: int, world: Optional[World] = None) -> torch.Tensor:
     """The elementwise max of `x` over the `n_model` model ranks, without
     gradient."""
@@ -338,6 +374,25 @@ def use(world: Optional[World], rows: int):
     token = _ACTIVE.set((world or _ONE, int(rows)))
     try:
         yield world
+    finally:
+        _ACTIVE.reset(token)
+
+
+@contextlib.contextmanager
+def pair_rows(rows: int):
+    """The rows of `in_batch_pairs` (k3m_tpu/model/encoder.py:122-129) for
+    the enclosed code: the global pairs are B x B rows, row i * B + j
+    pairing text row i with row j of the other stream (B the global
+    batch), and this rank holds the pairs of its own text rows, which are
+    rows data_rank * `rows` .. of them in data order, `rows` = its batch
+    rows times B. `window` then reads dim 0 as those pair rows."""
+    active = _ACTIVE.get()
+    if active is None:
+        yield
+        return
+    token = _ACTIVE.set((active[0], int(rows)))
+    try:
+        yield
     finally:
         _ACTIVE.reset(token)
 

@@ -13,7 +13,8 @@ FFN output at the text rate. The reference's dead `q_dense*` parameters
 are not created.
 
 Under tensor parallelism (train/mesh.py) `BiAttention` is column-parallel
-over its heads, `biOutput.dense1/dense2` and `v_output`/`t_output` are
+(over its heads where the model ranks divide them, else replicated,
+layers.HeadParallel), `biOutput.dense1/dense2` and `v_output`/`t_output` are
 row-parallel and `v_intermediate`/`t_intermediate` column-parallel, as the
 JAX package's param rules give them (k3m_tpu/train/mesh.py:41-58).
 """
@@ -25,28 +26,31 @@ from torch import nn
 from k3m_tpu_torch.config import K3MConfig
 from k3m_tpu_torch.kernels import fused_biattention
 from k3m_tpu_torch.model import random as k3m_random
+from k3m_tpu_torch.model import visualize
 from k3m_tpu_torch.model.layers import (
-    Dense, DenseLayerNorm, LayerNorm, Linear, act_fn, compute_dtype, dropout,
-    merge_heads, split_heads,
+    Dense, DenseLayerNorm, HeadParallel, LayerNorm, Linear, act_fn, compute_dtype, dropout,
+    merge_heads, split_heads, unfused_attention,
 )
 from k3m_tpu_torch import dist
 
 
-class BiAttention(nn.Module):
+class BiAttention(HeadParallel, nn.Module):
     """Cross attention between stream 1 (visual-like) and stream 2
     (text-like). Returns (ctx1, ctx2) in reference order: ctx1 = stream-2
     queries over stream 1 [B, L2, bi], ctx2 = stream-1 queries over
     stream 2 [B, L1, bi]; each bias is its key stream's. Under tensor
-    parallelism (`tp` model ranks) it runs heads head0 .. head0 +
-    num_heads / tp - 1 of both directions."""
-    tp = 1
-    head0 = 0
+    parallelism see layers.HeadParallel (both directions alike). Under
+    `visualization` each direction runs `unfused_attention` and records
+    its probabilities as the JAX package sows them: `attn1` (stream-2
+    queries over stream 1), `attn2` (the reverse)."""
 
     def __init__(self, size1: int, size2: int, bi_size: int, num_heads: int,
-                 dropout1: float = 0.0, dropout2: float = 0.0):
+                 dropout1: float = 0.0, dropout2: float = 0.0,
+                 visualization: bool = False):
         super().__init__()
         self.num_heads = num_heads
         self.dropout1, self.dropout2 = dropout1, dropout2
+        self.visualization = visualization
         self.query1 = Linear(size1, bi_size)
         self.key1 = Linear(size1, bi_size)
         self.value1 = Linear(size1, bi_size)
@@ -55,19 +59,25 @@ class BiAttention(nn.Module):
         self.value2 = Linear(size2, bi_size)
 
     def forward(self, x1, bias1, x2, bias2, deterministic: bool = True):
-        h = self.num_heads // self.tp
+        h = self.run_heads
         x1, x2 = dist.copy_to_model(x1, self.tp), dist.copy_to_model(x2, self.tp)
-        s = lambda lin, x: split_heads(lin(x), h)
-        drop = dict(dropout1=0.0 if deterministic else self.dropout1,
-                    dropout2=0.0 if deterministic else self.dropout2)
-        if drop["dropout1"] > 0.0 or drop["dropout2"] > 0.0:
-            drop["seed"] = k3m_random.active().kernel_seed()
-            drop["row0"] = dist.window(x1.shape[0])[0]
-            drop["head0"], drop["heads_global"] = self.head0, self.num_heads
-        ctx1, ctx2 = fused_biattention(
-            s(self.query1, x1), s(self.key1, x1), s(self.value1, x1), bias1,
-            s(self.query2, x2), s(self.key2, x2), s(self.value2, x2), bias2, **drop)
-        return merge_heads(ctx1), merge_heads(ctx2)
+        s = lambda lin, x: split_heads(self.gather_heads(lin(x)), h)
+        q1, k1, v1 = s(self.query1, x1), s(self.key1, x1), s(self.value1, x1)
+        q2, k2, v2 = s(self.query2, x2), s(self.key2, x2), s(self.value2, x2)
+        if self.visualization:
+            ctx1, probs1 = unfused_attention(q2, k1, v1, bias1, self.dropout1, deterministic)
+            ctx2, probs2 = unfused_attention(q1, k2, v2, bias2, self.dropout2, deterministic)
+            visualize.record(self, "attn1", probs1)
+            visualize.record(self, "attn2", probs2)
+        else:
+            drop = dict(dropout1=0.0 if deterministic else self.dropout1,
+                        dropout2=0.0 if deterministic else self.dropout2)
+            if drop["dropout1"] > 0.0 or drop["dropout2"] > 0.0:
+                drop["seed"] = k3m_random.active().kernel_seed()
+                drop["row0"] = dist.window(x1.shape[0])[0]
+                drop["head0"], drop["heads_global"] = self.head0, self.num_heads
+            ctx1, ctx2 = fused_biattention(q1, k1, v1, bias1, q2, k2, v2, bias2, **drop)
+        return (self.own_columns(merge_heads(ctx1)), self.own_columns(merge_heads(ctx2)))
 
 
 class BiOutput(nn.Module):
@@ -95,7 +105,8 @@ class _Connection(nn.Module):
         self.biattention = BiAttention(size1, H, bi_size,
                                        cfg.bi_num_attention_heads,
                                        cfg.v_attention_probs_dropout_prob,
-                                       cfg.attention_probs_dropout_prob)
+                                       cfg.attention_probs_dropout_prob,
+                                       cfg.visualization)
         self.biOutput = BiOutput(bi_size, size1, H, dt)
         self.v_intermediate = Dense(size1, inter1)
         self.v_output = DenseLayerNorm(inter1, size1, dt)

@@ -11,22 +11,69 @@ and image runs [v_start, v_biattention_id[k]); trailing layers run after the
 last block. `fixed_t/v_layer` freeze the first text/image layers in
 training: their outputs are detached, the JAX package's stop_gradient
 (encoder.py:77-104).
+
+Two options change the rows after the first segment of the t<->v, pv<->v
+and t<->pv passes (k3m_tpu/model/encoder.py:122-133, 155-166):
+  * `in_batch_pairs`: the text side's rows repeat per item and the other
+    stream's rows tile, so that row i * b + j pairs text i with image (or
+    pv) j: b x b rows from there on (`pair_streams`; their dim-0 layout
+    `dist.pair_rows`). The text mask that the image layers' dynamic
+    attention pools with is not repeated, as in the JAX package (there it
+    fails to broadcast past b = 1, and so it does here).
+  * `fast_mode`: the text stream and its bias broadcast to the other
+    stream's batch (a text batch of 1 against B images or pvs).
+At the model level the fusion block concatenates the encoder's rows with
+the embeddings' b rows and fails where they differ, in both packages.
 """
 
 from __future__ import annotations
 
+import contextlib
+
 from torch import nn
 
+from k3m_tpu_torch import dist
 from k3m_tpu_torch.config import K3MConfig
 from k3m_tpu_torch.model.coattention import ConnectionLayer, ConnectionLayerTwoText
 from k3m_tpu_torch.model.layers import ImageLayer, TextLayer
 
 
+def pair_streams(txt, txt_bias, other, other_bias):
+    """The in_batch_pairs rows: text row i repeated once per row j of the
+    other stream (`repeat_interleave`), the other stream tiled (`repeat`),
+    so that row i * B + j pairs text i with row j. Under data parallelism
+    the other stream is first gathered over the data groups (with its
+    gradient), so that a rank's text rows meet every row of the global
+    batch, as the JAX package's one global array pairs them."""
+    world = dist.current()
+    b = txt.shape[0]
+    if other.shape[0] != b:
+        raise ValueError(f"in_batch_pairs pairs each item's text with every item's other "
+                         f"stream: {b} text rows against {other.shape[0]}")
+    other, other_bias = world.gather_rows(other), world.all_gather_rows(other_bias)
+    B = other.shape[0]
+    tile = lambda t: t.repeat((b,) + (1,) * (t.dim() - 1))
+    return (txt.repeat_interleave(B, dim=0), txt_bias.repeat_interleave(B, dim=0),
+            tile(other), tile(other_bias))
+
+
+def broadcast_text(txt, txt_bias, rows: int):
+    """fast_mode: the text stream and its bias broadcast to `rows`. The
+    text is made contiguous (the LayerNorm kernel reads a contiguous
+    residual); the [B, Lk] bias stays an `expand`ed view with batch stride
+    0, deliberately: the attention kernels read the bias row of batch b at
+    `bias + b * bias_sb` (csrc/attention.cuh, attention_mma.cuh:115), so
+    stride 0 gives every row the one text row's bias without a copy."""
+    if txt.shape[0] == rows:
+        return txt, txt_bias
+    return (txt.expand((rows,) + tuple(txt.shape[1:])).contiguous(),
+            txt_bias.expand((rows,) + tuple(txt_bias.shape[1:])))
+
+
 class TriStreamEncoder(nn.Module):
     def __init__(self, cfg: K3MConfig):
         super().__init__()
-        for flag in ("packed_passes", "fused_qkv", "in_batch_pairs", "fast_mode",
-                     "visualization"):
+        for flag in ("packed_passes", "fused_qkv"):
             if getattr(cfg, flag):
                 raise NotImplementedError(f"{flag} is not ported yet")
         self.cfg = cfg
@@ -63,31 +110,50 @@ class TriStreamEncoder(nn.Module):
         means `txt` already went through text layers [0, t_start)."""
         cfg = self.cfg
         v_start = 0
-        for count, (v_end, t_end) in enumerate(
-                zip(cfg.v_biattention_id, cfg.t_biattention_id)):
-            txt = self._run_text(txt, txt_bias, t_start, t_end, det)
-            img = self._run_image(img, img_bias, txt, txt_mask2, v_start, v_end, det)
-            if cfg.with_coattention:
-                img, txt = c_layers[count](img, img_bias, txt, txt_bias, det)
-            v_start, t_start = v_end, t_end
-        img = self._run_image(img, img_bias, txt, txt_mask2, v_start,
-                              cfg.v_num_hidden_layers, det)
-        txt = self._run_text(txt, txt_bias, t_start, cfg.num_hidden_layers, det)
+        with contextlib.ExitStack() as rows:
+            for count, (v_end, t_end) in enumerate(
+                    zip(cfg.v_biattention_id, cfg.t_biattention_id)):
+                txt = self._run_text(txt, txt_bias, t_start, t_end, det)
+                img = self._run_image(img, img_bias, txt, txt_mask2, v_start, v_end, det)
+                if count == 0:
+                    txt, txt_bias, img, img_bias = self._first_segment_rows(
+                        txt, txt_bias, img, img_bias, rows)
+                if cfg.with_coattention:
+                    img, txt = c_layers[count](img, img_bias, txt, txt_bias, det)
+                v_start, t_start = v_end, t_end
+            img = self._run_image(img, img_bias, txt, txt_mask2, v_start,
+                                  cfg.v_num_hidden_layers, det)
+            txt = self._run_text(txt, txt_bias, t_start, cfg.num_hidden_layers, det)
         return txt, img
+
+    def _first_segment_rows(self, txt, txt_bias, other, other_bias, rows):
+        """in_batch_pairs / fast_mode after the first segment of a pass; the
+        pair rows stay the dim-0 layout (`rows`, an ExitStack) until the
+        pass ends."""
+        if self.cfg.in_batch_pairs:
+            txt, txt_bias, other, other_bias = pair_streams(txt, txt_bias, other, other_bias)
+            rows.enter_context(dist.pair_rows(txt.shape[0]))
+        if self.cfg.fast_mode:
+            txt, txt_bias = broadcast_text(txt, txt_bias, other.shape[0])
+        return txt, txt_bias, other, other_bias
 
     def _pass_two_text(self, txt, pv, txt_bias, pv_bias, det: bool, start: int = 0):
         """calculate_for_two_text: pv runs on the text stack; the schedule
         zips t_biattention_id with itself (ref :1534)."""
         cfg = self.cfg
         v_start = t_start = start
-        for count, t_end in enumerate(cfg.t_biattention_id):
-            txt = self._run_text(txt, txt_bias, t_start, t_end, det)
-            pv = self._run_text(pv, pv_bias, v_start, t_end, det)
-            if cfg.with_coattention:
-                pv, txt = self.c_layer_pv_t[count](pv, pv_bias, txt, txt_bias, det)
-            v_start = t_start = t_end
-        pv = self._run_text(pv, pv_bias, v_start, cfg.num_hidden_layers, det)
-        txt = self._run_text(txt, txt_bias, t_start, cfg.num_hidden_layers, det)
+        with contextlib.ExitStack() as rows:
+            for count, t_end in enumerate(cfg.t_biattention_id):
+                txt = self._run_text(txt, txt_bias, t_start, t_end, det)
+                pv = self._run_text(pv, pv_bias, v_start, t_end, det)
+                if count == 0:
+                    txt, txt_bias, pv, pv_bias = self._first_segment_rows(
+                        txt, txt_bias, pv, pv_bias, rows)
+                if cfg.with_coattention:
+                    pv, txt = self.c_layer_pv_t[count](pv, pv_bias, txt, txt_bias, det)
+                v_start = t_start = t_end
+            pv = self._run_text(pv, pv_bias, v_start, cfg.num_hidden_layers, det)
+            txt = self._run_text(txt, txt_bias, t_start, cfg.num_hidden_layers, det)
         return txt, pv
 
     def forward(self, txt_emb, img_emb, txt_bias, txt_mask2, img_bias,

@@ -14,6 +14,11 @@ weights; serving may cast the Linear weights once instead (`cast_linears`).
 Embedding tables and LayerNorm scale/bias stay fp32. Additive masks are
 fp32 [B, L] key biases ((1 - mask) * -10000).
 
+Under `config.visualization` every attention site runs the unfused
+attention in torch ops instead of the attention kernels and records its
+probabilities (model/visualize.py), as the JAX package's unfused path
+sows them.
+
 Training (`deterministic=False`) adds the JAX package's dropout sites
 (k3m_tpu/model/layers.py:330, :350, :445, :458, :496, :506), with bits from
 the active StepRandom (model/random.py); attention-probability dropout runs
@@ -24,7 +29,9 @@ Tensor parallelism (train/mesh.py `shard_model`, the JAX package's
 weights and its `tp` (the model ranks). The query/key/value and FFN-in
 Linears are column-parallel: their owners (`SelfAttention`, `Dense`,
 coattention's `BiAttention`) take the replicated input through
-`dist.copy_to_model` and compute the local heads or columns; the
+`dist.copy_to_model` and compute the local heads or columns (every head,
+on Q/K/V gathered over the model group, where the heads do not divide
+the model ranks: `HeadParallel`); the
 attention-out and FFN-out Linears are row-parallel (`Linear.parallel ==
 "row"`): the local partial product is summed over the model group
 (`dist.reduce_from_model`) before the bias, the dropout and the LN kernel,
@@ -35,6 +42,8 @@ one-process code.
 
 from __future__ import annotations
 
+import math
+
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -42,6 +51,7 @@ from torch import nn
 from k3m_tpu_torch.config import K3MConfig
 from k3m_tpu_torch.kernels import fused_attention, fused_layernorm
 from k3m_tpu_torch.model import random as k3m_random
+from k3m_tpu_torch.model import visualize
 from k3m_tpu_torch import dist
 
 MASK_NEG = -10000.0
@@ -151,6 +161,25 @@ def mask_to_bias(mask: torch.Tensor) -> torch.Tensor:
     return (1.0 - mask.float()) * MASK_NEG
 
 
+def unfused_attention(q, k, v, bias, dropout_rate: float = 0.0,
+                      deterministic: bool = True):
+    """(ctx, probs): the JAX package's unfused attention
+    (k3m_tpu/model/layers.py:210-232), which `config.visualization`
+    selects, in torch ops: fp32 scores / sqrt(D) + bias stored in v's
+    dtype, an fp32 softmax stored in v's dtype, the probabilities dropped
+    (this module's `dropout`), the post-dropout [B, H, Lq, Lk] probabilities
+    kept for the attention maps, then times v in fp32. The JAX config
+    refuses visualization with `use_pallas` because the fused kernels
+    never form the probabilities; here too no attention kernel runs in
+    this mode (the LayerNorm kernel still does)."""
+    scores = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) / math.sqrt(q.shape[-1])
+    scores = (scores + bias.float()[:, None, None, :]).to(v.dtype)
+    probs = torch.softmax(scores.float(), dim=-1).to(v.dtype)
+    probs = dropout(probs, dropout_rate, deterministic)
+    ctx = torch.einsum("bhqk,bkhd->bqhd", probs.float(), v.float())
+    return ctx.to(v.dtype), probs
+
+
 def attention_core(q, k, v, bias, dropout_rate: float = 0.0,
                    deterministic: bool = True, head0: int = 0, heads_global=None):
     """Scaled dot-product attention over [B, L, H, D] tensors with an fp32
@@ -207,7 +236,11 @@ class BertEmbeddings(nn.Module):
     """Word + position + type embeddings summed in fp32, then LN to the
     compute dtype (ref :335-408). `model == "roberta"` offsets position ids
     by 2 only under fix_reference_bugs (the reference recomputes them,
-    k3m_tpu/model/layers.py:303-310). Vocab-parallel under tensor
+    k3m_tpu/model/layers.py:303-310). `task_specific_tokens` inserts the
+    row of `task_ids` of a 20-row `task_embeddings` table right after
+    [CLS], before the LN, with no position or type embedding on it
+    (k3m_tpu/model/layers.py:313-323): the output has L + 1 positions
+    (one task token per row, as every reference use). Vocab-parallel under tensor
     parallelism (`tp` model ranks): the table holds rows vocab0 ..
     vocab0 + V / tp - 1, an id outside them looks up zeros, and the rows
     are summed over the model group (exact: one rank adds a row, the others
@@ -217,17 +250,18 @@ class BertEmbeddings(nn.Module):
 
     def __init__(self, cfg: K3MConfig):
         super().__init__()
-        if cfg.task_specific_tokens:
-            raise NotImplementedError("task_specific_tokens is not ported yet")
         self.cfg = cfg
         self.word_embeddings = nn.Embedding(cfg.vocab_size, cfg.hidden_size)
         self.position_embeddings = nn.Embedding(cfg.max_position_embeddings,
                                                 cfg.hidden_size)
         self.token_type_embeddings = nn.Embedding(cfg.type_vocab_size,
                                                   cfg.hidden_size)
+        if cfg.task_specific_tokens:
+            self.task_embeddings = nn.Embedding(20, cfg.hidden_size)
         self.LayerNorm = LayerNorm(cfg.hidden_size, compute_dtype(cfg))
 
-    def forward(self, input_ids, token_type_ids, deterministic: bool = True):
+    def forward(self, input_ids, token_type_ids, deterministic: bool = True,
+                task_ids=None):
         seq_len = input_ids.shape[1]
         pos_ids = torch.arange(seq_len, device=input_ids.device)
         if self.cfg.model == "roberta" and self.cfg.fix_reference_bugs:
@@ -235,6 +269,15 @@ class BertEmbeddings(nn.Module):
         x = (self.word(input_ids)
              + self.position_embeddings(pos_ids)[None, :, :]
              + self.token_type_embeddings(token_type_ids))
+        if self.cfg.task_specific_tokens:
+            if task_ids is None:
+                raise ValueError("task_specific_tokens=True requires task_ids (the "
+                                 "reference crashes on task_ids=None too, "
+                                 "vilbert_k3m.py:374)")
+            t = self.task_embeddings(task_ids)
+            if t.dim() == 2:                      # [B] ids: one task token
+                t = t[:, None, :]
+            x = torch.cat([x[:, :1], t, x[:, 1:]], dim=1)
         return dropout(self.LayerNorm(x), self.cfg.hidden_dropout_prob, deterministic)
 
     def word(self, input_ids):
@@ -268,21 +311,62 @@ class ImageEmbeddings(nn.Module):
         return dropout(self.LayerNorm(x, loc), self.rate, deterministic)
 
 
-class SelfAttention(nn.Module):
+class HeadParallel:
+    """How an attention site's `num_heads` lie over its `tp` model ranks
+    (train/mesh.py `shard_model` sets `tp` and `model_rank`). Its Q/K/V
+    Linears are column-parallel: this rank holds columns model_rank * w ..
+    (model_rank + 1) * w - 1, w = width / tp, of each. Where tp divides the
+    heads those columns are whole heads, and the rank runs heads head0 ..
+    head0 + num_heads / tp - 1. Where it does not (the 12 text heads at
+    --n_model 8), each rank gathers the Q/K/V columns over the model group
+    and runs every head with head0 0 (its Philox masks are one process's),
+    and the row-parallel output Linear takes this rank's columns of the
+    replicated context: the JAX package's replicated attention over the
+    model axis (k3m_tpu/kernels/attention.py:227-230, coattn.py:77-79)."""
+    tp = 1
+    model_rank = 0
+
+    @property
+    def replicated(self) -> bool:
+        return self.num_heads % self.tp != 0
+
+    @property
+    def head0(self) -> int:
+        return 0 if self.replicated else self.model_rank * (self.num_heads // self.tp)
+
+    @property
+    def run_heads(self) -> int:
+        """The heads this rank's kernel call runs."""
+        return self.num_heads if self.replicated else self.num_heads // self.tp
+
+    def gather_heads(self, t):
+        """A Q/K/V projection's columns that this rank's heads read."""
+        return dist.gather_from_model(t, self.tp) if self.replicated else t
+
+    def own_columns(self, ctx):
+        """This rank's columns of a context [B, L, width] for the row-parallel
+        output Linear: all of it where the rank ran only its own heads."""
+        if not self.replicated:
+            return ctx
+        w = ctx.shape[-1] // self.tp
+        return ctx[..., self.model_rank * w:(self.model_rank + 1) * w]
+
+
+class SelfAttention(HeadParallel, nn.Module):
     """Multi-head self-attention (ref BertSelfAttention:411). With `gated`
     it also holds the image stream's dynamic-attention projections
     `dyLinear_q`/`dyLinear_k` (ref :572-601), which ImageLayer applies.
-    Under tensor parallelism (`tp` model ranks) it runs heads head0 ..
-    head0 + num_heads / tp - 1; the replicated gates are sliced to their
-    columns."""
-    tp = 1
-    head0 = 0
+    Under tensor parallelism see HeadParallel; the replicated gates are
+    sliced to this rank's columns. Under `config.visualization` it runs
+    `unfused_attention` and records its probabilities
+    (`attention_probs`, model/visualize.py)."""
 
     def __init__(self, cfg: K3MConfig, hidden: int, num_heads: int,
                  attn_dropout: float, gated: bool = False):
         super().__init__()
         self.num_heads = num_heads
         self.attn_dropout = attn_dropout
+        self.visualization = cfg.visualization
         self.query = Linear(hidden, hidden)
         self.key = Linear(hidden, hidden)
         self.value = Linear(hidden, hidden)
@@ -297,18 +381,22 @@ class SelfAttention(nn.Module):
             q = q * self.local_columns(gate_q)[:, None, :]
         if gate_k is not None:
             k = k * self.local_columns(gate_k)[:, None, :]
-        h = self.num_heads // self.tp
-        ctx = attention_core(split_heads(q, h), split_heads(k, h),
-                             split_heads(v, h), bias, self.attn_dropout, deterministic,
-                             self.head0, self.num_heads)
-        return merge_heads(ctx)
+        h = self.run_heads
+        q, k, v = (split_heads(self.gather_heads(t), h) for t in (q, k, v))
+        if self.visualization:
+            ctx, probs = unfused_attention(q, k, v, bias, self.attn_dropout, deterministic)
+            visualize.record(self, "attention_probs", probs)
+        else:
+            ctx = attention_core(q, k, v, bias, self.attn_dropout, deterministic,
+                                 self.head0, self.num_heads)
+        return self.own_columns(merge_heads(ctx))
 
     def local_columns(self, gate):
-        """This rank's heads' columns of a replicated [B, hidden] gate."""
+        """This rank's columns of a replicated [B, hidden] gate."""
         if self.tp == 1:
             return gate
         width = gate.shape[-1] // self.tp
-        c0 = self.head0 // (self.num_heads // self.tp) * width
+        c0 = self.model_rank * width
         return dist.copy_to_model(gate, self.tp)[:, c0:c0 + width]
 
 

@@ -50,7 +50,11 @@ from k3m_tpu_torch import dist
 class K3MTrunk(nn.Module):
     """Its parameters carry the reference's top-level names
     (`embeddings.*`, `v_embeddings.*`, `encoder.*`, `score_*`,
-    `map_bi_to_individual`)."""
+    `map_bi_to_individual`). Under `task_specific_tokens` it takes
+    `task_ids` and both text streams gain the task token after [CLS]; each
+    text mask gains a ones column PREPENDED, as the reference extends it
+    (k3m_tpu/model/pretrain.py:84-93: not inserted at 1, so a padding mask
+    shifts one slot late; replicated)."""
 
     def __init__(self, cfg: K3MConfig):
         super().__init__()
@@ -64,7 +68,7 @@ class K3MTrunk(nn.Module):
     def forward(self, input_ids, image_feat, image_loc, token_type_ids,
                 attention_mask, image_attention_mask, input_ids_pv,
                 token_type_ids_pv, attention_mask_pv, *,
-                deterministic: bool = True, gumbel_noise=None):
+                deterministic: bool = True, gumbel_noise=None, task_ids=None):
         cfg = self.cfg
         det = deterministic
         dt = compute_dtype(cfg)
@@ -76,13 +80,18 @@ class K3MTrunk(nn.Module):
             attention_mask_pv = torch.ones_like(input_ids_pv)
         if token_type_ids_pv is None:
             token_type_ids_pv = torch.zeros_like(input_ids_pv)
+        if cfg.task_specific_tokens:
+            attention_mask = torch.cat([torch.ones_like(attention_mask[:, :1]),
+                                        attention_mask], dim=1)
+            attention_mask_pv = torch.cat([torch.ones_like(attention_mask_pv[:, :1]),
+                                           attention_mask_pv], dim=1)
 
         txt_bias = mask_to_bias(attention_mask)
         pv_bias = mask_to_bias(attention_mask_pv)
         txt_mask2 = attention_mask.to(dt)[:, :, None]
         pv_mask2 = attention_mask_pv.to(dt)[:, :, None]
-        txt_emb = self.embeddings(input_ids, token_type_ids, det)
-        pv_emb = self.embeddings(input_ids_pv, token_type_ids_pv, det)
+        txt_emb = self.embeddings(input_ids, token_type_ids, det, task_ids)
+        pv_emb = self.embeddings(input_ids_pv, token_type_ids_pv, det, task_ids)
 
         img_emb = img_bias = None
         if cfg.use_image:
@@ -96,6 +105,14 @@ class K3MTrunk(nn.Module):
          t_with_pv, pv_with_t) = self.encoder(
             txt_emb, img_emb, txt_bias, txt_mask2, img_bias,
             pv_emb, pv_bias, pv_mask2, det)
+        if t_with_pv.shape[0] != txt_emb.shape[0]:
+            # the JAX package's FusionBlock fails here too (a TypeError from
+            # its concatenation): the encoder made b x b (or broadcast) rows
+            opts = " / ".join(f for f in ("in_batch_pairs", "fast_mode") if getattr(cfg, f))
+            raise ValueError(
+                f"{opts}: the encoder's {t_with_pv.shape[0]} rows do not meet the fusion "
+                f"block's {txt_emb.shape[0]} embedding rows (a feature of the encoder; the "
+                "JAX package's K3M models fail alike)")
 
         seq_v, seq_t, seq_pv, pooled_v, pooled_t, pooled_pv = self.fusion(
             t_with_v, v_with_t, pv_with_v, v_with_pv, t_with_pv, pv_with_t,
@@ -182,10 +199,11 @@ class K3MForPretraining(nn.Module):
     def __init__(self, cfg: K3MConfig):
         super().__init__()
         if cfg.task_specific_tokens:
-            raise NotImplementedError(
-                "task_specific_tokens: the pretraining losses are undefined under "
-                "the inserted token (the reference's own pretrain path crashes with "
-                "it, vilbert_k3m.py:2817)")
+            raise ValueError(
+                "task_specific_tokens is a trunk-level feature (use K3MTrunk with "
+                "task_ids); the pretraining losses are undefined under the inserted "
+                "token (the reference's own pretrain path crashes with it, "
+                "vilbert_k3m.py:2817), and the JAX package refuses it alike")
         self.cfg = cfg
         adopt(self, "trunk", K3MTrunk(cfg))
         adopt(self, "structure", StructureAggregator(cfg, with_lpm=True))

@@ -14,8 +14,11 @@ step checkpoints every `--save_steps` batches and on SIGTERM, and resume
 with `--file_checkpoint` from an epoch or mid-epoch, as root
 `pretrain.py:241-262`. Runs on the CUDA device unless `--device cpu` is
 given. Without `--pretrained_model_path` the weights are random from
-`--seed`. Options of the JAX package that the port does not have yet are
-refused by name (ROADMAP.md Queue 1).
+`--seed`. Every option of the root CLI parses, with its default; the
+reference's no-op flags (`--apex_fast`, `--cache`, `--do_lower_case`,
+`--loss_scale`, `--on_memory`, `--pretrained_model_weights`) have no
+effect, `--no_cuda` is `--device cpu`. The grain backend is refused by
+name (ROADMAP.md Queue 1).
 
 Data parallelism: launched as N processes, one per card, by torchrun
 
@@ -29,16 +32,16 @@ one-process step on the global batch (root pretrain.py:168-199).
 Tensor parallelism: `--n_model M` lays the N ranks out as N / M data
 groups of M consecutive model ranks (k3m_tpu/train/mesh.py:30-38); the
 model ranks of a data group read the same `--train_batch_size / (N / M)`
-rows and each holds 1 / M of the attention heads, the FFN columns and the
-vocab (train/mesh.py). On N cards:
+rows and each holds 1 / M of the Q/K/V and FFN columns and of the vocab,
+and runs 1 / M of the heads of a layer whose heads M divides, every head
+of one whose heads it does not (train/mesh.py). On N cards:
 
     torchrun --nproc_per_node N -m k3m_tpu_torch.pretrain --n_model M ...
 
 Ranks that share one card run over gloo (NCCL refuses two ranks on one
 device): K3M_COORDINATOR_ADDRESS=127.0.0.1:<port> K3M_NUM_PROCESSES=N
 K3M_PROCESS_ID=r K3M_DIST_BACKEND=gloo per rank. `--n_model` must divide N
-and every head count, sharded width and the vocab; otherwise the run raises
-by name.
+and every sharded width and the vocab; otherwise the run raises by name.
 """
 
 from __future__ import annotations
@@ -66,6 +69,8 @@ def get_parser():
     p.add_argument("--pretrained_model_path", default=None, type=str,
                    help="reference torch checkpoint (.bin); its weights train at 0.1x LR")
     p.add_argument("--config_file", default="k3m_roberta_base.json", type=str)
+    p.add_argument("--pretrained_model_weights", default=None, type=str,
+                   help="accepted, as the root CLI accepts it; no effect")
     p.add_argument("--file_checkpoint", default="", type=str,
                    help="checkpoint dir to resume the full state from")
     p.add_argument("--file_state_dict", default="", type=str,
@@ -79,20 +84,28 @@ def get_parser():
     p.add_argument("--save_steps", default=0, type=int,
                    help="also checkpoint the full state every N batches (step_e<E>_s<N>)")
     p.add_argument("--log_steps", default=10, type=int)
+    p.add_argument("--cache", default=5000, type=int,
+                   help="accepted, as the root CLI accepts it; no effect")
     p.add_argument("--use_image", action="store_true")
     p.add_argument("--do_eval", action="store_true")
     p.add_argument("--seed", default=42, type=int)
+    p.add_argument("--no_cuda", action="store_true", help="same as --device cpu")
     p.add_argument("--train_batch_size", default=96, type=int)
     p.add_argument("--eval_batch_size", default=96, type=int)
     p.add_argument("--learning_rate", default=1e-4, type=float)
     p.add_argument("--num_train_epochs", default=5.0, type=float)
     p.add_argument("--start_epoch", default=0, type=float)
+    p.add_argument("--num_workers", default=2, type=int,
+                   help="read by --data_backend auto: grain for an .array_record train "
+                        "file when above 0, as the root CLI decides")
     p.add_argument("--data_backend", default="auto", choices=["auto", "k3mr", "grain"])
     p.add_argument("--if_pre_sampling", default=1, type=int)
     p.add_argument("--with_coattention", action="store_true",
                    help="accepted, as the root CLI accepts it; the config decides")
     p.add_argument("--objective", default=2, type=int)
     p.add_argument("--freeze", default=-1, type=int)
+    p.add_argument("--on_memory", action="store_true",
+                   help="accepted, as the root CLI accepts it; no effect")
     p.add_argument("--warmup_proportion", default=0.1, type=float)
     p.add_argument("--gradient_accumulation_steps", default=1, type=int)
     p.add_argument("--micro_steps", default=1, type=int)
@@ -107,6 +120,12 @@ def get_parser():
     p.add_argument("--loss_img_weight", default=1.0, type=float)
     p.add_argument("--fp16", action="store_true", help="same as --bf16")
     p.add_argument("--bf16", action="store_true")
+    p.add_argument("--apex_fast", action="store_true",
+                   help="accepted, as the root CLI accepts it; no effect")
+    p.add_argument("--loss_scale", default=0, type=float,
+                   help="accepted, as the root CLI accepts it; no effect (bf16 needs none)")
+    p.add_argument("--do_lower_case", default=True, type=bool,
+                   help="accepted, as the root CLI accepts it; the tokenizer lower-cases")
     p.add_argument("--max_seq_length", default=50, type=int)
     p.add_argument("--max_seq_length_pv", default=256, type=int)
     p.add_argument("--max_num_pv", default=30, type=int)
@@ -126,14 +145,14 @@ def get_parser():
 
 
 def refuse_unported(args) -> None:
-    """Options of the JAX package the port does not have yet."""
-    refused = {
-        "--data_backend grain": args.data_backend == "grain",
-    }
-    for name, hit in refused.items():
-        if hit:
-            raise NotImplementedError(f"{name} is not ported yet (ROADMAP.md Queue 1)")
-
+    """Options of the JAX package the port does not have yet: the grain
+    backend, asked for by name or picked by `--data_backend auto` as root
+    pretrain.py:174-177 picks it (an .array_record train file and
+    `--num_workers` above 0)."""
+    auto_grain = (args.data_backend == "auto" and args.num_workers > 0
+                  and args.file_name.endswith(".array_record"))
+    if args.data_backend == "grain" or auto_grain:
+        raise NotImplementedError("--data_backend grain is not ported yet (ROADMAP.md Queue 1)")
 
 
 def find_config(args) -> Path:
@@ -145,8 +164,16 @@ def find_config(args) -> Path:
     raise FileNotFoundError(f"config {args.config_file} not found")
 
 
-def main(argv=None):
+def parse_args(argv=None):
+    """The parsed flags, `--no_cuda` read as `--device cpu`."""
     args = get_parser().parse_args(argv)
+    if args.no_cuda:
+        args.device = "cpu"
+    return args
+
+
+def main(argv=None):
+    args = parse_args(argv)
     refuse_unported(args)
     from k3m_tpu_torch.train import dist, mesh
 

@@ -22,9 +22,12 @@ The counterpart of the 'model' axis of k3m_tpu/train/mesh.py (param rules
 The JAX package's rules match kernels only, so its biases stay replicated
 (GSPMD adds a replicated bias to a sharded output alike); the port splits
 the column-parallel biases with their weights, which is the same
-function. Where a width does not divide by `n_model`, GSPMD would
-replicate that layer; the port refuses the run by name
-(`check_model_axis`).
+function. Where a width does not divide by `n_model`, JAX raises (a
+sharded dimension must divide), and so does the port, by name
+(`check_model_axis`). A head count that `n_model` does not divide (the 12
+text heads at `--n_model 8`) is no width: the JAX kernels run that
+attention replicated over the model axis, and so do the port's layers
+(model/layers.py `HeadParallel`).
 
 `shard_model` replaces each split weight by this model rank's slice, in
 place (the Parameter objects stay, so an optimizer made before keeps
@@ -63,21 +66,23 @@ def shard_dim(name: str) -> Optional[int]:
 
 
 def check_model_axis(cfg, n_model: int) -> None:
-    """Raise, naming the width, where `n_model` does not divide a head
-    count, a sharded width or the vocab of the model `cfg` builds."""
+    """Raise, naming the width, where `n_model` does not divide a sharded
+    width (the Q/K/V and FFN columns, the vocab) of the model `cfg`
+    builds. A head count need not divide: such a layer runs every head on
+    each model rank (model/layers.py `HeadParallel`)."""
     if n_model < 1:
         raise ValueError(f"--n_model {n_model} < 1")
-    heads = [("num_attention_heads", cfg.num_attention_heads)]
-    widths = [("intermediate_size", cfg.intermediate_size)]
+    widths = [("hidden_size", cfg.hidden_size), ("intermediate_size", cfg.intermediate_size)]
     if cfg.use_image:
-        heads.append(("v_num_attention_heads", cfg.v_num_attention_heads))
-        widths.append(("v_intermediate_size", cfg.v_intermediate_size))
-    if cfg.with_coattention:
-        heads.append(("bi_num_attention_heads", cfg.bi_num_attention_heads))
-    for name, n in heads + widths + [("vocab_size", cfg.vocab_size)]:
+        widths += [("v_hidden_size", cfg.v_hidden_size),
+                   ("v_intermediate_size", cfg.v_intermediate_size)]
+        if cfg.with_coattention:
+            widths.append(("bi_hidden_size", cfg.bi_hidden_size))
+    for name, n in widths + [("vocab_size", cfg.vocab_size)]:
         if n % n_model:
             raise ValueError(f"--n_model {n_model} does not divide {name} {n} (tensor "
-                             "parallelism splits it evenly; ROADMAP.md Queue 1, item 9)")
+                             "parallelism splits it evenly, as the JAX package does; "
+                             "ROADMAP.md Queue 1, item 9)")
 
 
 def shard_tensor(t: torch.Tensor, dim: int, world: World) -> torch.Tensor:
@@ -119,7 +124,7 @@ def shard_model(model: torch.nn.Module, world: World) -> torch.nn.Module:
     vocab0 = r * (model.cfg.vocab_size // M)
     for name, m in model.named_modules():
         if isinstance(m, (SelfAttention, BiAttention)):
-            m.tp, m.head0 = M, r * (m.num_heads // M)
+            m.tp, m.model_rank = M, r
         elif isinstance(m, Dense):
             m.tp = M
         elif isinstance(m, (BertEmbeddings, LMPredictionHead)):

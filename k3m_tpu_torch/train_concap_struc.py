@@ -105,7 +105,7 @@ def get_parser():
     # extensions of the JAX package
     parser.add_argument("--bf16", action="store_true", help="bfloat16 compute")
     parser.add_argument("--n_model", default=1, type=int,
-                        help="tensor-parallel size; more than 1 is not ported yet")
+                        help="model ranks a model is split over (tensor parallelism)")
     parser.add_argument("--use_pallas", action="store_true", help="accepted; no effect")
     parser.add_argument("--shared_prefix", action="store_true")
     parser.add_argument("--vocab_file", default=None, type=str)

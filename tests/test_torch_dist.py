@@ -640,7 +640,8 @@ def test_launch_variables(monkeypatch, tmp_path):
     """torchrun's variables reach init_world (WORLD_SIZE=2 is accepted);
     WORLD_SIZE without RANK raises; the K3M_* variables give a tcp or an
     init URL; without either the world is one process; both CLIs refuse
-    --n_model 3 on the configs' 8 image heads before any world is made, and
+    --n_model 3 on the configs' image width of 1024 (a head count need not
+    divide, a sharded width must) before any world is made, and
     --n_model 2 in a world of one."""
     from k3m_tpu_torch import finetune, pretrain
     calls = []
@@ -674,7 +675,7 @@ def test_launch_variables(monkeypatch, tmp_path):
             "--use_image", "--with_coattention"]
     for cli, extra in ((pretrain, ["--file_name", "x"]), (finetune, [])):
         with pytest.raises(ValueError, match="--n_model 3 does not divide "
-                                             "v_num_attention_heads 8.*Queue 1"):
+                                             "v_hidden_size 1024.*Queue 1"):
             cli.main(args + extra + ["--n_model", "3"])
     monkeypatch.delenv("K3M_COORDINATOR_ADDRESS")
     for cli, extra in ((pretrain, ["--file_name", "x"]), (finetune, [])):

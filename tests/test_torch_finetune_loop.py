@@ -271,11 +271,12 @@ def test_cli_refuses_unported_options_by_name(nano_run, monkeypatch, flag):
             finetune.main(argv)
         return
     # tensor parallelism is ported (tests/test_torch_tp.py), but --n_model
-    # must divide every head count (NANO's 2 heads) and the world (one process)
+    # must divide every sharded width (NANO's hidden 16; a head count need
+    # not divide) and the world (one process)
     for k in ("WORLD_SIZE", "K3M_COORDINATOR_ADDRESS"):
         monkeypatch.delenv(k, raising=False)
     argv += flag
-    match = ("--n_model 3 does not divide num_attention_heads 2" if flag[1] == "3" else
+    match = ("--n_model 3 does not divide hidden_size 16" if flag[1] == "3" else
              "--n_model 2 does not divide the world of 1 processes")
     with pytest.raises(ValueError, match=match):
         finetune.main(argv)

@@ -220,9 +220,10 @@ def test_no_cuda_means_the_cpu_and_the_default_is_the_card(data):
 
 def test_n_model_is_refused_by_name(data):
     """Tensor parallelism is ported (tests/test_torch_tp.py); what is still
-    refused by name is an `--n_model` that does not divide a head count
-    (NANO's 2) or the world (one process)."""
-    with pytest.raises(ValueError, match="--n_model 3 does not divide num_attention_heads 2"):
+    refused by name is an `--n_model` that does not divide a sharded width
+    (NANO's hidden 16; a head count need not divide) or the world (one
+    process)."""
+    with pytest.raises(ValueError, match="--n_model 3 does not divide hidden_size 16"):
         tcli.main(_legacy_argv(data, "tp", "--do_train", "--n_model", "3"))
     with pytest.raises(ValueError, match="--n_model 2 does not divide the world of 1"):
         tcli.main(_legacy_argv(data, "tp", "--do_train", "--n_model", "2"))

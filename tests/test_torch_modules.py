@@ -237,8 +237,7 @@ def test_structure_aggregator_matches(fix_bugs):
     close(got, ref)
 
 
-@pytest.mark.parametrize("flag", ["packed_passes", "fused_qkv", "in_batch_pairs",
-                                  "fast_mode", "visualization", "task_specific_tokens"])
+@pytest.mark.parametrize("flag", ["packed_passes", "fused_qkv"])
 def test_unported_options_are_refused_by_name(flag):
     from k3m_tpu_torch.model.pretrain import K3MTrunk
     with pytest.raises(NotImplementedError, match=flag):

@@ -144,5 +144,7 @@ def test_decay_mask_matches_jax():
 
 
 def test_task_specific_tokens_are_refused():
-    with pytest.raises(NotImplementedError, match="task_specific_tokens"):
+    """As the JAX package's pretraining model refuses the flag (ValueError,
+    k3m_tpu/model/pretrain.py:214-226): the trunk carries it."""
+    with pytest.raises(ValueError, match="task_specific_tokens"):
         tpt.K3MForPretraining(torch_config(NANO).replace(task_specific_tokens=True))

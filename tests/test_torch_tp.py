@@ -23,7 +23,8 @@ scenario; the tests read its results:
     against the JAX package's over a 1 x 2 model mesh; the three CLIs with
     `--n_model 2` through the K3M_* variables;
   * four ranks as data 2 x model 2: a pretraining step whose zero-pair
-    carry crosses the data groups.
+    carry crosses the data groups; then as one data group of 4 model
+    ranks, MICRO's 2 heads replicated on each: a pretraining step.
 
 Without a second rank: the rule table against the JAX package's
 `param_spec`, shard/gather round trips at M = 2 and 4, the head-sliced
@@ -298,6 +299,11 @@ def _world_main(rank, size, tmp, cli_args):
             if size == 4:
                 out["pretrain_carry"] = pretrain_step(
                     rows(pretrain_batch(11, zero_pair_rows=(0, 2)), world.data_rank, 2), world)
+                world.close()
+                # MICRO's 2 heads over 4 model ranks: every attention site replicated
+                world = train_dist.init_world(rank, size, f"file://{tmp}/init_model4", "cpu",
+                                              timeout_s=GROUP_TIMEOUT_S, n_model=4)
+                out["heads_replicated"] = pretrain_step(pretrain_batch(10), world)
             else:
                 for name, case in STEP_CASES.items():
                     out[name] = case(world, world.data_rank)
@@ -391,6 +397,27 @@ def test_data_two_by_model_two_equals_one_process(world4):
         for k, w in want_losses.items():
             assert abs(got_losses[k] - w) <= 1e-5 * max(1.0, abs(w)), (rank, k)
         _assert_close(got_grads, want_grads, rank)
+
+
+def test_heads_that_do_not_divide_n_model_equal_one_process(world4):
+    """MICRO's 2 heads (every self- and co-attention site) over 4 model
+    ranks: each rank gathers Q/K/V over the model group and runs both heads
+    with the one-process Philox masks, the row-parallel output takes its
+    columns. The four ranks' losses (rtol 1e-5) and every gathered
+    gradient (1e-4 of its tensor's scale + 1e-7) of a step with dropout on
+    equal one process's; each replicated parameter's gradient, before the
+    model-group average, is equal on all four."""
+    mesh.check_model_axis(TP_CFG, 4)             # 2 heads need not divide 4
+    want_losses, want_grads, _ = ONE_PROCESS["pretrain"]()
+    for rank, out in enumerate(world4):
+        got_losses, got_grads, _ = out["heads_replicated"]
+        for k, w in want_losses.items():
+            assert abs(got_losses[k] - w) <= 1e-5 * max(1.0, abs(w)), (rank, k)
+        _assert_close(got_grads, want_grads, ("heads_replicated", rank))
+    r0 = world4[0]["heads_replicated"][2]
+    for out in world4[1:]:
+        for name, g in out["heads_replicated"][2].items():
+            assert torch.equal(g, r0[name]), name
 
 
 def test_vocab_parallel_ce_and_lookup(world2):
@@ -622,8 +649,34 @@ def test_shard_then_gather_round_trips(M):
     assert gathered.keys() == want.keys()
     for k, v in want.items():
         assert torch.equal(gathered[k], v), k
-    with pytest.raises(ValueError, match="v_num_attention_heads 2"):
-        mesh.check_model_axis(cfg.replace(v_num_attention_heads=2, use_image=True), 4)
+    with pytest.raises(ValueError, match="v_intermediate_size 18"):
+        mesh.check_model_axis(cfg.replace(v_intermediate_size=18, use_image=True), 4)
+
+
+def test_heads_that_do_not_divide_and_task_embeddings_layout():
+    """At --n_model 8 on the shipped configs' head counts (12 text, 8 image
+    and co-attention heads; widths of 8 multiples, cut to size here) the
+    text self-attention runs all 12 heads from head 0 on every rank, the
+    others their own; the check passes; the task embeddings stay replicated,
+    as the JAX package's param_spec keeps them."""
+    from k3m_tpu.train.mesh import param_spec
+    from k3m_tpu_torch.model.pretrain import build_pretraining_model
+    cfg = TP_CFG.replace(hidden_size=96, num_attention_heads=12, intermediate_size=64,
+                         v_hidden_size=64, v_num_attention_heads=8, v_intermediate_size=32,
+                         bi_hidden_size=64, bi_num_attention_heads=8)
+    mesh.check_model_axis(cfg, 8)
+    for r in (0, 5):
+        model = mesh.shard_model(build_pretraining_model(cfg, seed=1, device="cpu"),
+                                 dist.World(rank=r, size=8, n_model=8))
+        text = model.encoder.layer[0].attention.self
+        assert (text.replicated, text.head0, text.run_heads) == (True, 0, 12)
+        image = model.encoder.v_layer[0].attention.self
+        assert (image.replicated, image.head0, image.run_heads) == (False, r, 1)
+        co = model.encoder.c_layer_pv_t[0].biattention
+        assert (co.replicated, co.head0, co.run_heads) == (False, r, 1)
+        assert text.query.weight.shape == (96 // 8, 96)
+    assert mesh.shard_dim("embeddings.task_embeddings.weight") is None
+    assert tuple(param_spec("trunk/embeddings/task_embeddings", np.zeros((20, 4)))) == ()
 
 
 def test_head_sliced_masks_and_their_checks():

@@ -204,14 +204,14 @@ def test_cli_trains_checkpoints_and_resumes(tmp_path):
                                   ["--n_model", "2"]])
 def test_cli_refuses_unported_options_by_name(tmp_path, flag):
     """grain is not ported; tensor parallelism is, but `--n_model` must
-    divide every head count (NANO's 2 heads: 3 does not) and the world
-    (one process: 2 does not)."""
+    divide every sharded width (NANO's hidden 16: 3 does not; a head count
+    need not divide) and the world (one process: 2 does not)."""
     from k3m_tpu_torch import pretrain
     if flag[0] == "--data_backend":
         with pytest.raises(NotImplementedError, match=flag[0]):
             pretrain.main(_cli_args(tmp_path, *flag))
         return
-    match = ("--n_model 3 does not divide num_attention_heads 2" if flag[1] == "3" else
+    match = ("--n_model 3 does not divide hidden_size 16" if flag[1] == "3" else
              "--n_model 2 does not divide the world of 1 processes")
     with pytest.raises(ValueError, match=match):
         pretrain.main(_cli_args(tmp_path, *flag))

@@ -38,7 +38,13 @@ a failure:
      at H12 D64 L51 and L257 (task tokens; L257 one row past four 64-row
      tiles, its mask words bit for bit) and L87 (the single-stream
      baseline), #5 at 37<->51, 37<->257 and 257<->51, #1/#2 on 96 x 257 pv
-     rows of 768;
+     rows of 768; then #1-#4 at the shapes packed_passes and fused_qkv give
+     them (packed_kernel_rows, fp32 and bf16 at rate 0 and 0.1): #1/#2 on
+     the packed text rows [96 * 612, 768] and [32 * 612, 768] and the image
+     stack's [192 * 37, 1024], #3/#4 at H8 L37 D128 on the image stack's
+     192 rows and at H12 D64 L50/L256 on views of one fused [96 * 612,
+     2304] projection at their packed row offsets; each part's seconds
+     are printed;
   4. slice (serving): write 256 synthetic pair records at the full shapes
      of run_pred.sh and run `k3m_tpu_torch.finetune --do_pred --bf16` over
      them with the bert_base_6layer_6conect config (random weights from a
@@ -208,7 +214,19 @@ a failure:
      the outputs of the kernel path; (e) BaseBertForPretraining, 12 layers
      of 768 over title 50 + 37 image tokens, 3 bf16 AdamW steps at B32,
      losses and gradients cross-checked;
- 25. print the kernel summary line and the final device line.
+ 25. packed (packed_passes and fused_qkv): (a) phase 7's fp32 train step
+     with both flags, card vs CPU, phase 7's limits; (b) TriStreamEncoder
+     (k3m_roberta_base, fp32, dropout 0) with both flags against the
+     sequential encoder on the card: outputs at phase 5's limit, every
+     gradient at phase 7's, the launch counts of each; (c) `python -m
+     k3m_tpu_torch.pretrain --bf16 --use_image --train_batch_size 96`
+     through a --config_file that sets packed_passes, then fused_qkv, then
+     both, 5 steps each: every kernel counter against the flag-aware
+     formula (layer_counts), samples/s, step ms, launch calls and busy ms
+     of one profiled step, peak memory, beside phase 6's run without them;
+     (d) `finetune --do_train` (bert_base_6layer_6conect, batch 32) with
+     both flags, 5 steps, reported the same way;
+ 26. print the kernel summary line and the final device line.
 
 Phases 17-19 and 22-23 run their ranks as `python3 chip_smoke.py
 --dp-worker <spec>` processes (logs in chiprun_out/dp_*.log); a rank that
@@ -273,14 +291,18 @@ def log(msg):
 
 # ------------------------------------------------------------------ timing
 
-def graph_ms(fn, iters=20):
+TIMED_ITERS = 10   # calls in each timed graph (kept small for the script's time)
+PLAIN_ITERS = 3    # the same for the plain versions, 10-100x the kernels' time
+
+
+def graph_ms(fn, iters=TIMED_ITERS, warmup=3):
     """Device ms per call of `fn`: `iters` calls captured in one CUDA graph
     and replayed, so that the host's cost of a call (measured apart, in
     launch_overhead) does not stand in for the time of a small kernel."""
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
-        for _ in range(3):                 # warm-up outside the graph
+        for _ in range(warmup):            # warm-up outside the graph
             fn()
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
@@ -422,6 +444,7 @@ def attention_cases(batches_dtypes_rates):
 
 
 TRAINING_BATCHES = (TRAIN_BATCH, FT_BATCH)   # forward kernels timed keeping lse and words
+PACKED_IMAGE_BATCH = 2 * TRAIN_BATCH         # packed_passes' image stack: [img; img]
 
 
 def _bound(nbytes, ops, dtype):
@@ -491,7 +514,8 @@ def kernel_phase_layernorm(card, rows_out, cases=None):
                         max_abs_err=max_err(out, ref), tol=tolerance(ref, od),
                         ms=graph_ms(lambda: fused_layernorm(x, scale, bias, res, out_dtype=od)),
                         plain_ms=graph_ms(lambda: layernorm_plain(x, scale, bias, res,
-                                                                  out_dtype=od)),
+                                                                  out_dtype=od),
+                                          PLAIN_ITERS, 1),
                         library_ms=lib, bound_ms=bound, bound_by=by)
 
 
@@ -543,7 +567,7 @@ def kernel_phase_layernorm_bwd(card, rows_out, cases=None):
                         max_abs_err=err, tol=tol,
                         ms=graph_ms(lambda: layernorm_bwd(y, rstd, scale, bias, dy, dt)),
                         plain_ms=graph_ms(lambda: layernorm_bwd_plain(y, rstd, scale, bias,
-                                                                      dy, dt)),
+                                                                      dy, dt), PLAIN_ITERS, 1),
                         library_ms=lib, bound_ms=bound, bound_by=by)
 
 
@@ -626,7 +650,7 @@ def _sdpa_bwd_ms(dirs, rate):
         outs = fwd()
         torch.autograd.grad(outs, [t for d in leaves for t in d[:3]],
                             [d[4].transpose(1, 2) for d in leaves])
-    return max(graph_ms(fwd_bwd, iters=10) - graph_ms(fwd, iters=10), 0.0)
+    return max(graph_ms(fwd_bwd, iters=5) - graph_ms(fwd, iters=5), 0.0)
 
 
 ATTN_SHAPES = ((12, 50, 64, "title"), (12, 256, 64, "pv"), (8, 37, 128, "image"))
@@ -664,12 +688,13 @@ def _key_tag(H, key):
     return "" if hg == H else f" heads {h0}-{h0 + H - 1} of {hg}"
 
 
-def kernel_phase_attention(card, rows_out, cases=None, shapes=ATTN_SHAPES):
+def kernel_phase_attention(card, rows_out, cases=None, shapes=ATTN_SHAPES, qkv=_qkv):
     """The forward kernel against attention_plain for each (batch, dtype,
     rate) of `cases` (by default attention_cases of every main-path batch)
     at each (heads, length, D[, head0, heads_global]) of `shapes`: a tail
     places the H heads among the layer's, as a model rank runs them under
-    tensor parallelism."""
+    tensor parallelism. `qkv(B, L, H, D, dtype, generator)` makes the
+    operands (views of one projection)."""
     from k3m_tpu_torch.kernels import attention_plain, fused_attention
     from k3m_tpu_torch.kernels.attention import _forward
     g = torch.Generator(device="cuda").manual_seed(1)
@@ -679,7 +704,7 @@ def kernel_phase_attention(card, rows_out, cases=None, shapes=ATTN_SHAPES):
         for H, L, D, what, *key in shapes:
             key = _head_key(H, key)
             kw = dict(head0=key[0], heads_global=key[1])
-            q, k, v = _qkv(B, L, H, D, dt, g)
+            q, k, v = qkv(B, L, H, D, dt, g)
             bias = _ragged_bias(B, L, g)
             seed = 11
             tag = f"B{B} L{L} D{D} {_dt_name(dt)} rate {rate}{_key_tag(H, key)}"
@@ -696,16 +721,18 @@ def kernel_phase_attention(card, rows_out, cases=None, shapes=ATTN_SHAPES):
                 _check_words("fused_attention", tag, words, keep, card)
             bound, by = _bound(4 * B * L * H * D * q.element_size() + B * L * 4,
                                _attn_ops(B, H, L, L, D), dt)
-            # timed as its path calls it: training (B96, B32) keeps lse and
-            # the mask words for the backward, serving (B64) keeps nothing
-            train = B in TRAINING_BATCHES
+            # timed as its path calls it: training (B96, B32, the packed
+            # image stack's B192) keeps lse and the mask words for the
+            # backward, serving (B64) keeps nothing
+            train = B in TRAINING_BATCHES + (PACKED_IMAGE_BATCH,)
             _record(rows_out, card, kernel="fused_attention", batch=B,
                     shape=f"B{B} H{H} L{L} D{D} {what}{_key_tag(H, key)}", dtype=_dt_name(dt),
                     rate=rate, max_abs_err=max_err(out, ref), tol=tolerance(ref, dt),
                     ms=graph_ms(lambda: _forward(q, k, v, bias, rate, seed,
                                                  for_backward=train, **kw)),
                     timed_for_backward=train,
-                    plain_ms=graph_ms(lambda: attention_plain(q, k, v, bias, keep, rate)),
+                    plain_ms=graph_ms(lambda: attention_plain(q, k, v, bias, keep, rate),
+                                      PLAIN_ITERS, 1),
                     library_ms=graph_ms(lambda: _sdpa(q, k, v, bias, rate)),
                     bound_ms=bound, bound_by=by, lse_err_ratio=lse_ratio)
 
@@ -839,7 +866,8 @@ def kernel_phase_biattention(card, rows_out, cases=None, shapes=BIATTN_SHAPES, h
                     ms=graph_ms(lambda: _forward(*args, rate, rate, seed,
                                                  for_backward=train, **kw)),
                     timed_for_backward=train,
-                    plain_ms=graph_ms(lambda: biattention_plain(*args, m1, m2, rate, rate)),
+                    plain_ms=graph_ms(lambda: biattention_plain(*args, m1, m2, rate, rate),
+                                      PLAIN_ITERS, 1),
                     library_ms=None, two_sdpa_ms=graph_ms(two_sdpa),
                     bound_ms=bound, bound_by=by, lse_err_ratio=lse_ratio)
 
@@ -945,7 +973,7 @@ def _attn_bwd_bytes(ops_, fwd):
 
 
 def kernel_phase_attention_bwd(card, rows_out, runs=None, attn_shapes=ATTN_SHAPES,
-                               bi_shapes=BIATTN_SHAPES, bi_heads=8):
+                               bi_shapes=BIATTN_SHAPES, bi_heads=8, qkv=_qkv):
     """The backward kernel for each self-attention shape and, once per
     direction, each co-attention shape, at rate 0 and 0.1 (under the plain
     version's Philox mask), at the pretraining batch (and in bf16 at rate
@@ -958,7 +986,8 @@ def kernel_phase_attention_bwd(card, rows_out, runs=None, attn_shapes=ATTN_SHAPE
     default the pretraining batch in fp32 and bf16 at both rates and the
     finetune batch as its training calls it (bf16, rate 0.1). Shapes as
     kernel_phase_attention's and kernel_phase_biattention's (`bi_heads`
-    heads), a head0/heads_global tail included."""
+    heads), a head0/heads_global tail included; `qkv` as there (the
+    self-attention directions' operands)."""
     from k3m_tpu_torch.kernels import attention_bwd, attention_bwd_plain
     g = torch.Generator(device="cuda").manual_seed(4)
     if runs is None:
@@ -976,9 +1005,10 @@ def kernel_phase_attention_bwd(card, rows_out, runs=None, attn_shapes=ATTN_SHAPE
         for shape, dirs in cases:
             for dt in dtypes:
                 ops_ = []
+                make = qkv if len(dirs) == 1 else _qkv
                 for H, Lq, Lk, D, salt, h0, hg in dirs:
-                    q = _qkv(B, Lq, H, D, dt, g)[0]
-                    k, v = _qkv(B, Lk, H, D, dt, g)[1:]
+                    q = make(B, Lq, H, D, dt, g)[0]
+                    k, v = make(B, Lk, H, D, dt, g)[1:]
                     do = torch.randn(B, Lq, H, D, generator=g, device="cuda").to(dt)
                     ops_.append((q, k, v, _ragged_bias(B, Lk, g), do, salt, H, Lq, Lk, D,
                                  h0, hg))
@@ -1014,7 +1044,7 @@ def kernel_phase_attention_bwd(card, rows_out, runs=None, attn_shapes=ATTN_SHAPE
                     _record(rows_out, card, kernel="attention_bwd", shape=shape, batch=B,
                             dtype=_dt_name(dt), rate=rate, directions=len(ops_),
                             max_abs_err=err, tol=tol, planted_faults=faults,
-                            ms=graph_ms(kernel), plain_ms=graph_ms(plain),
+                            ms=graph_ms(kernel), plain_ms=graph_ms(plain, PLAIN_ITERS, 1),
                             library_ms=_sdpa_bwd_ms([o[:5] for o in ops_], rate),
                             bound_ms=bound, bound_by=by, design_bound_ms=design_bound)
                     del fwd, got, want
@@ -1114,17 +1144,29 @@ def launch_overhead(card, n=2000):
 
 
 def phase_kernels(card):
-    rows = []
+    """Every part of phase 3, each part's seconds logged (`part_seconds`)."""
+    rows, parts = [], {}
+
+    def timed(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        torch.cuda.empty_cache()
+        parts[name] = time.perf_counter() - t0
+        return out
     for phase in (kernel_phase_layernorm, kernel_phase_layernorm_bwd,
                   kernel_phase_attention, kernel_phase_biattention,
                   kernel_phase_attention_bwd):
-        phase(card, rows)
-        torch.cuda.empty_cache()
-    masks = {B: dropout_mask_check(card, B) for B in TRAINING_BATCHES}
-    edges = forward_edge_check(card)
-    torch.cuda.empty_cache()
-    return (rows, launch_overhead(card), masks, edges, tp_kernel_rows(card),
-            option_kernel_rows(card))
+        timed(phase.__name__, phase, card, rows)
+    masks = timed("dropout_mask_check", lambda: {B: dropout_mask_check(card, B)
+                                                 for B in TRAINING_BATCHES})
+    edges = timed("forward_edge_check", forward_edge_check, card)
+    host_us = timed("launch_overhead", launch_overhead, card)
+    tp_rows = timed("tp_kernel_rows", tp_kernel_rows, card)
+    option_rows = timed("option_kernel_rows", option_kernel_rows, card)
+    packed_rows = timed("packed_kernel_rows", packed_kernel_rows, card)
+    log(f"kernels: part seconds { {k: round(v, 1) for k, v in parts.items()} }")
+    return dict(rows=rows, host_us=host_us, masks=masks, edges=edges, tp_rows=tp_rows,
+                option_rows=option_rows, packed_rows=packed_rows, part_seconds=parts)
 
 
 # ------------------------------------------------------------ slice phase
@@ -1159,17 +1201,31 @@ def write_pair_records(path, n=N_PAIRS):
     return write_records(str(path), pairs)
 
 
+def layer_counts(cfg):
+    """(LN-layer applications, attention calls, connection layers) of one
+    trunk forward of one process (no shared_prefix, image and co-attention
+    on). Every text layer runs 4 times (t and pv in passes t<->v, pv<->v,
+    and both streams of t<->pv), every image layer twice; 2 LNs per
+    application, 1 attention call per stream. Under packed_passes (without
+    in_batch_pairs or fast_mode) each text layer runs once over the 4
+    streams' packed rows (4 attention calls) and each image layer once at
+    2B rows (1 call; a training forward with dropout under data parallelism
+    makes one per copy of the batch, dist.stacked, which no phase runs)."""
+    packed = cfg.packed_passes and not (cfg.in_batch_pairs or cfg.fast_mode)
+    lt, lv = cfg.num_hidden_layers, cfg.v_num_hidden_layers
+    if packed:
+        return lt + lv, 4 * lt + lv, 3 * cfg.num_coattention_layers
+    return 4 * lt + 2 * lv, 4 * lt + 2 * lv, 3 * cfg.num_coattention_layers
+
+
 def expected_launches(cfg, n_item_forwards):
     """Kernel launches of one item forward of K3MForItemAlignment, times the
-    number of item forwards (no shared_prefix, image and co-attention on):
-    3 embedding LNs; every text layer runs 4 times (t and pv in passes
-    t<->v, pv<->v, and both streams of t<->pv), every image layer twice;
-    2 LNs + 1 attention per layer, 4 LNs + 1 bi-attention per connection
-    layer (3 stacks)."""
-    text, image, conn = 4 * cfg.num_hidden_layers, 2 * cfg.v_num_hidden_layers, \
-        3 * cfg.num_coattention_layers
-    return dict(fused_layernorm=n_item_forwards * (3 + 2 * (text + image) + 4 * conn),
-                fused_attention=n_item_forwards * (text + image),
+    number of item forwards: 3 embedding LNs, 2 LNs per layer application
+    and 1 attention per stream (layer_counts), 4 LNs + 1 bi-attention per
+    connection layer (3 stacks)."""
+    layers, attn, conn = layer_counts(cfg)
+    return dict(fused_layernorm=n_item_forwards * (3 + 2 * layers + 4 * conn),
+                fused_attention=n_item_forwards * attn,
                 fused_biattention=n_item_forwards * conn)
 
 
@@ -1453,13 +1509,12 @@ def expected_train_launches(cfg, steps, head_lns=3, embedding_lns=3):
     embeddings; 0 for the encoder alone) plus the heads' `head_lns` LNs
     (the MLM transform for title and pv, the RoI transform); every LN and
     attention has its backward, and each bi-attention two (one per
-    direction)."""
-    text, image, conn = 4 * cfg.num_hidden_layers, 2 * cfg.v_num_hidden_layers, \
-        3 * cfg.num_coattention_layers
-    ln = embedding_lns + 2 * (text + image) + 4 * conn + head_lns
+    direction); layer_counts gives the layers and calls."""
+    layers, attn, conn = layer_counts(cfg)
+    ln = embedding_lns + 2 * layers + 4 * conn + head_lns
     return dict(fused_layernorm=steps * ln, layernorm_bwd=steps * ln,
-                fused_attention=steps * (text + image),
-                attention_bwd=steps * (text + image + 2 * conn),
+                fused_attention=steps * attn,
+                attention_bwd=steps * (attn + 2 * conn),
                 fused_biattention=steps * conn)
 
 
@@ -1567,10 +1622,11 @@ def phase_train(card):
     return res
 
 
-def phase_train_crosscheck(card):
+def phase_train_crosscheck(card, flags=None, what="train crosscheck"):
     """One fp32 train step (losses and backward) at batch 2 on the card
     (kernels) and on the CPU (plain versions), same seeded weights, dropout
-    off, injected LPM negatives and Gumbel noise. The noise puts its
+    off, injected LPM negatives and Gumbel noise; `flags`: config options
+    set on both (phase 25). The noise puts its
     one-hot pick 4 above the other options, so 1e-6 differences cannot flip
     a hard selection (that would test the argmax, not the kernels).
     Tolerances: losses 1e-4 of their scale; each gradient tensor 1e-3 of
@@ -1579,7 +1635,8 @@ def phase_train_crosscheck(card):
     gradients that are zero in exact arithmetic)."""
     from k3m_tpu_torch.config import K3MConfig
     from k3m_tpu_torch.train.pretrain_loop import PretrainTrainer
-    cfg = K3MConfig.from_json_file(str(ROBERTA)).replace(use_image=True, objective=2)
+    cfg = K3MConfig.from_json_file(str(ROBERTA)).replace(use_image=True, objective=2,
+                                                         **(flags or {}))
     batch = next(iter(_pretrain_loader(WORK / "pretrain_data" / "train_feat.k3mr", cfg, 2)))
     rng = np.random.default_rng(SEED)
     B, P = 2, SHAPES["max_num_pv"]
@@ -1605,11 +1662,11 @@ def phase_train_crosscheck(card):
     (l_cpu, g_cpu), (l_gpu, g_gpu) = results["cpu"], results["cuda"]
     for k in ("masked_lm_loss", "masked_img_loss", "masked_lm_loss_pv", "loss_struc"):
         err, tol = abs(l_gpu[k] - l_cpu[k]), 1e-4 * max(1.0, abs(l_cpu[k]))
-        log(f"train crosscheck {k}: card {l_gpu[k]:.6f} cpu {l_cpu[k]:.6f} (tol {tol:.1e})")
+        log(f"{what} {k}: card {l_gpu[k]:.6f} cpu {l_cpu[k]:.6f} (tol {tol:.1e})")
         if not (math.isfinite(l_gpu[k]) and err <= tol):
-            raise AssertionError(f"train crosscheck {k}: {err} > {tol}")
+            raise AssertionError(f"{what} {k}: {err} > {tol}")
     if set(g_cpu) != set(g_gpu) or not g_cpu:
-        raise AssertionError("train crosscheck: the two devices gave different gradients")
+        raise AssertionError(f"{what}: the two devices gave different gradients")
     worst, worst_name = 0.0, None
     for name, a in g_cpu.items():
         tol = 1e-3 * float(a.abs().max()) + 1e-7
@@ -1617,9 +1674,9 @@ def phase_train_crosscheck(card):
         if ratio > worst:
             worst, worst_name = ratio, name
         if not (torch.isfinite(g_gpu[name]).all() and ratio <= 1.0):
-            raise AssertionError(f"train crosscheck gradient {name}: "
+            raise AssertionError(f"{what} gradient {name}: "
                                  f"{max_err(g_gpu[name], a)} > {tol}")
-    log(f"train crosscheck: {len(g_cpu)} gradient tensors agree card vs CPU; worst "
+    log(f"{what}: {len(g_cpu)} gradient tensors agree card vs CPU; worst "
         f"error/tolerance {worst:.3e} ({worst_name}) | {card}")
     return dict(losses_cpu=l_cpu, losses_card=l_gpu, worst_grad_ratio=worst,
                 worst_grad=worst_name, n_grads=len(g_cpu))
@@ -3570,7 +3627,7 @@ def phase_legacy_train(card):
 # ------------------------------------------------------ tensor parallelism
 
 TP_MS = (2, 4)              # model ranks of the TP kernel rows (phase 3)
-TP_STEPS = 3                # steps of each CLI run of phase 23
+TP_STEPS = 2                # steps of each CLI run of phase 23, the first a warm-up
 TP_PRETRAIN_BATCH = 16      # phase 23's global batches: gloo's host path, not a speed figure
 TP_FT_BATCH = 8             # pairs; 32 took 25-33 s a step and the script past 1000 s
 TP_EVAL_PAIRS = 16          # phase 23's sweep and predict batch: phase 4's first 16 pairs
@@ -4624,6 +4681,205 @@ def phase_trunk_options(card, dev="cuda"):
     return out
 
 
+# --------------------------------- packed passes and fused QKV (phase 25)
+
+PACKED_TEXT = (50, 256, 50, 256)   # packed_passes' text streams [t, pv, t, pv]
+PACKED_ATTN_SHAPES = ((12, 50, 64, "title packed+fused"), (12, 256, 64, "pv packed+fused"))
+PACKED_IMAGE_SHAPES = ((8, 37, 128, "image 2B"),)
+PACKED_FLAGS = {"packed": dict(packed_passes=True), "fused": dict(fused_qkv=True),
+                "packed+fused": dict(packed_passes=True, fused_qkv=True)}
+PACKED_STEPS = 5           # steps of each run of (c) and (d), the first a warm-up
+PACKED_CROSS_BATCH = 4     # (b)
+
+
+def _packed_qkv(B, L, H, D, dtype, g):
+    """q, k, v of the last text stream of length L among PACKED_TEXT as
+    views of one fused [B * sum PACKED_TEXT, 3 * H * D] projection of the
+    packed rows, at that stream's row offset (row stride 3 * H * D), as
+    packed_passes with fused_qkv hands them to the kernels."""
+    i = len(PACKED_TEXT) - 1 - PACKED_TEXT[::-1].index(L)
+    o = B * sum(PACKED_TEXT[:i])
+    rows = torch.randn(B * sum(PACKED_TEXT), 3 * H * D, generator=g, device="cuda").to(dtype)
+    view = rows[o:o + B * L].view(B, L, 3, H, D)
+    return view[:, :, 0], view[:, :, 1], view[:, :, 2]
+
+
+def packed_kernel_rows(card):
+    """#1-#4 at the shapes packed_passes and fused_qkv give them, fp32 and
+    bf16 at rate 0 and 0.1, held and timed as phase 3 holds them: #1/#2 on
+    the packed text rows of the pretraining batch ([96 * 612, 768], 612 =
+    50 + 256 + 50 + 256) and of the finetune batch ([32 * 612, 768]), and
+    on the image stack's [2 * 96 * 37, 1024] rows; #3/#4 at H8 L37 D128 on
+    the image stack's 192 rows (one process's mask rows 0-191, bit for
+    bit), and at H12 D64 L50 and L256 fed views of one [96 * 612, 2304]
+    fused projection at their packed row offsets. #5 reads each stream's
+    fused projection as phase 3's rows already lay it out (q, k, v views
+    of one [B, L, 3, H, D] tensor)."""
+    f32, bf16 = torch.float32, torch.bfloat16
+    n, rows = sum(PACKED_TEXT), []
+    ln = ((TRAIN_BATCH, (TRAIN_BATCH * n, 768, "packed text")),
+          (FT_BATCH, (FT_BATCH * n, 768, "packed text")),
+          (TRAIN_BATCH, (PACKED_IMAGE_BATCH * 37, 1024, "image 2B")))
+    kernel_phase_layernorm(card, rows, cases=[(b, s, ((f32, f32), (bf16, bf16))) for b, s in ln])
+    kernel_phase_layernorm_bwd(card, rows, cases=[(b, s, (f32, bf16)) for b, s in ln])
+    cases = lambda B: [(B, dt, rate) for dt in (f32, bf16) for rate in RATES]
+    kernel_phase_attention(card, rows, cases=cases(PACKED_IMAGE_BATCH),
+                           shapes=PACKED_IMAGE_SHAPES)
+    kernel_phase_attention(card, rows, cases=cases(TRAIN_BATCH), shapes=PACKED_ATTN_SHAPES,
+                           qkv=_packed_qkv)
+    kernel_phase_attention_bwd(card, rows, runs=((PACKED_IMAGE_BATCH, (f32, bf16), RATES),),
+                               attn_shapes=PACKED_IMAGE_SHAPES, bi_shapes=())
+    kernel_phase_attention_bwd(card, rows, runs=((TRAIN_BATCH, (f32, bf16), RATES),),
+                               attn_shapes=PACKED_ATTN_SHAPES, bi_shapes=(), qkv=_packed_qkv)
+    torch.cuda.empty_cache()
+    return rows
+
+
+def _packed_vs_sequential(card, flags, dev="cuda"):
+    """(b): TriStreamEncoder (k3m_roberta_base as shipped, fp32, dropout 0)
+    with `flags` against the sequential encoder, same seeded weights and
+    inputs, both on the card: every output at phase 5's limit and every
+    parameter's and input's gradient at phase 7's, each run's launches as
+    layer_counts gives them (`dev` "cpu" rehearses it). Not under dynamic
+    attention, where the packed schedule gates the image layers after the
+    last co-attention block on other text rows (model/encoder.py)."""
+    from k3m_tpu_torch import kernels
+    from k3m_tpu_torch.config import K3MConfig
+    from k3m_tpu_torch.model.encoder import TriStreamEncoder
+    base = K3MConfig.from_json_file(str(ROBERTA))
+    states, runs = {}, {}
+    B = PACKED_CROSS_BATCH
+    for name, cfg in (("sequential", base), ("flags", base.replace(**flags))):
+        kernels.reset_launch_counts()
+        runs[name] = _fp32_run(lambda dev: _seeded(lambda: TriStreamEncoder(cfg), cfg, dev, states),
+                               lambda dev: _encoder_inputs(cfg, B, B, SEED, dev, torch.float32,
+                                                           grad=True), dev,
+                               grads_of_inputs=(0, 1, 5))
+        _check_launches(f"packed (b) {name}", kernels.launch_counts(),
+                        expected_train_launches(cfg, 1, head_lns=0, embedding_lns=0), card)
+    what = f"packed (b) {'+'.join(sorted(flags))} vs sequential on the card"
+    return dict(outputs=_hold(what, runs["sequential"][0], runs["flags"][0], "output", card),
+                grads=_hold(what, runs["sequential"][1], runs["flags"][1], "gradient", card))
+
+
+def _flag_run(card, what, main, argv, cfg, expected_of, unit, profile_batch):
+    """One CLI run of `main(argv)` (PACKED_STEPS steps): finite losses,
+    every kernel counter equal to `expected_of(steps)`, `unit`/s and step
+    ms over the steps after the first, peak memory; then one more step of
+    its trainer on `profile_batch(trainer)` under the profiler: launch
+    calls and busy ms."""
+    from k3m_tpu_torch import kernels
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    run = main(argv)
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    _require_native(run, what)
+    (hist,) = run["history"]
+    steps = len(hist["step_seconds"])
+    if steps != PACKED_STEPS:
+        raise AssertionError(f"{what}: {steps} steps, expected {PACKED_STEPS}")
+    _check_launches(what, counts, expected_of(steps), card)
+    losses = hist["step_losses"]
+    flat = [v for x in losses for v in (x.values() if isinstance(x, dict) else [x])]
+    if not all(math.isfinite(v) for v in flat):
+        raise AssertionError(f"{what}: non-finite losses {losses}")
+    n = hist[f"step_{unit}"]
+    timed = hist["step_seconds"][1:]
+    rate, step_ms = sum(n[1:]) / sum(timed), [1e3 * t for t in timed]
+    log(f"{what}: {steps} steps, {rate:.2f} {unit}/s over steps 2-{steps}, step ms mean "
+        f"{sum(step_ms) / len(step_ms):.2f} (first {1e3 * hist['step_seconds'][0]:.2f}); peak "
+        f"memory {peak:.2f} GiB | {card}")
+    trainer = run["trainer"]
+    batch = profile_batch(trainer)
+    prof = profile_device(lambda: trainer.train_step(batch), card, f"{what} step", n=1)
+    log_busy_share(what, prof["busy_ms"], step_ms, card)
+    if hist.get("checkpoint_path"):
+        shutil.rmtree(hist["checkpoint_path"], ignore_errors=True)
+    del run, trainer, batch
+    torch.cuda.empty_cache()
+    return {f"{unit}_per_s": rate, "step_ms": step_ms, "first_step_ms":
+            1e3 * hist["step_seconds"][0], "peak_gib": peak, "launches": counts,
+            "busy_ms": prof["busy_ms"], "host_launch_calls": prof["host_launch_calls"],
+            "idle_share": prof["idle_share"], "profile_complete": prof["complete"]}
+
+
+def phase_packed(card, train_res):
+    """Phase 25: (a) phase 7's fp32 train step with both flags, card vs
+    CPU; (b) `_packed_vs_sequential` with both flags; (c) `python -m
+    k3m_tpu_torch.pretrain --bf16 --use_image --train_batch_size 96`
+    (k3m_roberta_base) through a --config_file that sets packed_passes,
+    then fused_qkv, then both, PACKED_STEPS steps each, beside phase 6's
+    run of the same CLI without them (`train_res`); (d) `finetune
+    --do_train` (bert_base_6layer_6conect, batch 32, the flags of phase
+    8) with both flags, PACKED_STEPS steps."""
+    from k3m_tpu_torch import finetune, pretrain
+    from k3m_tpu_torch.config import K3MConfig
+    both = PACKED_FLAGS["packed+fused"]
+    out, seconds = {}, {}
+    t0 = time.perf_counter()
+    out["crosscheck"] = phase_train_crosscheck(card, both, "packed (a) train crosscheck")
+    seconds["a"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["vs_sequential"] = _packed_vs_sequential(card, both)
+    seconds["b"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    data_dir = WORK / "packed_data"
+    write_pretrain_records(data_dir / "train_feat.k3mr", PACKED_STEPS * TRAIN_BATCH)
+    shipped = json.loads(ROBERTA.read_text())
+    p = train_res["profile"]
+    runs = {"off": dict(samples_per_s=train_res["samples_per_s"], step_ms=train_res["step_ms"],
+                        peak_gib=train_res["peak_gib"], launches=train_res["launches"],
+                        busy_ms=p["busy_ms"], host_launch_calls=p["host_launch_calls"],
+                        steps=TRAIN_STEPS)}
+    for name, flags in PACKED_FLAGS.items():
+        cfg_name = f"k3m_roberta_base_{name.replace('+', '_')}.json"
+        (data_dir / cfg_name).write_text(json.dumps(dict(shipped, **flags), indent=1))
+        cfg = K3MConfig.from_json_file(str(data_dir / cfg_name))
+        path = data_dir / "train_feat.k3mr"
+        runs[name] = _flag_run(
+            card, f"packed (c) pretrain {name}", pretrain.main,
+            _pretrain_argv(data_dir, WORK / "packed_out", "--config_file", cfg_name), cfg,
+            lambda steps, cfg=cfg: expected_train_launches(cfg, steps), "samples",
+            lambda trainer, cfg=cfg, path=path: trainer.stage(next(iter(_pretrain_loader(
+                path, cfg, TRAIN_BATCH)))))
+        runs[name]["steps"] = PACKED_STEPS
+    out["pretrain"] = runs
+    seconds["c"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ft_dir = WORK / "packed_finetune"
+    ft_dir.mkdir(parents=True, exist_ok=True)
+    write_finetune_records(ft_dir, n_train=PACKED_STEPS * FT_BATCH, n_valid=FT_BATCH)
+    ft_cfg = ft_dir / "bert_base_6layer_6conect_packed_fused.json"
+    ft_cfg.write_text(json.dumps(dict(json.loads(BERT.read_text()), **both), indent=1))
+    cfg = K3MConfig.from_json_file(str(ft_cfg))
+    argv = ["--data_dir", str(ft_dir), "--output_dir", str(WORK / "packed_ft_out"),
+            "--config_file", str(ft_cfg), "--use_image", "--with_coattention", "--do_train",
+            "--bf16", "--loss_type", "inner", "--if_pre_sampling", "1", "--train_batch_size",
+            str(FT_BATCH), "--learning_rate", "5e-5", "--warmup_proportion", "0.3",
+            "--num_train_epochs", "1", "--seed", str(SEED), "--log_steps", "1"]
+    for k, v in SHAPES.items():
+        argv += [f"--{k}", str(v)]
+    out["finetune"] = _flag_run(
+        card, "packed (d) finetune packed+fused", finetune.main, argv, cfg,
+        lambda steps: expected_finetune_launches(cfg, steps, 0), "pairs",
+        lambda trainer: trainer.stage(_load_batch(ft_dir / "train_item_alignment.k3mr", cfg,
+                                                  FT_BATCH)))
+    shutil.rmtree(WORK / "packed_ft_out", ignore_errors=True)
+    shutil.rmtree(WORK / "packed_out", ignore_errors=True)
+    seconds["d"] = time.perf_counter() - t0
+    for name, r in runs.items():
+        log(f"packed (c) {name}: {r['samples_per_s']:.2f} samples/s, step ms mean "
+            f"{sum(r['step_ms']) / len(r['step_ms']):.2f}, launches {r['launches']}, "
+            f"{r['host_launch_calls']} launch calls and {r['busy_ms']:.2f} busy ms of one "
+            f"profiled step, peak {r['peak_gib']:.2f} GiB ({r['steps']} steps) | {card}")
+    out["part_seconds"] = seconds
+    log(f"packed: part seconds { {k: round(v, 1) for k, v in seconds.items()} }")
+    return out
+
+
 SUMMARY = {
     # name: (source, TPU kernel, heaviest main-path row: shape part, dtype, rate)
     "fused_layernorm": ("k3m_tpu_torch/kernels/csrc/layernorm.cu",
@@ -4664,6 +4920,15 @@ TP_SUMMARY = {
 }
 
 
+PACKED_SUMMARY = {
+    # name: the packed_passes / fused_qkv rows (bf16, rate 0.1); #5 has none
+    "fused_layernorm": ("packed text", "bfloat16->bfloat16", None),
+    "layernorm_bwd": ("packed text", "bfloat16", None),
+    "fused_attention": ("pv packed+fused", "bfloat16", 0.1),
+    "attention_bwd": ("pv packed+fused", "bfloat16", 0.1),
+}
+
+
 OPTION_SUMMARY = {
     # name: the new shapes of the trunk options' rows (bf16, rate 0.1)
     "fused_layernorm": ("pv+task", "bfloat16->bfloat16", None),
@@ -4674,7 +4939,7 @@ OPTION_SUMMARY = {
 }
 
 
-def summarize(krows, paths, legacy, tp_rows, option_rows):
+def summarize(krows, paths, legacy, tp_rows, option_rows, packed_rows):
     """One entry per kernel: the row of its heaviest main-path shape (the
     pretraining batch), `launches` from the pretraining run, the launches
     of every path's run (serving, pretraining, finetune, phases 11-14, each
@@ -4682,8 +4947,9 @@ def summarize(krows, paths, legacy, tp_rows, option_rows):
     run none of them, the legacy CLI's runs of phase 21, each rank of the
     three CLIs of phase 23), where phase 3 has one, the row of the same
     shape at the finetune batch, the row of phase 21 at the legacy CLI's
-    default shapes with that CLI's launches a step, and for the attention
-    kernels the rows at the head counts of 2 and 4 model ranks."""
+    default shapes with that CLI's launches a step, for the attention
+    kernels the rows at the head counts of 2 and 4 model ranks, and for #1-#4
+    the row at the packed_passes / fused_qkv shapes."""
     summary = []
     for name, (src, replaces, shape, dtype, rate) in SUMMARY.items():
         row = _row(krows, name, shape, dtype, rate, TRAIN_BATCH)
@@ -4703,6 +4969,9 @@ def summarize(krows, paths, legacy, tp_rows, option_rows):
                                    launches_per_step=legacy["per_step"][name])
         op = _row(option_rows, name, *OPTION_SUMMARY[name], TRAIN_BATCH)
         entry["option_row"] = {k: op[k] for k in keys}
+        if name in PACKED_SUMMARY:
+            pk = _row(packed_rows, name, *PACKED_SUMMARY[name], TRAIN_BATCH)
+            entry["packed_row"] = {k: pk[k] for k in keys}
         if name in TP_SUMMARY:
             part, dt, rt = TP_SUMMARY[name]
             entry["tp_rows"] = {f"n_model {M}": {k: r[k] for k in keys} for M in TP_MS
@@ -4746,14 +5015,17 @@ def main(argv):
         native_build = None if kernels_only else pool.submit(phase_native_build, card)
         build_s, ptxas = run("build", phase_build)
         native_built = native_build.result() if native_build else None
-    krows, host_us, masks, edges, tp_rows, option_rows = run("kernels", phase_kernels, card)
+    k = run("kernels", phase_kernels, card)
+    krows, tp_rows, option_rows, packed_rows = (k["rows"], k["tp_rows"], k["option_rows"],
+                                                k["packed_rows"])
+    kernel_json = dict(kernels=krows, tp_kernels=tp_rows, option_kernels=option_rows,
+                       packed_kernels=packed_rows, dropout_masks=k["masks"],
+                       forward_edges=k["edges"], host_us_per_call=k["host_us"],
+                       kernel_part_seconds=k["part_seconds"])
     if kernels_only:                   # quick check of a kernel change
         OUT_JSON.parent.mkdir(parents=True, exist_ok=True)
         OUT_JSON.write_text(json.dumps(dict(card=card, build_s=build_s, ptxas=ptxas,
-                                            kernels=krows, tp_kernels=tp_rows,
-                                            option_kernels=option_rows,
-                                            dropout_masks=masks, forward_edges=edges,
-                                            host_us_per_call=host_us), indent=1))
+                                            **kernel_json), indent=1))
         return 0
     profile = "--profile" in argv
     if WORK.exists():
@@ -4787,25 +5059,26 @@ def main(argv):
     tp_cross = run("tp_crosscheck", phase_tp_crosscheck, card, during=trunk_options)
     options = nested.pop("result")
     tp_train = run("tp_train", phase_tp_train, card)
+    packed = run("packed", phase_packed, card, train_res)
     dp_paths = {f"dp_train_{k}": dict(launches=v) for k, v in dp_train["launches"].items()}
     dp_paths.update({f"dp_predict_{k}": dict(launches=v)
                      for k, v in dp_predict["launches"].items()})
     dp_paths.update({f"tp_{cli}_{k}": dict(launches=v)
                      for cli in ("pretrain", "finetune", "train_concap_struc")
                      for k, v in tp_train[f"{cli}_launches"].items()})
+    dp_paths.update({f"packed_pretrain_{k}": dict(launches=v["launches"])
+                     for k, v in packed["pretrain"].items() if k != "off"})
+    dp_paths["packed_finetune"] = dict(launches=packed["finetune"]["launches"])
     summary = summarize(krows, dict(serve=slice_res, pretrain=train_res, finetune=ft_res,
                                     resume=resume, chain=chain, wire=wire, cache=cache,
                                     extract=extract, **dp_paths, legacy_extract=legacy_extract,
                                     legacy_readme=legacy["readme"],
                                     legacy_defaults=legacy["defaults"],
                                     legacy_raw=legacy["raw"]), legacy, tp_rows,
-                        option_rows)
+                        option_rows, packed_rows)
     OUT_JSON.parent.mkdir(parents=True, exist_ok=True)
     OUT_JSON.write_text(json.dumps(dict(card=card, build_s=build_s, ptxas=ptxas,
-                                        kernels=krows, tp_kernels=tp_rows,
-                                        dropout_masks=masks,
-                                        forward_edges=edges, host_us_per_call=host_us,
-                                        slice=slice_res, crosscheck_worst=cross,
+                                        **kernel_json, slice=slice_res, crosscheck_worst=cross,
                                         train=train_res, train_crosscheck=train_cross,
                                         finetune=ft_res, finetune_crosscheck=ft_cross,
                                         native=native, resume=resume, chain=chain, wire=wire,
@@ -4814,8 +5087,8 @@ def main(argv):
                                         dp_train=dp_train, dp_crosscheck=dp_cross,
                                         dp_predict=dp_predict, legacy_extract=legacy_extract,
                                         legacy_train=legacy, tp_crosscheck=tp_cross,
-                                        tp_train=tp_train, option_kernels=option_rows,
-                                        trunk_options=options, phase_seconds=seconds,
+                                        tp_train=tp_train, trunk_options=options,
+                                        packed=packed, phase_seconds=seconds,
                                         nested_phase_seconds=nested,
                                         summary=summary), indent=1, default=float))
     log(f"phase seconds {({k: round(v, 1) for k, v in seconds.items()})}, "

@@ -78,11 +78,20 @@ class K3MConfig:
     use_pallas_ln: bool = True    # TPU lever; accepted, not read by the port
     fix_reference_bugs: bool = False
     remat: bool = True            # TPU lever; accepted, not read by the port
-    packed_passes: bool = False   # not supported by the port yet
+    packed_passes: bool = False   # run the three passes in one schedule: each
+                                  # text layer once over the packed rows of
+                                  # the four text streams, the image stack
+                                  # once at 2B rows (model/encoder.py); the
+                                  # same math, other dropout draws; bypassed
+                                  # under in_batch_pairs and fast_mode
     ce_chunk: int = 64
     shared_prefix: bool = False   # run text layers [0, t_biattention_id[0])
                                   # once per stream instead of once per pass
-    fused_qkv: bool = False       # not supported by the port yet
+    fused_qkv: bool = False       # each attention site's Q/K/V (each co-
+                                  # attention stream's three) as one
+                                  # projection over the concatenated weights
+                                  # (model/layers.py fused_dense); the same
+                                  # math and state dict
 
     def __post_init__(self):
         if len(self.v_biattention_id) != len(self.t_biattention_id):

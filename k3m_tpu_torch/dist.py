@@ -27,7 +27,9 @@ forward; `window(n)` gives (this rank's first global row, the global rows)
 for a tensor whose dim 0 is those rows, and raises for any other leading
 size, so a tensor of some other layout (two items stacked into 2B rows,
 rows flattened with positions) cannot be taken for the batch; the
-in_batch_pairs rows enter by name (`pair_rows`). With no
+in_batch_pairs rows enter by name (`pair_rows`), and so do the copies of
+the batch that packed_passes stacks into one image stack (`stacked`,
+whose rows `windows` gives as one slice of the global rows per copy). With no
 world active, or a world of one, the model runs the one-process code and
 keeps its numbers bit for bit.
 
@@ -364,6 +366,7 @@ def model_max(x: torch.Tensor, n_model: int, world: Optional[World] = None) -> t
 
 _ONE = World()
 _ACTIVE: contextvars.ContextVar = contextvars.ContextVar("k3m_world", default=None)
+_STACKED: contextvars.ContextVar = contextvars.ContextVar("k3m_stacked", default=1)
 
 
 @contextlib.contextmanager
@@ -397,22 +400,57 @@ def pair_rows(rows: int):
         _ACTIVE.reset(token)
 
 
+@contextlib.contextmanager
+def stacked(copies: int):
+    """The image rows of `packed_passes` (k3m_tpu/model/encoder.py:199-202)
+    for the enclosed code: a tensor whose dim 0 is `copies` copies of this
+    rank's batch rows, one after another, is read as copy h's row b at
+    global row h * G + row0 + b (G the global batch rows, row0 this rank's
+    first), so that N ranks draw for each copy what one process draws for
+    it (`windows`). The batch rows themselves keep their window."""
+    token = _STACKED.set(int(copies))
+    try:
+        yield
+    finally:
+        _STACKED.reset(token)
+
+
 def current() -> World:
     """The active world; a world of one where none is active."""
     active = _ACTIVE.get()
     return _ONE if active is None else active[0]
 
 
+def windows(rows: int) -> Tuple[List[Tuple[int, int]], int]:
+    """([(first global row, rows), ...], global rows) for a tensor whose dim
+    0 is this rank's `rows` batch rows, laid out in data order (one slice),
+    or, under `stacked(k)`, k copies of them (one slice per copy, adjacent
+    slices merged: one slice in a world of one data rank). Raises for any
+    other leading size."""
+    active = _ACTIVE.get()
+    if active is None:
+        return [(0, rows)], rows
+    world, batch = active
+    copies = _STACKED.get()
+    row0, total = world.data_rank * batch, world.data_size * batch
+    if rows == batch:
+        return [(row0, rows)], total
+    if copies > 1 and rows == copies * batch:
+        if world.data_size == 1:
+            return [(0, rows)], rows
+        return [(h * total + row0, batch) for h in range(copies)], copies * total
+    raise ValueError(f"dim 0 of {rows} rows is not this rank's batch of {batch} "
+                     "rows: a draw or gather over the batch needs the batch "
+                     "on dim 0 (k3m_tpu_torch/dist.py)")
+
+
 def window(rows: int) -> Tuple[int, int]:
     """(first global row of this rank, global rows) for a tensor whose dim
     0 is this rank's `rows` batch rows, laid out in data order. Raises if
-    `rows` is not the batch rows that `use` made active."""
-    active = _ACTIVE.get()
-    if active is None:
-        return 0, rows
-    world, batch = active
-    if rows != batch:
-        raise ValueError(f"dim 0 of {rows} rows is not this rank's batch of {batch} "
-                         "rows: a draw or gather over the batch needs the batch "
-                         "on dim 0 (k3m_tpu_torch/dist.py)")
-    return world.data_rank * rows, world.data_size * rows
+    `rows` is not the batch rows that `use` made active, or is copies of
+    them (`stacked`) that are not one slice of the global rows."""
+    spans, total = windows(rows)
+    if len(spans) != 1:
+        raise ValueError(f"dim 0 of {rows} rows holds {len(spans)} copies of the batch, "
+                         "which are not one slice of the global rows (dist.windows)")
+    return spans[0][0], total

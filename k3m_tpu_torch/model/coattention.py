@@ -29,7 +29,7 @@ from k3m_tpu_torch.model import random as k3m_random
 from k3m_tpu_torch.model import visualize
 from k3m_tpu_torch.model.layers import (
     Dense, DenseLayerNorm, HeadParallel, LayerNorm, Linear, act_fn, compute_dtype, dropout,
-    merge_heads, split_heads, unfused_attention,
+    fused_dense, merge_heads, split_heads, unfused_attention,
 )
 from k3m_tpu_torch import dist
 
@@ -42,15 +42,19 @@ class BiAttention(HeadParallel, nn.Module):
     parallelism see layers.HeadParallel (both directions alike). Under
     `visualization` each direction runs `unfused_attention` and records
     its probabilities as the JAX package sows them: `attn1` (stream-2
-    queries over stream 1), `attn2` (the reverse)."""
+    queries over stream 1), `attn2` (the reverse). Under `fused_qkv` each
+    stream's three projections are one (layers.fused_dense,
+    k3m_tpu/model/coattention.py:50-59), and the kernel reads q/k/v as
+    views of it."""
 
     def __init__(self, size1: int, size2: int, bi_size: int, num_heads: int,
                  dropout1: float = 0.0, dropout2: float = 0.0,
-                 visualization: bool = False):
+                 visualization: bool = False, fused_qkv: bool = False):
         super().__init__()
         self.num_heads = num_heads
         self.dropout1, self.dropout2 = dropout1, dropout2
         self.visualization = visualization
+        self.fused_qkv = fused_qkv
         self.query1 = Linear(size1, bi_size)
         self.key1 = Linear(size1, bi_size)
         self.value1 = Linear(size1, bi_size)
@@ -61,9 +65,13 @@ class BiAttention(HeadParallel, nn.Module):
     def forward(self, x1, bias1, x2, bias2, deterministic: bool = True):
         h = self.run_heads
         x1, x2 = dist.copy_to_model(x1, self.tp), dist.copy_to_model(x2, self.tp)
-        s = lambda lin, x: split_heads(self.gather_heads(lin(x)), h)
-        q1, k1, v1 = s(self.query1, x1), s(self.key1, x1), s(self.value1, x1)
-        q2, k2, v2 = s(self.query2, x2), s(self.key2, x2), s(self.value2, x2)
+        if self.fused_qkv:
+            p1 = fused_dense(x1, (self.query1, self.key1, self.value1))
+            p2 = fused_dense(x2, (self.query2, self.key2, self.value2))
+        else:
+            p1 = (self.query1(x1), self.key1(x1), self.value1(x1))
+            p2 = (self.query2(x2), self.key2(x2), self.value2(x2))
+        q1, k1, v1, q2, k2, v2 = (split_heads(self.gather_heads(t), h) for t in p1 + p2)
         if self.visualization:
             ctx1, probs1 = unfused_attention(q2, k1, v1, bias1, self.dropout1, deterministic)
             ctx2, probs2 = unfused_attention(q1, k2, v2, bias2, self.dropout2, deterministic)
@@ -106,7 +114,7 @@ class _Connection(nn.Module):
                                        cfg.bi_num_attention_heads,
                                        cfg.v_attention_probs_dropout_prob,
                                        cfg.attention_probs_dropout_prob,
-                                       cfg.visualization)
+                                       cfg.visualization, cfg.fused_qkv)
         self.biOutput = BiOutput(bi_size, size1, H, dt)
         self.v_intermediate = Dense(size1, inter1)
         self.v_output = DenseLayerNorm(inter1, size1, dt)

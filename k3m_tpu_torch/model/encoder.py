@@ -24,18 +24,44 @@ and t<->pv passes (k3m_tpu/model/encoder.py:122-133, 155-166):
     stream's batch (a text batch of 1 against B images or pvs).
 At the model level the fusion block concatenates the encoder's rows with
 the embeddings' b rows and fails where they differ, in both packages.
+
+`packed_passes` (k3m_tpu/model/encoder.py:178-254) runs the three passes
+in one schedule where neither option above is set (encoder.py:264): the
+four text streams [t, pv, t, pv] (t<->v's text, pv<->v's text, t<->pv's
+two sides; [t, pv] without the image) go through each segment of the text
+stack as one `Packed` set of rows, and the image stack runs once over
+[img; img] at 2B rows (pass t<->v's image, then pass pv<->v's), gated,
+under dynamic_attention, on the two passes' text padded to one length
+and concatenated along the batch. The co-attention blocks take each
+pass's streams apart as before. It ignores `shared_prefix`, as the JAX
+package's does, and it runs the text layers after the last co-attention
+block before the image layers after it (encoder.py:244-247), where the
+sequential passes run those image layers first (:143-146): under
+dynamic_attention they are gated on the text after the last text layer,
+not before it, so there the packed schedule is the JAX package's packed
+schedule, not its sequential passes. Its draws: the packed text rows'
+hidden dropout bits are drawn with the batch on dim 0
+(layers.packed_bits); the image stack's rows are two copies of the batch
+(`dist.stacked`), copy h's row b numbered h * G + row0 + b among G global
+rows, in its dropout bits and its attention masks (one kernel call for
+both copies in a world of one data rank, one per copy under data
+parallelism). So N data ranks draw, bit for bit, what one process draws
+for the global batch; the draws differ from the sequential passes' (as
+the JAX package's do).
 """
 
 from __future__ import annotations
 
 import contextlib
 
+import torch
+import torch.nn.functional as F
 from torch import nn
 
 from k3m_tpu_torch import dist
 from k3m_tpu_torch.config import K3MConfig
 from k3m_tpu_torch.model.coattention import ConnectionLayer, ConnectionLayerTwoText
-from k3m_tpu_torch.model.layers import ImageLayer, TextLayer
+from k3m_tpu_torch.model.layers import ImageLayer, Packed, TextLayer
 
 
 def pair_streams(txt, txt_bias, other, other_bias):
@@ -73,9 +99,6 @@ def broadcast_text(txt, txt_bias, rows: int):
 class TriStreamEncoder(nn.Module):
     def __init__(self, cfg: K3MConfig):
         super().__init__()
-        for flag in ("packed_passes", "fused_qkv"):
-            if getattr(cfg, flag):
-                raise NotImplementedError(f"{flag} is not ported yet")
         self.cfg = cfg
         n_co = cfg.num_coattention_layers
         self.layer = nn.ModuleList(TextLayer(cfg) for _ in range(cfg.num_hidden_layers))
@@ -96,6 +119,19 @@ class TriStreamEncoder(nn.Module):
             if idx < self.cfg.fixed_t_layer:
                 x = x.detach()
         return x
+
+    def _run_text_packed(self, xs, biases, start: int, end: int, det: bool):
+        """Text layers [start, end) over the streams `xs` at once, as
+        `Packed` rows (biases: one per stream); returns the streams, views
+        of the last layer's rows."""
+        if start == end:
+            return list(xs)
+        p = Packed.pack(xs)
+        for idx in range(start, end):
+            p = self.layer[idx](p, biases, det)
+            if idx < self.cfg.fixed_t_layer:
+                p = Packed(p.rows.detach(), p.shapes)
+        return list(p.unpack())
 
     def _run_image(self, x, bias, txt, txt_mask2, start: int, end: int, det: bool):
         for idx in range(start, end):
@@ -156,12 +192,68 @@ class TriStreamEncoder(nn.Module):
             txt = self._run_text(txt, txt_bias, t_start, cfg.num_hidden_layers, det)
         return txt, pv
 
+    def _fused_passes(self, txt_emb, img_emb, txt_bias, txt_mask2, img_bias,
+                      pv_emb, pv_bias, pv_mask2, det: bool):
+        """The three passes in one schedule (packed_passes; module
+        docstring): the sequential passes' outputs, but for the image
+        layers' gates under dynamic_attention."""
+        cfg = self.cfg
+        use_img = cfg.use_image
+        streams = [txt_emb, pv_emb, txt_emb, pv_emb] if use_img else [txt_emb, pv_emb]
+        biases = (txt_bias, pv_bias) * (len(streams) // 2)
+        if use_img:
+            img2 = torch.cat([img_emb, img_emb])
+            img_bias2 = torch.cat([img_bias, img_bias])
+
+        def txt_gates():
+            # each image copy gates on its own pass's current text (t, pv):
+            # both padded to one length (the mask keeps the pooling exact)
+            if not cfg.dynamic_attention:
+                return None, None
+            L = max(streams[0].shape[1], streams[1].shape[1])
+            pad = lambda a: F.pad(a, (0, 0, 0, L - a.shape[1]))
+            return (torch.cat([pad(streams[0]), pad(streams[1])]),
+                    torch.cat([pad(txt_mask2), pad(pv_mask2)]))
+
+        v_start = t_start = 0
+        with dist.stacked(2):
+            for count, (v_end, t_end) in enumerate(
+                    zip(cfg.v_biattention_id, cfg.t_biattention_id)):
+                streams = self._run_text_packed(streams, biases, t_start, t_end, det)
+                if use_img:
+                    img2 = self._run_image(img2, img_bias2, *txt_gates(), v_start, v_end, det)
+                if cfg.with_coattention:
+                    if use_img:
+                        img_a, img_b = img2.chunk(2)
+                        img_a, streams[0] = self.c_layer[count](
+                            img_a, img_bias, streams[0], txt_bias, det)
+                        img_b, streams[1] = self.c_layer_pv_v[count](
+                            img_b, img_bias, streams[1], pv_bias, det)
+                        img2 = torch.cat([img_a, img_b])
+                        streams[3], streams[2] = self.c_layer_pv_t[count](
+                            streams[3], pv_bias, streams[2], txt_bias, det)
+                    else:
+                        streams[1], streams[0] = self.c_layer_pv_t[count](
+                            streams[1], pv_bias, streams[0], txt_bias, det)
+                v_start, t_start = v_end, t_end
+            streams = self._run_text_packed(streams, biases, t_start, cfg.num_hidden_layers,
+                                            det)
+            if not use_img:
+                return None, None, None, None, streams[0], streams[1]
+            img2 = self._run_image(img2, img_bias2, *txt_gates(), v_start,
+                                   cfg.v_num_hidden_layers, det)
+        v_with_t, v_with_pv = img2.chunk(2)
+        return streams[0], v_with_t, streams[1], v_with_pv, streams[2], streams[3]
+
     def forward(self, txt_emb, img_emb, txt_bias, txt_mask2, img_bias,
                 pv_emb, pv_bias, pv_mask2, deterministic: bool = True):
         """Returns (t_with_v, v_with_t, pv_with_v, v_with_pv, t_with_pv,
         pv_with_t); the first four are None when use_image=False."""
         cfg = self.cfg
         det = deterministic
+        if cfg.packed_passes and not (cfg.in_batch_pairs or cfg.fast_mode):
+            return self._fused_passes(txt_emb, img_emb, txt_bias, txt_mask2, img_bias,
+                                      pv_emb, pv_bias, pv_mask2, det)
         # shared_prefix: text layers [0, t_biattention_id[0]) see no
         # co-attention in any pass, so each stream's prefix is computed once
         pre = 0

@@ -14,6 +14,15 @@ weights; serving may cast the Linear weights once instead (`cast_linears`).
 Embedding tables and LayerNorm scale/bias stay fp32. Additive masks are
 fp32 [B, L] key biases ((1 - mask) * -10000).
 
+Two options of the config change how the rows meet the weights, not the
+math per row (the JAX package's k3m_tpu/model/layers.py:179-263):
+`fused_qkv` computes each attention site's Q/K/V as one `F.linear` over
+the concatenated `query`/`key`/`value` weights (`fused_dense`; the Linear
+modules stay, so the state dict is the same), and `packed_passes` hands the
+text layers `Packed` rows of several streams: every projection, FFN,
+dropout and LayerNorm runs once over all of them, attention per stream
+(TextLayer, SelfAttention).
+
 Under `config.visualization` every attention site runs the unfused
 attention in torch ops instead of the attention kernels and records its
 probabilities (model/visualize.py), as the JAX package's unfused path
@@ -123,20 +132,41 @@ def init_weights(model: nn.Module, seed: int, std: float) -> nn.Module:
     return model
 
 
-def dropout(x, rate: float, deterministic: bool):
+def dropout(x, rate: float, deterministic: bool, shapes=None):
     """The JAX package's dropout (k3m_tpu/model/layers.py:89-108): uint8
     random bits (drawn for the global batch, `rows_randint`) against a
     threshold, so the keep probability is quantized
     to k/256, and kept values scaled by the exact quantized 1/keep (in x's
-    dtype, as the JAX package multiplies)."""
+    dtype, as the JAX package multiplies). With `shapes`, x is the packed
+    rows of streams of those (B, L_i) shapes (`Packed`) and the bits are
+    `packed_bits`."""
     if deterministic or rate <= 0.0:
         return x
     t = min(max(int(round(rate * 256.0)), 1), 255)
     keep_prob = (256 - t) / 256.0
-    bits = k3m_random.rows_randint(k3m_random.active().dropout, 256, x.shape, x.device,
-                                   torch.uint8)
+    gen = k3m_random.active().dropout
+    if shapes is None:
+        bits = k3m_random.rows_randint(gen, 256, x.shape, x.device, torch.uint8)
+    else:
+        bits = packed_bits(gen, shapes, x.shape[-1], x.device)
     scale = torch.tensor(1.0 / keep_prob, dtype=x.dtype, device=x.device)
     return x * (bits >= t).to(x.dtype) * scale
+
+
+def packed_bits(generator, shapes, width: int, device):
+    """uint8 dropout bits of the packed rows of streams of `shapes` (B,
+    L_i), all of batch B: drawn as one [B, sum L_i, width] tensor with the
+    batch on dim 0 (`rows_randint`: the global batch's bits, this rank's
+    rows), then reordered into packed order (stream i's B * L_i rows after
+    those of the streams before it). So N data ranks drop what one process
+    drops for their concatenated batch, as for a single stream."""
+    B = shapes[0][0]
+    if any(b != B for b, _ in shapes):
+        raise ValueError(f"packed streams of different batches {shapes}")
+    lengths = [L for _, L in shapes]
+    bits = k3m_random.rows_randint(generator, 256, (B, sum(lengths), width), device,
+                                   torch.uint8)
+    return torch.cat([part.reshape(-1, width) for part in bits.split(lengths, dim=1)])
 
 
 class LayerNorm(nn.Module):
@@ -188,10 +218,71 @@ def attention_core(q, k, v, bias, dropout_rate: float = 0.0,
     drawing the mask of heads head0 .. head0 + H - 1 of `heads_global`."""
     if deterministic or dropout_rate <= 0.0:
         return fused_attention(q, k, v, bias)
-    return fused_attention(q, k, v, bias, dropout_rate=dropout_rate,
-                           seed=k3m_random.active().kernel_seed(),
-                           row0=dist.window(q.shape[0])[0], head0=head0,
-                           heads_global=heads_global)
+    # one call per slice of the global rows: one, but two for the image
+    # stack of packed_passes under data parallelism (dist.stacked), whose
+    # copies' rows are not adjacent there; one seed for all of them
+    seed = k3m_random.active().kernel_seed()
+    outs, o = [], 0
+    for row0, n in dist.windows(q.shape[0])[0]:
+        outs.append(fused_attention(q[o:o + n], k[o:o + n], v[o:o + n], bias[o:o + n],
+                                    dropout_rate=dropout_rate, seed=seed, row0=row0,
+                                    head0=head0, heads_global=heads_global))
+        o += n
+    return outs[0] if len(outs) == 1 else torch.cat(outs)
+
+
+def pack_rows(xs):
+    """Streams [B, L_i, H] -> ([sum B * L_i, H] rows, ((B, L_i), ...))
+    (k3m_tpu/model/layers.py:179-189)."""
+    shapes = tuple((x.shape[0], x.shape[1]) for x in xs)
+    return torch.cat([x.reshape(-1, x.shape[-1]) for x in xs]), shapes
+
+
+def unpack_rows(rows, shapes):
+    """The streams of `pack_rows`' rows as [B, L_i, F] views (F the rows'
+    last dim, which may differ from the packed input's; rows may be a view
+    with a row stride, as a column slice of one fused projection is)."""
+    outs, o = [], 0
+    for b, l in shapes:
+        outs.append(rows[o:o + b * l].view(b, l, rows.shape[-1]))
+        o += b * l
+    return tuple(outs)
+
+
+class Packed:
+    """Row-packed streams (k3m_tpu/model/layers.py:192-226): `rows`
+    [sum B * L_i, H] and the streams' (B, L_i) `shapes`. Text layers take
+    and return it, so the rows stay packed across a segment of layers and
+    are copied only where it starts (`pack`) and viewed where it ends
+    (`unpack`)."""
+
+    def __init__(self, rows, shapes):
+        self.rows = rows
+        self.shapes = tuple(tuple(s) for s in shapes)
+
+    @classmethod
+    def pack(cls, xs):
+        return cls(*pack_rows(tuple(xs)))
+
+    def unpack(self):
+        return unpack_rows(self.rows, self.shapes)
+
+
+def fused_dense(x, linears):
+    """The outputs of the same-input `linears` from one `F.linear` over
+    their concatenated weights and biases (k3m_tpu/model/layers.py:248-263,
+    `fused_qkv`): the concatenation is made at each call, as the JAX
+    package makes it at apply time, and cast to the compute dtype once, so
+    the Linear modules keep their parameters (the state dict, checkpoint
+    conversion and train/mesh.py's rules see no difference) and their
+    gradients. Under tensor parallelism each Linear holds this rank's
+    columns, and so does the product. Returns column views of one
+    [..., sum of the widths] tensor, each with that row stride."""
+    first = linears[0]
+    dt = first.compute_dtype or first.weight.dtype
+    w = torch.cat([m.weight for m in linears]).to(dt)
+    b = torch.cat([m.bias for m in linears]).to(dt)
+    return F.linear(x.to(dt), w, b).split([m.weight.shape[0] for m in linears], dim=-1)
 
 
 def split_heads(x, num_heads: int):
@@ -228,8 +319,9 @@ class DenseLayerNorm(nn.Module):
         self.dense = Linear(n_in, n_out)
         self.LayerNorm = LayerNorm(n_out, out_dtype)
 
-    def forward(self, h, residual, rate: float = 0.0, deterministic: bool = True):
-        return self.LayerNorm(dropout(self.dense(h), rate, deterministic), residual)
+    def forward(self, h, residual, rate: float = 0.0, deterministic: bool = True,
+                shapes=None):
+        return self.LayerNorm(dropout(self.dense(h), rate, deterministic, shapes), residual)
 
 
 class BertEmbeddings(nn.Module):
@@ -359,7 +451,16 @@ class SelfAttention(HeadParallel, nn.Module):
     Under tensor parallelism see HeadParallel; the replicated gates are
     sliced to this rank's columns. Under `config.visualization` it runs
     `unfused_attention` and records its probabilities
-    (`attention_probs`, model/visualize.py)."""
+    (`attention_probs`, model/visualize.py), one map per stream.
+
+    `x` is one [B, L, hidden] stream, or `Packed` rows of several streams
+    (`bias` then a tuple, one per stream; no gates): Q/K/V are projected
+    once over all the rows and each stream attends over its own [B, L_i,
+    H, D] views at its row offset; the contexts come back packed. Under
+    `fused_qkv` the three projections are one (`fused_dense`), and q/k/v
+    are views at row stride 3 * hidden of its output (under tensor
+    parallelism 3 * the rank's columns; where the heads do not divide the
+    model ranks each of Q/K/V is gathered apart)."""
 
     def __init__(self, cfg: K3MConfig, hidden: int, num_heads: int,
                  attn_dropout: float, gated: bool = False):
@@ -367,6 +468,7 @@ class SelfAttention(HeadParallel, nn.Module):
         self.num_heads = num_heads
         self.attn_dropout = attn_dropout
         self.visualization = cfg.visualization
+        self.fused_qkv = cfg.fused_qkv
         self.query = Linear(hidden, hidden)
         self.key = Linear(hidden, hidden)
         self.value = Linear(hidden, hidden)
@@ -375,14 +477,28 @@ class SelfAttention(HeadParallel, nn.Module):
             self.dyLinear_k = Linear(cfg.hidden_size, hidden)
 
     def forward(self, x, bias, gate_q=None, gate_k=None, deterministic: bool = True):
-        x = dist.copy_to_model(x, self.tp)
-        q, k, v = self.query(x), self.key(x), self.value(x)
+        packed = isinstance(x, Packed)
+        rows = dist.copy_to_model(x.rows if packed else x, self.tp)
+        if self.fused_qkv:
+            q, k, v = fused_dense(rows, (self.query, self.key, self.value))
+        else:
+            q, k, v = self.query(rows), self.key(rows), self.value(rows)
+        if packed:
+            if gate_q is not None or gate_k is not None:
+                raise ValueError("QK gating is single-stream (image layers)")
+            streams = zip(*(unpack_rows(self.gather_heads(t), x.shapes) for t in (q, k, v)),
+                          bias)
+            return Packed.pack([self._attend(*s, deterministic) for s in streams])
         if gate_q is not None:
             q = q * self.local_columns(gate_q)[:, None, :]
         if gate_k is not None:
             k = k * self.local_columns(gate_k)[:, None, :]
+        return self._attend(*(self.gather_heads(t) for t in (q, k, v)), bias, deterministic)
+
+    def _attend(self, q, k, v, bias, deterministic):
+        """The context [B, L, width] of one stream's projections [B, L, *]."""
         h = self.run_heads
-        q, k, v = (split_heads(self.gather_heads(t), h) for t in (q, k, v))
+        q, k, v = (split_heads(t, h) for t in (q, k, v))
         if self.visualization:
             ctx, probs = unfused_attention(q, k, v, bias, self.attn_dropout, deterministic)
             visualize.record(self, "attention_probs", probs)
@@ -411,7 +527,10 @@ class Attention(nn.Module):
 
 
 class TextLayer(nn.Module):
-    """BertLayer: self-attention + output + FFN, post-LN (ref :535-548)."""
+    """BertLayer: self-attention + output + FFN, post-LN (ref :535-548).
+    `x` may be `Packed` rows of several streams (`bias` a tuple): the
+    attention-out Linear, its dropout and LN, and the FFN then run once
+    over all the rows, which stay packed (k3m_tpu/model/layers.py:425-462)."""
 
     def __init__(self, cfg: K3MConfig):
         super().__init__()
@@ -425,9 +544,12 @@ class TextLayer(nn.Module):
 
     def forward(self, x, bias, deterministic: bool = True):
         det = deterministic
-        a = self.attention.output(self.attention.self(x, bias, deterministic=det), x,
-                                  self.rate, det)
-        return self.output(self.act(self.intermediate(a)), a, self.rate, det)
+        packed = isinstance(x, Packed)
+        rows, shapes = (x.rows, x.shapes) if packed else (x, None)
+        ctx = self.attention.self(x, bias, deterministic=det)
+        a = self.attention.output(ctx.rows if packed else ctx, rows, self.rate, det, shapes)
+        out = self.output(self.act(self.intermediate(a)), a, self.rate, det, shapes)
+        return Packed(out, shapes) if packed else out
 
 
 class ImageLayer(nn.Module):

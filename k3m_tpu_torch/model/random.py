@@ -57,21 +57,28 @@ class StepRandom:
         return int(torch.randint(0, 2 ** 31 - 1, (), generator=self._seeds))
 
 
+def _rows(full: torch.Tensor, spans) -> torch.Tensor:
+    if len(spans) == 1:
+        row0, n = spans[0]
+        return full[row0:row0 + n]
+    return torch.cat([full[row0:row0 + n] for row0, n in spans])
+
+
 def rows_rand(generator: torch.Generator, shape, device) -> torch.Tensor:
     """Uniform [0, 1) noise of `shape` [B, ...] for this rank's B rows of
-    the active world's global batch: drawn for every row, then sliced."""
-    row0, total = dist.window(shape[0])
-    full = torch.rand((total,) + tuple(shape[1:]), device=device, generator=generator)
-    return full[row0:row0 + shape[0]]
+    the active world's global batch: drawn for every row, then sliced (for
+    the copies of the batch that `dist.stacked` names, one slice a copy)."""
+    spans, total = dist.windows(shape[0])
+    return _rows(torch.rand((total,) + tuple(shape[1:]), device=device,
+                            generator=generator), spans)
 
 
 def rows_randint(generator: torch.Generator, high: int, shape, device,
                  dtype=torch.int64) -> torch.Tensor:
     """Integers in [0, high) of `shape` [B, ...], drawn as `rows_rand`."""
-    row0, total = dist.window(shape[0])
-    full = torch.randint(0, high, (total,) + tuple(shape[1:]), dtype=dtype,
-                         device=device, generator=generator)
-    return full[row0:row0 + shape[0]]
+    spans, total = dist.windows(shape[0])
+    return _rows(torch.randint(0, high, (total,) + tuple(shape[1:]), dtype=dtype,
+                               device=device, generator=generator), spans)
 
 
 @contextlib.contextmanager

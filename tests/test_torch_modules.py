@@ -235,10 +235,3 @@ def test_structure_aggregator_matches(fix_bugs):
     ref, _ = jm.apply({"params": p}, c0, seq, index_p, index_v)
     assert none is None
     close(got, ref)
-
-
-@pytest.mark.parametrize("flag", ["packed_passes", "fused_qkv"])
-def test_unported_options_are_refused_by_name(flag):
-    from k3m_tpu_torch.model.pretrain import K3MTrunk
-    with pytest.raises(NotImplementedError, match=flag):
-        K3MTrunk(torch_config(NANO).replace(**{flag: True}))

@@ -226,7 +226,21 @@ a failure:
      of one profiled step, peak memory, beside phase 6's run without them;
      (d) `finetune --do_train` (bert_base_6layer_6conect, batch 32) with
      both flags, 5 steps, reported the same way;
- 26. print the kernel summary line and the final device line.
+ 26. grain (ArrayRecord files and the grain backend): (a) phase 6's 864
+     records written to an .array_record by the port's writer (seconds,
+     MB beside the .k3mr's) and read back, every payload byte for byte the
+     K3MR reader's; libzstd's version and where it was found; (b)
+     GrainPretrainLoader at batch 96, shuffled: its first 4 batches made
+     in-process, by 2 spawned worker processes and by the native hybrid
+     (the .k3mr sibling) byte for byte equal, each producer's samples/s
+     over batches 2-4 and the first batch's seconds; (c) `python
+     -m k3m_tpu_torch.pretrain --bf16 --use_image --train_batch_size 96
+     --data_backend grain --num_workers 2` (k3m_roberta_base) for 5 steps
+     on an .array_record with no sibling: finite losses, every kernel
+     counter at the count the config gives, samples/s, step ms, launch
+     calls and busy ms of one profiled step beside phase 6's run (a
+     reading, not a claim);
+ 27. print the kernel summary line and the final device line.
 
 Phases 17-19 and 22-23 run their ranks as `python3 chip_smoke.py
 --dp-worker <spec>` processes (logs in chiprun_out/dp_*.log); a rank that
@@ -4762,12 +4776,13 @@ def _packed_vs_sequential(card, flags, dev="cuda"):
                 grads=_hold(what, runs["sequential"][1], runs["flags"][1], "gradient", card))
 
 
-def _flag_run(card, what, main, argv, cfg, expected_of, unit, profile_batch):
-    """One CLI run of `main(argv)` (PACKED_STEPS steps): finite losses,
-    every kernel counter equal to `expected_of(steps)`, `unit`/s and step
-    ms over the steps after the first, peak memory; then one more step of
-    its trainer on `profile_batch(trainer)` under the profiler: launch
-    calls and busy ms."""
+def _flag_run(card, what, main, argv, cfg, expected_of, unit, profile_batch,
+              producer="native"):
+    """One CLI run of `main(argv)` (PACKED_STEPS steps) on the `producer`
+    it must train on: finite losses, every kernel counter equal to
+    `expected_of(steps)`, `unit`/s and step ms over the steps after the
+    first, peak memory; then one more step of its trainer on
+    `profile_batch(trainer)` under the profiler: launch calls and busy ms."""
     from k3m_tpu_torch import kernels
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -4776,7 +4791,9 @@ def _flag_run(card, what, main, argv, cfg, expected_of, unit, profile_batch):
     torch.cuda.synchronize()
     counts = kernels.launch_counts()
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    _require_native(run, what)
+    if run["producer"] != producer:
+        raise AssertionError(f"{what}: the train loader ran the {run['producer']} producer, "
+                             f"not the {producer} one")
     (hist,) = run["history"]
     steps = len(hist["step_seconds"])
     if steps != PACKED_STEPS:
@@ -4798,11 +4815,13 @@ def _flag_run(card, what, main, argv, cfg, expected_of, unit, profile_batch):
     log_busy_share(what, prof["busy_ms"], step_ms, card)
     if hist.get("checkpoint_path"):
         shutil.rmtree(hist["checkpoint_path"], ignore_errors=True)
+    loader = run.get("loader")
     del run, trainer, batch
     torch.cuda.empty_cache()
     return {f"{unit}_per_s": rate, "step_ms": step_ms, "first_step_ms":
             1e3 * hist["step_seconds"][0], "peak_gib": peak, "launches": counts,
-            "busy_ms": prof["busy_ms"], "host_launch_calls": prof["host_launch_calls"],
+            "loader": loader, "busy_ms": prof["busy_ms"],
+            "host_launch_calls": prof["host_launch_calls"],
             "idle_share": prof["idle_share"], "profile_complete": prof["complete"]}
 
 
@@ -4877,6 +4896,138 @@ def phase_packed(card, train_res):
             f"profiled step, peak {r['peak_gib']:.2f} GiB ({r['steps']} steps) | {card}")
     out["part_seconds"] = seconds
     log(f"packed: part seconds { {k: round(v, 1) for k, v in seconds.items()} }")
+    return out
+
+
+GRAIN_BATCHES = 4          # (b): the first batches each producer makes
+GRAIN_WORKERS = 2          # (b), (c): --num_workers of the per-record path
+
+
+def _grain_producer(loader, what, card):
+    """The first GRAIN_BATCHES batches of one epoch of `loader`, its
+    samples/s over all but the first (whose seconds hold the workers'
+    start-up) and the first's seconds."""
+    t0 = time.perf_counter()
+    it = iter(loader)
+    batches = [next(it)]
+    first_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    batches += [next(it) for _ in range(GRAIN_BATCHES - 1)]
+    rate = (GRAIN_BATCHES - 1) * loader.batch_size / (time.perf_counter() - t0)
+    del it
+    loader.close()
+    log(f"grain (b) {what}: {rate:.2f} samples/s over batches 2-{GRAIN_BATCHES} of "
+        f"{loader.batch_size}, the first in {first_s:.2f} s (host, the loader alone) | {card}")
+    return batches, dict(samples_per_s=rate, first_batch_s=first_s)
+
+
+def phase_grain(card, train_res):
+    """Phase 26: (a) phase 6's records written to an ArrayRecord file by the
+    port's writer and read back, every payload byte for byte the K3MR
+    reader's; (b) GrainPretrainLoader at batch 96, shuffled: its first
+    batches in-process, from GRAIN_WORKERS worker processes and from the
+    native hybrid byte for byte equal; (c) `python -m k3m_tpu_torch.pretrain
+    --bf16 --use_image --train_batch_size 96 --data_backend grain
+    --num_workers 2` (k3m_roberta_base) for PACKED_STEPS steps on an
+    .array_record with no .k3mr sibling (the worker path), beside phase
+    6's run (`train_res`)."""
+    import ctypes.util
+
+    from k3m_tpu_torch import pretrain
+    from k3m_tpu_torch.config import K3MConfig
+    from k3m_tpu_torch.data.array_record import ArrayRecordStore, ArrayRecordWriter, zstd
+    from k3m_tpu_torch.data.grain_pipeline import GrainPretrainLoader
+    from k3m_tpu_torch.data.records import RecordReader
+    from k3m_tpu_torch.tokenization import get_tokenizer
+    out, seconds = {}, {}
+    t0 = time.perf_counter()
+    lib = zstd()
+    out["zstd"] = dict(find_library=ctypes.util.find_library("zstd"), loaded=lib._name,
+                       version=lib.ZSTD_versionNumber())
+    log(f"grain: libzstd {out['zstd']} (ctypes.util.find_library('zstd') and the library "
+        "loaded)")
+    k3mr = WORK / "pretrain_data" / "train_feat.k3mr"
+    reader = RecordReader(str(k3mr))
+    n = len(reader)
+    data_dir = WORK / "grain_data"
+    path = data_dir / "train_feat.array_record"
+    t1 = time.perf_counter()
+    with ArrayRecordWriter(str(path)) as w:
+        for i in range(n):
+            w.write_payload(reader.payload(i))
+    write_s = time.perf_counter() - t1
+    store = ArrayRecordStore(str(path))
+    t1 = time.perf_counter()
+    if len(store) != n:
+        raise AssertionError(f"grain (a): {len(store)} records read back, {n} written")
+    for i in range(n):
+        if store.payload(i) != reader.payload(i):
+            raise AssertionError(f"grain (a): record {i} differs from the K3MR reader's")
+    read_s = time.perf_counter() - t1
+    store.close()
+    mb, k3mr_mb = path.stat().st_size / 1e6, k3mr.stat().st_size / 1e6
+    log(f"grain (a): {n} full-width records written to an ArrayRecord file in {write_s:.2f} "
+        f"s ({mb:.1f} MB, the .k3mr {k3mr_mb:.1f} MB), read back in {read_s:.2f} s, every "
+        f"payload byte for byte the K3MR reader's (host) | {card}")
+    out["write"] = dict(records=n, write_s=write_s, read_s=read_s, mb=mb, k3mr_mb=k3mr_mb)
+    seconds["a"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    cfg = K3MConfig.from_json_file(str(ROBERTA))
+    tok = get_tokenizer(None, cfg.vocab_size)
+
+    def loader(**kw):
+        return GrainPretrainLoader(str(path), tok, _shapes(), batch_size=TRAIN_BATCH,
+                                   shuffle=True, seed=SEED, **kw)
+    runs = {}
+    for what, kw, producer in (("in-process", dict(native_preprocess=False), "python"),
+                               (f"{GRAIN_WORKERS} workers", dict(
+                                   native_preprocess=False, num_workers=GRAIN_WORKERS),
+                                "python"),
+                               ("native hybrid", dict(native_sibling=str(k3mr)), "native")):
+        ld = loader(**kw)
+        if ld.producer != producer:
+            raise AssertionError(f"grain (b) {what}: the {ld.producer} producer ran "
+                                 f"({ld.native_error})")
+        runs[what] = _grain_producer(ld, what, card)
+    want = runs["in-process"][0]
+    for what, (batches, _) in runs.items():
+        for i, (a, b) in enumerate(zip(batches, want)):
+            _same_batch(a, b, f"grain (b) {what} batch {i}")
+    log(f"grain (b): the first {GRAIN_BATCHES} batches of {TRAIN_BATCH} of every producer "
+        f"byte for byte equal | {card}")
+    out["producers"] = {k: r for k, (_, r) in runs.items()}
+    seconds["b"] = time.perf_counter() - t0
+    del runs, want
+
+    t0 = time.perf_counter()
+    train_dir = WORK / "grain_train"
+    with ArrayRecordWriter(str(train_dir / "train_feat.array_record")) as w:
+        for i in range(PACKED_STEPS * TRAIN_BATCH):
+            w.write_payload(reader.payload(i))
+    reader.close()
+    argv = _pretrain_argv(train_dir, WORK / "grain_out", "--file_name",
+                          "{}_feat.array_record", "--data_backend", "grain",
+                          "--num_workers", str(GRAIN_WORKERS))
+    run = _flag_run(card, "grain (c) pretrain --data_backend grain", pretrain.main, argv,
+                    cfg, lambda steps: expected_train_launches(cfg, steps), "samples",
+                    lambda trainer: trainer.stage(next(iter(_pretrain_loader(
+                        k3mr, cfg, TRAIN_BATCH)))), producer="python")
+    if run["loader"] != "GrainPretrainLoader":
+        raise AssertionError(f"grain (c): the CLI trained from {run['loader']}")
+    out["pretrain"] = run
+    ref = train_res["step_ms"]
+    log(f"grain (c): --data_backend grain, {GRAIN_WORKERS} workers: {run['samples_per_s']:.2f} "
+        f"samples/s, step ms mean {sum(run['step_ms']) / len(run['step_ms']):.2f} "
+        f"({PACKED_STEPS} steps); phase 6 (k3mr, native producer, {TRAIN_STEPS} steps) "
+        f"{train_res['samples_per_s']:.2f} samples/s, step ms mean "
+        f"{sum(ref) / len(ref):.2f}, the same call: a reading, not a claim | {card}")
+    shutil.rmtree(WORK / "grain_out", ignore_errors=True)
+    shutil.rmtree(train_dir, ignore_errors=True)
+    shutil.rmtree(data_dir, ignore_errors=True)
+    seconds["c"] = time.perf_counter() - t0
+    out["part_seconds"] = seconds
+    log(f"grain: part seconds { {k: round(v, 1) for k, v in seconds.items()} }")
     return out
 
 
@@ -5060,6 +5211,7 @@ def main(argv):
     options = nested.pop("result")
     tp_train = run("tp_train", phase_tp_train, card)
     packed = run("packed", phase_packed, card, train_res)
+    grain = run("grain", phase_grain, card, train_res)
     dp_paths = {f"dp_train_{k}": dict(launches=v) for k, v in dp_train["launches"].items()}
     dp_paths.update({f"dp_predict_{k}": dict(launches=v)
                      for k, v in dp_predict["launches"].items()})
@@ -5069,6 +5221,7 @@ def main(argv):
     dp_paths.update({f"packed_pretrain_{k}": dict(launches=v["launches"])
                      for k, v in packed["pretrain"].items() if k != "off"})
     dp_paths["packed_finetune"] = dict(launches=packed["finetune"]["launches"])
+    dp_paths["grain_pretrain"] = dict(launches=grain["pretrain"]["launches"])
     summary = summarize(krows, dict(serve=slice_res, pretrain=train_res, finetune=ft_res,
                                     resume=resume, chain=chain, wire=wire, cache=cache,
                                     extract=extract, **dp_paths, legacy_extract=legacy_extract,
@@ -5088,7 +5241,8 @@ def main(argv):
                                         dp_predict=dp_predict, legacy_extract=legacy_extract,
                                         legacy_train=legacy, tp_crosscheck=tp_cross,
                                         tp_train=tp_train, trunk_options=options,
-                                        packed=packed, phase_seconds=seconds,
+                                        packed=packed, grain=grain,
+                                        phase_seconds=seconds,
                                         nested_phase_seconds=nested,
                                         summary=summary), indent=1, default=float))
     log(f"phase seconds {({k: round(v, 1) for k, v in seconds.items()})}, "

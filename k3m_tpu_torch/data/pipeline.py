@@ -1,4 +1,4 @@
-"""Record loading: K3MR record file -> fixed-shape numpy batches.
+"""Record loading: K3MR or ArrayRecord file -> fixed-shape numpy batches.
 
 The port's own copy of k3m_tpu/data/pipeline.py (reference
 ConceptCapLoaderTrain_struc and K3MDataLoader, concept_cap_dataset_struc.py:
@@ -10,7 +10,9 @@ consumer, with one of two producers (`loader.producer`):
   * "python": read, preprocess and collate sample by sample in Python,
     where `native_preprocess=False`, K3M_NATIVE_PREPROCESS=0, or the native
     library cannot be built (logged with the compiler's error;
-    `native_error` says why).
+    `native_error` says why), and for an `.array_record` file, which is
+    read through data/array_record.py `ArrayRecordStore` as the JAX
+    loaders read it.
 Epoch e visits the records in the permutation drawn from (seed, e, 1) and
 sample i is preprocessed with the Generator of (seed, e, i, 0), as the JAX
 package's loaders do (pipeline.py:121-136), so all of them yield equal
@@ -30,6 +32,7 @@ from typing import Dict, Iterator, Optional
 
 import numpy as np
 
+from k3m_tpu_torch.data.array_record import ArrayRecordStore, is_array_record
 from k3m_tpu_torch.data.preprocess import (
     PairPreprocessor, PretrainPreprocessor, ShapeSpec, add_global_image_token,
 )
@@ -93,7 +96,12 @@ class _LoaderBase:
                  shard_index: int = 0):
         if not 0 <= shard_index < num_shards:
             raise ValueError(f"shard_index {shard_index} not in [0, {num_shards})")
-        self.reader = get_native_reader(record_path) or RecordReader(record_path)
+        if is_array_record(record_path):
+            # as the JAX loaders read them (k3m_tpu/data/pipeline.py:91-93)
+            self.reader = ArrayRecordStore(record_path)
+        else:
+            self.reader = get_native_reader(record_path) or RecordReader(record_path)
+        self.record_path = record_path
         self.num_shards = num_shards
         self.shard_index = shard_index
         self.batch_size = batch_size
@@ -110,6 +118,8 @@ class _LoaderBase:
         reason the Python producer runs (`native_error`)."""
         if not native_preprocess:
             self.native_error = "native_preprocess=False"
+        elif is_array_record(self.record_path):
+            self.native_error = "an ArrayRecord file: the native producer reads K3MR files"
         elif not native_enabled():
             self.native_error = "K3M_NATIVE_PREPROCESS=0"
         else:

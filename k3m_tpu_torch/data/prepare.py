@@ -1,10 +1,12 @@
-"""Offline data preparation: raw TSV or item_info jsonl -> K3MR record files,
+"""Offline data preparation: raw TSV or item_info jsonl -> record files,
 with the RoI features of the port's Faster R-CNN on the card.
 
 Counterpart of k3m_tpu/data/prepare.py, which replaces the reference chain
 `0_deal_raw_data_segment.py` -> `1_generate_json_ali.py` ->
 `2_generate_tsv_ali.py` -> `3_generate_lmdb_ali.py` and the unified
-`data_prepare.py` with one CLI producing K3MR record files.
+`data_prepare.py` with one CLI producing K3MR record files, or ArrayRecord
+files where `--output` ends in `.array_record` (data/array_record.py; a
+`--features` file is read by its extension too), as the JAX CLI does.
 
 Raw TSV line format (reference data/README.md and
 0_deal_raw_data_segment.py:17-18):
@@ -35,19 +37,10 @@ from typing import Callable, Dict, Iterator, Optional
 
 import numpy as np
 
+from k3m_tpu_torch.data.array_record import ArrayRecordStore, ArrayRecordWriter, is_array_record
 from k3m_tpu_torch.data.records import RecordReader, RecordWriter
 
 logger = logging.getLogger(__name__)
-
-_GRAIN = ("array_record files are the grain backend's, which the port does not "
-          "have yet (ROADMAP.md, Queue 1: --data_backend grain); use a .k3mr path")
-
-
-def _refuse_array_record(*paths) -> None:
-    for p in paths:
-        if p and p.endswith(".array_record"):
-            raise NotImplementedError(f"{p}: {_GRAIN}")
-
 
 def parse_raw_tsv(path: str, segment_jieba: bool = False) -> Iterator[Dict]:
     if segment_jieba:
@@ -131,8 +124,8 @@ def build_feature_records_batched(raw: Iterator[Dict], batch_extractor,
 def build_pair_records(pairs_jsonl: str, feature_record_path: str) -> Iterator[Dict]:
     """Join item-alignment pairs against a feature record file (reference
     pair_serialize, data_prepare.py:519-545)."""
-    _refuse_array_record(feature_record_path)
-    reader = RecordReader(feature_record_path)
+    reader = (ArrayRecordStore(feature_record_path) if is_array_record(feature_record_path)
+              else RecordReader(feature_record_path))
     by_id = {}
     for i in range(len(reader)):
         by_id[str(reader[i]["item_id"])] = i
@@ -172,7 +165,6 @@ def main(argv=None) -> Dict:
     the extractor or None} (a BatchedExtractor keeps its flush times and
     fallback count)."""
     args = get_parser().parse_args(argv)
-    _refuse_array_record(args.output, args.features)
 
     extractor = None
     if args.extract_features:
@@ -198,7 +190,7 @@ def main(argv=None) -> Dict:
             records = build_feature_records(raw, extractor, args.image_dir)
 
     n = 0
-    with RecordWriter(args.output) as w:
+    with (ArrayRecordWriter if is_array_record(args.output) else RecordWriter)(args.output) as w:
         for rec in records:
             w.write(rec)
             n += 1

@@ -252,6 +252,12 @@ class RecordReader:
         (length,) = struct.unpack_from("<Q", self._mm, off)
         return unpack_record(self._view[off + 8: off + 8 + length])
 
+    def payload(self, i: int) -> bytes:
+        """Record i's bytes."""
+        off = int(self._offsets[i])
+        (length,) = struct.unpack_from("<Q", self._mm, off)
+        return self._mm[off + 8: off + 8 + length]
+
     def __iter__(self) -> Iterator[Dict[str, Any]]:
         for i in range(self._n):
             yield self[i]

@@ -8,17 +8,21 @@ Flag-compatible with the root `pretrain.py` (its :24-113; behaviour
 :116-268): the same config search order (output_dir, data_dir, the
 package's configs/, the literal path), the same flag overrides of the
 config, `PretrainLoader` batches (native producer unless
-K3M_NATIVE_PREPROCESS=0) into `PretrainTrainer`, per-epoch checkpoints
-(`state.pt` and the model-only `pytorch_model.bin`) in `--output_dir`,
-step checkpoints every `--save_steps` batches and on SIGTERM, and resume
-with `--file_checkpoint` from an epoch or mid-epoch, as root
+K3M_NATIVE_PREPROCESS=0) or the grain backend's into `PretrainTrainer`,
+per-epoch checkpoints (`state.pt` and the model-only `pytorch_model.bin`)
+in `--output_dir`, step checkpoints every `--save_steps` batches and on
+SIGTERM, and resume with `--file_checkpoint` from an epoch or mid-epoch, as root
 `pretrain.py:241-262`. Runs on the CUDA device unless `--device cpu` is
 given. Without `--pretrained_model_path` the weights are random from
 `--seed`. Every option of the root CLI parses, with its default; the
 reference's no-op flags (`--apex_fast`, `--cache`, `--do_lower_case`,
 `--loss_scale`, `--on_memory`, `--pretrained_model_weights`) have no
-effect, `--no_cuda` is `--device cpu`. The grain backend is refused by
-name (ROADMAP.md Queue 1).
+effect, `--no_cuda` is `--device cpu`. `--data_backend grain` (or `auto`
+on an .array_record train file with `--num_workers` above 0) trains from
+`GrainPretrainLoader` (data/grain_pipeline.py: grain's sampler order,
+`--num_workers` worker processes, the native producer where a same-content
+.k3mr sibling exists); otherwise `PretrainLoader` reads the train file, a
+.k3mr or an .array_record. Validation is always `PretrainLoader`'s.
 
 Data parallelism: launched as N processes, one per card, by torchrun
 
@@ -144,15 +148,16 @@ def get_parser():
     return p
 
 
-def refuse_unported(args) -> None:
-    """Options of the JAX package the port does not have yet: the grain
-    backend, asked for by name or picked by `--data_backend auto` as root
-    pretrain.py:174-177 picks it (an .array_record train file and
-    `--num_workers` above 0)."""
-    auto_grain = (args.data_backend == "auto" and args.num_workers > 0
-                  and args.file_name.endswith(".array_record"))
-    if args.data_backend == "grain" or auto_grain:
-        raise NotImplementedError("--data_backend grain is not ported yet (ROADMAP.md Queue 1)")
+def data_backend(args, train_path: str) -> str:
+    """"grain" or "k3mr": `--data_backend`, where `auto` picks grain for an
+    .array_record train file with `--num_workers` above 0, as root
+    pretrain.py:174-177 picks it. A parser without the flag (the legacy
+    CLI's) reads through PretrainLoader, which takes either format."""
+    backend = getattr(args, "data_backend", "k3mr")
+    if backend == "auto":
+        backend = ("grain" if train_path.endswith(".array_record") and args.num_workers > 0
+                   else "k3mr")
+    return backend
 
 
 def find_config(args) -> Path:
@@ -174,7 +179,6 @@ def parse_args(argv=None):
 
 def main(argv=None):
     args = parse_args(argv)
-    refuse_unported(args)
     from k3m_tpu_torch.train import dist, mesh
 
     config = resolve_config(args)
@@ -230,7 +234,8 @@ def run_pretraining(args, config, world, train_path: str, valid_path=None, *,
     from a step checkpoint), then `fit` with a checkpoint per epoch in
     `--output_dir`. Without `do_train`, the mean of each loss of
     `eval_step` over the validation loader instead (`eval`). Returns
-    {history, eval, trainer, producer, resumed, world}."""
+    {history, eval, trainer, producer, loader (the train loader's class
+    name), resumed, world}."""
     from k3m_tpu_torch.convert import (
         load_model_file, load_pretrained, load_pretrained_bert_paths,
     )
@@ -253,11 +258,19 @@ def run_pretraining(args, config, world, train_path: str, valid_path=None, *,
 
     # each data group's rows of the global batch, from its shard of the records
     shard = dict(num_shards=world.data_size, shard_index=world.data_rank)
-    train_loader = PretrainLoader(train_path, tokenizer, shapes,
-                                  batch_size=world.local_rows(args.train_batch_size,
-                                                              "--train_batch_size"),
-                                  shuffle=True, seed=args.seed,
-                                  visual_target=args.visual_target, **shard)
+    local_rows = world.local_rows(args.train_batch_size, "--train_batch_size")
+    if data_backend(args, train_path) == "grain":
+        # grain's sampler order, sharded by data rank; batches byte for byte
+        # the per-record path's at any --num_workers
+        from k3m_tpu_torch.data.grain_pipeline import GrainPretrainLoader
+        train_loader = GrainPretrainLoader(
+            train_path, tokenizer, shapes, batch_size=local_rows, shuffle=True,
+            seed=args.seed, visual_target=args.visual_target, num_workers=args.num_workers,
+            shard_index=world.data_rank, shard_count=world.data_size)
+    else:
+        train_loader = PretrainLoader(train_path, tokenizer, shapes, batch_size=local_rows,
+                                      shuffle=True, seed=args.seed,
+                                      visual_target=args.visual_target, **shard)
     val_loader = None
     if valid_path is not None:
         val_loader = PretrainLoader(valid_path, tokenizer, shapes,
@@ -266,7 +279,8 @@ def run_pretraining(args, config, world, train_path: str, valid_path=None, *,
                                     shuffle=False, seed=args.seed,
                                     visual_target=args.visual_target, **shard)
 
-    logger.info("train loader: %s producer%s", train_loader.producer,
+    logger.info("train loader: %s, %s producer%s", type(train_loader).__name__,
+                train_loader.producer,
                 f" ({train_loader.native_error})" if train_loader.native_error else "")
     steps_per_epoch = max(len(train_loader) // args.gradient_accumulation_steps, 1)
     total_steps = int(steps_per_epoch * args.num_train_epochs)
@@ -310,8 +324,8 @@ def run_pretraining(args, config, world, train_path: str, valid_path=None, *,
                         start_epoch, start_step, resumed["seconds"])
 
     out = dict(history=None, eval=None, trainer=trainer, producer=train_loader.producer,
-               resumed=resumed, world=dict(rank=world.rank, size=world.size,
-                                           backend=world.backend))
+               loader=type(train_loader).__name__, resumed=resumed,
+               world=dict(rank=world.rank, size=world.size, backend=world.backend))
     if do_train:
         out["history"] = trainer.fit(train_loader, val_loader,
                                      num_epochs=int(args.num_train_epochs),

@@ -2,7 +2,8 @@
 producer.
 
 The port's copy of k3m_tpu/runtime/__init__.py. `preprocess.cc` (which
-includes `recordio.cc`) is compiled at first use by one `g++` into
+includes `recordio.cc` and `arrayrecord.cc`) is compiled at first use by
+one `g++` into
 `build/k3m_tpu_torch/native/<hash of the sources and flags>/libk3mnative.so`
 at the root of the checkout, so a changed source is rebuilt and an
 unchanged one reused, and bound with ctypes. Nothing is built when a
@@ -18,7 +19,10 @@ module is imported.
     producer draws them (data/preprocess.py `draw_mask_randoms`), and are
     passed in: the C++ draws nothing;
   * `NativePairPreprocessor.batch(indices)`: the same for item-alignment
-    pairs (no draws).
+    pairs (no draws);
+  * the `k3mar_*` functions: the Riegeli framing and HighwayHash of
+    ArrayRecord files, which k3m_tpu_torch/data/array_record.py calls (it
+    raises NativeUnavailable where the library cannot be built).
 
 `get_native_*` return None where the producer is switched off
 (K3M_NATIVE_PREPROCESS=0) or cannot be built or opened; a failed build is
@@ -44,7 +48,7 @@ import numpy as np
 logger = logging.getLogger(__name__)
 
 SRC_DIR = Path(__file__).resolve().parent
-SOURCES = ("preprocess.cc", "recordio.cc")
+SOURCES = ("preprocess.cc", "recordio.cc", "arrayrecord.cc")
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "k3m_tpu_torch" / "native"
 # -ffp-contract=off: no FMA contraction, so the float32 IoU and location
 # arithmetic rounds as numpy's does (the batches must be equal bit for bit)
@@ -123,6 +127,27 @@ def _declare(lib) -> None:
     lib.k3mprep_pair_batch.argtypes = [_P, _P, _i32] + [_P] * 27 + [_i32]
     lib.k3mprep_destroy.restype = None
     lib.k3mprep_destroy.argtypes = [_P]
+    _u64 = ctypes.c_uint64
+    lib.k3mar_hash.restype = _u64
+    lib.k3mar_hash.argtypes = [_P, _u64]
+    lib.k3mar_chunk_end.restype = _u64
+    lib.k3mar_chunk_end.argtypes = [_u64, _u64, _u64]
+    lib.k3mar_frame.restype = _i64
+    lib.k3mar_frame.argtypes = [_u64, ctypes.c_uint32, _u64, _u64, _P, _u64, _P, _u64]
+    lib.k3mar_open.restype = _P
+    lib.k3mar_open.argtypes = [ctypes.c_char_p]
+    lib.k3mar_size.restype = _u64
+    lib.k3mar_size.argtypes = [_P]
+    lib.k3mar_chunk_header.restype = _i32
+    lib.k3mar_chunk_header.argtypes = [_P, _u64, _P]
+    lib.k3mar_chunk_data.restype = _i32
+    lib.k3mar_chunk_data.argtypes = [_P, _u64, _u64, _u64, _P]
+    lib.k3mar_close.restype = None
+    lib.k3mar_close.argtypes = [_P]
+    lib.k3mar_varints.restype = _i64
+    lib.k3mar_varints.argtypes = [_P, _u64, _P, _u64]
+    lib.k3mar_index.restype = _i64
+    lib.k3mar_index.argtypes = [_P, _P, _i64, _P, _P]
 
 
 def library():

@@ -27,8 +27,9 @@
 //
 // Build (k3m_tpu_torch/runtime/__init__.py, at first use, into build/):
 // g++ -O3 -ffp-contract=off -pthread -shared -fPIC -o libk3mnative.so
-// preprocess.cc (recordio.cc is #included for the mmap reader; a single
-// translation unit, whose library also serves the record reader).
+// preprocess.cc (recordio.cc is #included for the mmap reader and
+// arrayrecord.cc for the ArrayRecord framing; a single translation unit,
+// whose library also serves the record readers).
 
 #include <algorithm>
 #include <atomic>
@@ -41,6 +42,7 @@
 #include <vector>
 
 #include "recordio.cc"  // k3mr_open/k3mr_record/k3mr_close + Reader
+#include "arrayrecord.cc"  // k3mar_*: ArrayRecord framing and hashes
 
 namespace {
 

@@ -144,14 +144,16 @@ def resolve_config(args):
 
 def find_records(args, split: str) -> str:
     """The record file of `split` ("train", or "valid": `train` replaced by
-    `valid` in --file_name): the path itself where it ends in .k3mr, else
-    `<path>.k3mr`, else a raw TSV at the path, converted once through
-    data.prepare into `<path>.k3mr`. Raises FileNotFoundError."""
+    `valid` in --file_name): the path itself where it ends in .k3mr or
+    .array_record (which root train_concap_struc.py:150 would take for a
+    raw TSV), else `<path>.k3mr`, else a raw TSV at the path, converted
+    once through data.prepare into `<path>.k3mr`. Raises
+    FileNotFoundError."""
     from k3m_tpu_torch.data.prepare import build_feature_records, parse_raw_tsv
     from k3m_tpu_torch.data.records import write_records
     name = args.file_name if split == "train" else args.file_name.replace("train", "valid")
     path = os.path.join(args.data_dir, name)
-    if path.endswith(".k3mr") and os.path.exists(path):
+    if path.endswith((".k3mr", ".array_record")) and os.path.exists(path):
         return path
     if os.path.exists(path + ".k3mr"):
         return path + ".k3mr"

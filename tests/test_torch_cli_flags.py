@@ -2,7 +2,8 @@
 option string of the root parser, read from its source through `ast` (the
 root module imports JAX, so it is not imported), parses with the port's
 parser, with the same default; `--no_cuda` is `--device cpu`; the grain
-backend, asked for or picked by `--data_backend auto`, is refused by name."""
+backend is chosen, by name or by `--data_backend auto`, as the root CLI
+chooses it."""
 
 import ast
 from pathlib import Path
@@ -71,17 +72,22 @@ def test_no_cuda_means_the_cpu():
 
 
 def test_grain_is_refused_by_name():
-    """--data_backend grain, and auto on an .array_record train file with
-    workers (root pretrain.py:174-177); auto with no workers is the record
-    reader."""
-    refuse = lambda *a: pretrain.refuse_unported(pretrain.parse_args(list(a)))
-    with pytest.raises(NotImplementedError, match="--data_backend grain"):
-        refuse(*REQUIRED, "--data_backend", "grain")
-    arec = ["--data_dir", "d", "--output_dir", "o", "--file_name", "{}.array_record"]
-    with pytest.raises(NotImplementedError, match="--data_backend grain"):
-        refuse(*arec)
-    refuse(*arec, "--num_workers", "0")
-    refuse(*REQUIRED)
+    """Once refused, now chosen as root pretrain.py:174-177 chooses it:
+    --data_backend grain on any file, auto on an .array_record train file
+    with workers; auto with no workers, or on a .k3mr, is the record
+    reader, and so is --data_backend k3mr."""
+    def backend(*argv, train="d/train_feat.k3mr"):
+        return pretrain.data_backend(pretrain.parse_args(list(argv)), train)
+    arec = dict(train="d/train.array_record")
+    assert backend(*REQUIRED, "--data_backend", "grain") == "grain"
+    assert backend(*REQUIRED, "--data_backend", "grain", **arec) == "grain"
+    assert backend(*REQUIRED, **arec) == "grain"       # --num_workers defaults to 2
+    assert backend(*REQUIRED, "--num_workers", "0", **arec) == "k3mr"
+    assert backend(*REQUIRED, "--data_backend", "k3mr", **arec) == "k3mr"
+    assert backend(*REQUIRED) == "k3mr"
+    legacy = train_concap_struc.get_parser().parse_args(
+        ["--data_dir", "d", "--output_dir", "o", "--file_name", "train.array_record"])
+    assert pretrain.data_backend(legacy, "d/train.array_record") == "k3mr"
 
 
 def test_legacy_n_model_help_is_current():

@@ -231,9 +231,10 @@ def _port_sources():
 
 
 def test_port_imports_nothing_of_jax():
-    """No module of the port, and not chip_smoke.py, imports jax, flax or
-    the JAX package (an AST walk over every import statement)."""
-    banned = ("jax", "jaxlib", "flax", "optax", "k3m_tpu")
+    """No module of the port, and not chip_smoke.py, imports jax, flax,
+    the JAX package, grain or array_record (an AST walk over every import
+    statement)."""
+    banned = ("jax", "jaxlib", "flax", "optax", "k3m_tpu", "grain", "array_record")
     found = []
     for path in _port_sources():
         for node in ast.walk(ast.parse(path.read_text(), str(path))):

@@ -188,14 +188,33 @@ def test_pairs_join_equals_jax(tmp_path):
         assert a.read() == b.read()
 
 
-def test_array_record_paths_are_refused(tmp_path):
-    """A .array_record input or output raises, pointing at the grain item
-    of ROADMAP.md."""
-    for argv in (["--input", "x.tsv", "--output", str(tmp_path / "o.array_record")],
-                 ["--pairs", "p.jsonl", "--features", "f.array_record",
-                  "--output", str(tmp_path / "o.k3mr")]):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md.*grain"):
-            prepare.main(argv)
+def test_array_record_paths_are_refused(tmp_path, raw_tsv):
+    """Once refused, now written and read as the JAX CLI does: `--output
+    x.array_record` writes the records the JAX CLI writes (each package
+    reads the other's file, payload for payload), and `--pairs --features
+    x.array_record --output y.array_record` writes the pairs the JAX CLI
+    joins into a .k3mr."""
+    from k3m_tpu.data.grain_pipeline import ArrayRecordStore as JaxStore
+    from k3m_tpu.data.records import pack_record as jax_pack
+    from k3m_tpu_torch.data.array_record import ArrayRecordStore
+    from k3m_tpu_torch.data.records import RecordReader
+    got, want = str(tmp_path / "f_port.array_record"), str(tmp_path / "f_jax.array_record")
+    assert prepare.main(["--input", raw_tsv, "--output", got])["records"] == 4
+    jprepare.main(["--input", raw_tsv, "--output", want])
+    mine, theirs = ArrayRecordStore(want), JaxStore(got)
+    assert len(mine) == len(theirs) == 4
+    assert [mine.payload(i) for i in range(4)] == [jax_pack(theirs[i]) for i in range(4)]
+    pairs = tmp_path / "pairs.jsonl"
+    pairs.write_text("".join(json.dumps(p) + "\n" for p in (
+        dict(src_item_id="i1", tgt_item_id="i2", item_label=1),
+        dict(src_item_id="i5", tgt_item_id="i3", label=0),
+        dict(src_item_id="i2", tgt_item_id="nope", item_label=1))))
+    p_got, p_want = str(tmp_path / "p_port.array_record"), str(tmp_path / "p_jax.k3mr")
+    out = prepare.main(["--pairs", str(pairs), "--features", got, "--output", p_got])
+    jprepare.main(["--pairs", str(pairs), "--features", want, "--output", p_want])
+    assert out["records"] == 2
+    a, b = ArrayRecordStore(p_got), RecordReader(p_want)
+    assert [a.payload(i) for i in range(len(a))] == [b.payload(i) for i in range(len(b))]
 
 
 def test_extract_features_needs_the_card_unless_device_cpu(tmp_path, raw_tsv):

@@ -203,12 +203,16 @@ def test_cli_trains_checkpoints_and_resumes(tmp_path):
 @pytest.mark.parametrize("flag", [["--data_backend", "grain"], ["--n_model", "3"],
                                   ["--n_model", "2"]])
 def test_cli_refuses_unported_options_by_name(tmp_path, flag):
-    """grain is not ported; tensor parallelism is, but `--n_model` must
-    divide every sharded width (NANO's hidden 16: 3 does not; a head count
-    need not divide) and the world (one process: 2 does not)."""
+    """The grain backend reads ArrayRecord files only, as the JAX one does:
+    on a K3MR train file it raises by name (it trains from an
+    .array_record in tests/test_torch_grain.py). `--n_model` must divide
+    every sharded width (NANO's hidden 16: 3 does not; a head count need
+    not divide) and the world (one process: 2 does not)."""
     from k3m_tpu_torch import pretrain
+    from k3m_tpu_torch.data.array_record import ArrayRecordError
     if flag[0] == "--data_backend":
-        with pytest.raises(NotImplementedError, match=flag[0]):
+        _records(tmp_path / "train_feat.k3mr", 4)
+        with pytest.raises(ArrayRecordError, match="train_feat.k3mr: not an ArrayRecord"):
             pretrain.main(_cli_args(tmp_path, *flag))
         return
     match = ("--n_model 3 does not divide hidden_size 16" if flag[1] == "3" else

@@ -4,6 +4,8 @@
     python3 chip_smoke.py                  # every phase, one CUDA card
     python3 chip_smoke.py --kernels-only   # phases 1-3 only, no result line
     python3 chip_smoke.py --profile        # also trace the serving forward
+    python3 chip_smoke.py --parent DIR     # also time DIR's LN forward kernel (phase 3)
+    python3 chip_smoke.py --ln-paths [--parent DIR]  # phases 4, 6, 8 for the LN forward, alone
     python3 chip_smoke.py --dp-cards 4     # phase 17's finetune on 4 cards, alone
     python3 chip_smoke.py --tp-cards 4     # --n_model pretraining on 4 cards, alone
 
@@ -43,8 +45,18 @@ a failure:
      the packed text rows [96 * 612, 768] and [32 * 612, 768] and the image
      stack's [192 * 37, 1024], #3/#4 at H8 L37 D128 on the image stack's
      192 rows and at H12 D64 L50/L256 on views of one fused [96 * 612,
-     2304] projection at their packed row offsets; each part's seconds
-     are printed;
+     2304] projection at their packed row offsets; the LN forward (#1)
+     also at its edges (ln_edge_rows): one row, a row count that is no
+     multiple of a block's warps, fewer rows than the persistent grid has
+     blocks, widths of 1 to 128 groups of 8 with and without predicated
+     lanes, every dtype combination, with its rstd, each twice bit for bit,
+     by its vector instance and by its per-element one, and the shapes the
+     per-element instance alone takes (a width of 100, a view one element
+     off), with both launch counters; every #1 row is timed by the vector
+     instance and, with --parent DIR, by the LN forward of DIR (a checkout
+     of another commit, its layernorm.cu built alone), rotating over
+     copies of the inputs where their bytes fall short of twice the 50 MB
+     L2; each part's seconds are printed;
   4. slice (serving): write 256 synthetic pair records at the full shapes
      of run_pred.sh and run `k3m_tpu_torch.finetune --do_pred --bf16` over
      them with the bert_base_6layer_6conect config (random weights from a
@@ -250,8 +262,17 @@ batch 96 on one card, then on N NCCL ranks one per card with --n_model N
 (on 4 cards also 2 data x 2 model), alone (chiprun_out/tp_cards.json).
 
 Phases 11, 12 and 14 hold the kernel launch counts of their runs to what
-the config gives, as phases 6 and 8 do. Each phase's wall seconds are
-printed and kept. Every checkpoint is written under build/chip_smoke/ and
+the config gives, as phases 6 and 8 do; phases 4, 6 and 8, and every
+phase that checks its counts through `_check_launches`, also hold the LN
+forward's per-element instance to 0 launches.
+`--ln-paths` runs phases 4 (profiled), 6 and 8 alone, each run in a
+process of its own, and reduces them to the LN forward's device ms and
+launches in the profiled serving forward and train steps, with the device
+forward ms, the step rates and the LN wrapper's host cost per call
+(`launch_overhead`); with --parent DIR, DIR's chip_smoke.py and this
+tree's in turns: parent, this tree, this tree, parent, parent, this tree
+(chiprun_out/ln_paths.json, each run's log in chiprun_out/ln_paths_<n>.log).
+Each phase's wall seconds are printed and kept. Every checkpoint is written under build/chip_smoke/ and
 deleted once checked.
 
 Exits non-zero without a result when CUDA is not available. Writes its
@@ -263,6 +284,7 @@ from __future__ import annotations
 
 import concurrent.futures
 import contextlib
+import itertools
 import json
 import logging
 import math
@@ -335,6 +357,24 @@ def graph_ms(fn, iters=TIMED_ITERS, warmup=3):
     del graph
     torch.cuda.empty_cache()
     return ms
+
+
+L2_BYTES = 50e6   # the H100's L2
+
+
+def l2_copies(nbytes):
+    """Copies of a call's inputs (`nbytes` of them) to rotate over when
+    timing it, so that each call finds its inputs in device memory as the
+    main path does: enough that the copies' bytes reach twice the L2; one
+    where a single call's do."""
+    return 1 if nbytes >= 2 * L2_BYTES else math.ceil(2 * L2_BYTES / nbytes)
+
+
+def rotated_ms(call, inputs, iters=TIMED_ITERS):
+    """graph_ms of `call(*args)` cycling over `inputs` (one tuple of
+    arguments per copy), at least one call per copy in the graph."""
+    it = itertools.cycle(inputs)
+    return graph_ms(lambda: call(*next(it)), max(iters, len(inputs)))
 
 
 def cuda_ms(fn, iters=20, warmup=3):
@@ -430,10 +470,17 @@ def phase_build():
         shutil.copy(ptxas, OUT_JSON.parent / "ptxas.log")
         report = ptxas_report(ptxas.read_text())
         for r in report:
-            if "mma_kernel" in r["kernel"]:
+            if "mma_kernel" in r["kernel"] or ("ln_fwd_vec" in r["kernel"] and (
+                    "__nv_bfloat16, __nv_bfloat16, __nv_bfloat16" in r["kernel"])):
                 log(f"ptxas {r['kernel']}: {r.get('registers')} registers, "
                     f"{r.get('spill_stores')} bytes spill stores, {r.get('spill_loads')} "
                     f"bytes spill loads, {r.get('smem_static')} bytes static smem")
+        vec = [r for r in report if "ln_fwd_vec" in r["kernel"]]
+        if vec:       # the LN forward's vector instance takes its rings dynamically
+            log(f"ptxas ln_fwd_vec_kernel: {len(vec)} instantiations, registers "
+                f"{min(r['registers'] for r in vec)}-{max(r['registers'] for r in vec)}, "
+                f"spill stores {sum(r.get('spill_stores', 0) for r in vec)} bytes in all, "
+                f"{sum(bool(r.get('spill_stores')) for r in vec)} spilling")
     return secs, report
 
 
@@ -488,15 +535,67 @@ def _dt_name(dt):
     return str(dt).replace("torch.", "")
 
 
+PARENT_DIR = None    # --parent DIR: a checkout whose LN forward phase 3 also times
+_parent_ln = []
+
+
+def parent_layernorm():
+    """The LN forward of PARENT_DIR (its csrc/layernorm.cu built alone by
+    nvcc into a library of its own; its C interface has no instance
+    argument) as f(x, scale, bias, residual, out_dtype) -> out; None
+    without --parent."""
+    if PARENT_DIR is None:
+        return None
+    if not _parent_ln:
+        import ctypes
+
+        from k3m_tpu_torch.kernels import build
+        csrc = Path(PARENT_DIR).resolve() / "k3m_tpu_torch" / "kernels" / "csrc"
+        lib_path = ROOT / "build" / "parent_ln" / "libparent_ln.so"
+        lib_path.parent.mkdir(parents=True, exist_ok=True)
+        t0 = time.perf_counter()
+        subprocess.run([build._nvcc(), *build.ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler",
+                        "-fPIC", "-shared", "-I", str(csrc), str(csrc / "layernorm.cu"),
+                        "-o", str(lib_path)], check=True, capture_output=True, text=True)
+        log(f"parent LN forward: {csrc / 'layernorm.cu'} built in "
+            f"{time.perf_counter() - t0:.1f} s")
+        lib = ctypes.CDLL(str(lib_path))
+        P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        lib.k3m_layernorm_fwd.argtypes = [P, I, P, I, P, P, P, I, P, I, I, F, P]
+        lib.k3m_layernorm_fwd.restype = I
+        codes = build.DTYPE_CODES
+
+        def call(x, scale, bias, res, out_dtype):
+            n = x.shape[-1]
+            out = torch.empty(x.shape, dtype=out_dtype, device=x.device)
+            rc = lib.k3m_layernorm_fwd(
+                x.data_ptr(), codes[x.dtype], None if res is None else res.data_ptr(),
+                0 if res is None else codes[res.dtype], scale.data_ptr(), bias.data_ptr(),
+                out.data_ptr(), codes[out_dtype], None, x.numel() // n, n, 1e-12,
+                build.stream_handle(x.device))
+            build.check(rc, "parent k3m_layernorm_fwd")
+            return out
+        _parent_ln.append(call)
+    return _parent_ln[0]
+
+
 def kernel_phase_layernorm(card, rows_out, cases=None):
     """The forward kernel against layernorm_plain, with and without a
-    residual; `cases`: [(batch, (rows, n, what), ((in, out dtype), ...))],
-    by default every main-path shape."""
+    residual, by the instance the wrapper picks (the vector one at every
+    shape here, which the counters show); `cases`: [(batch, (rows, n,
+    what), ((in, out dtype), ...))], by default every main-path shape.
+    Timed: the vector instance (`ms`), the parent's kernel with --parent,
+    the plain version, and without a residual F.layer_norm; with a residual
+    the two-call F.layer_norm(x + r) as a reading (no one PyTorch call
+    computes the function). Where the inputs' bytes fall short of twice the
+    L2 the timed calls rotate over copies of them (`l2_copies`, the outputs
+    not rotated)."""
     import torch.nn.functional as F
 
     from k3m_tpu_torch.kernels import fused_layernorm, layernorm_plain
     f32, bf16 = torch.float32, torch.bfloat16
     g = torch.Generator(device="cuda").manual_seed(0)
+    parent = parent_layernorm()
     if cases is None:
         # every shape of the serving and pretraining batches; at the
         # finetune batch the pv rows in bf16, the summary's row
@@ -511,26 +610,143 @@ def kernel_phase_layernorm(card, rows_out, cases=None):
                     if with_res else None
                 scale = torch.randn(n, generator=g, device="cuda")
                 bias = torch.randn(n, generator=g, device="cuda")
+                counts = (fused_layernorm.launches, fused_layernorm.per_element_launches)
                 out = fused_layernorm(x, scale, bias, res, out_dtype=od)
+                if (fused_layernorm.launches - counts[0],
+                        fused_layernorm.per_element_launches - counts[1]) != (1, 0):
+                    raise AssertionError(f"fused_layernorm [{rows},{n}] {what}: not the "
+                                         "vector instance")
                 ref = layernorm_plain(x, scale, bias, res, out_dtype=od)
                 torch.cuda.synchronize()
-                lib = None
-                if res is None and xd == od:
-                    sx, bx = scale.to(xd), bias.to(xd)
-                    lib = graph_ms(lambda: F.layer_norm(x, (n,), sx, bx, 1e-12))
                 elem = rows * n
-                nbytes = elem * (x.element_size() + (res.element_size() if with_res else 0)
-                                 + torch.empty(0, dtype=od).element_size()) + 2 * n * 4
+                in_bytes = elem * (x.element_size() + (res.element_size() if with_res else 0))
+                copies = l2_copies(in_bytes)
+                inputs = [(x, res)] + [(x.clone(), None if res is None else res.clone())
+                                       for _ in range(copies - 1)]
+                lib = two_call = None
+                if xd == od:
+                    sx, bx = scale.to(xd), bias.to(xd)
+                    if res is None:
+                        lib = rotated_ms(lambda a, r: F.layer_norm(a, (n,), sx, bx, 1e-12),
+                                         inputs)
+                    else:
+                        two_call = rotated_ms(
+                            lambda a, r: F.layer_norm(a + r, (n,), sx, bx, 1e-12), inputs)
+                extra = {}
+                if parent is not None:
+                    extra["parent_ms"] = rotated_ms(
+                        lambda a, r: parent(a, scale, bias, r, od), inputs)
+                if two_call is not None:
+                    extra["two_call_library_ms"] = two_call
+                nbytes = in_bytes + elem * torch.empty(0, dtype=od).element_size() + 2 * n * 4
                 bound, by = _bound(nbytes, elem * (8 if with_res else 7), f32)
                 _record(rows_out, card, kernel="fused_layernorm", shape=f"[{rows},{n}] {what}",
                         batch=batch, residual=with_res,
                         dtype=f"{_dt_name(xd)}->{_dt_name(od)}",
                         max_abs_err=max_err(out, ref), tol=tolerance(ref, od),
-                        ms=graph_ms(lambda: fused_layernorm(x, scale, bias, res, out_dtype=od)),
+                        ms=rotated_ms(lambda a, r: fused_layernorm(a, scale, bias, r,
+                                                                   out_dtype=od), inputs),
                         plain_ms=graph_ms(lambda: layernorm_plain(x, scale, bias, res,
                                                                   out_dtype=od),
                                           PLAIN_ITERS, 1),
-                        library_ms=lib, bound_ms=bound, bound_by=by)
+                        library_ms=lib, bound_ms=bound, bound_by=by, instance="vector",
+                        l2_copies=copies, **extra)
+                del inputs
+                log(f"  LN forward [{rows},{n}] {what} {_dt_name(xd)}->{_dt_name(od)}"
+                    f"{' res' if with_res else ''}: "
+                    f"{ {k: round(v, 4) for k, v in extra.items()} } l2_copies {copies}")
+
+
+# the LN forward's edges: (rows, n, what, dtype combinations (x, residual
+# or None, out)); the vector instance takes them all
+LN_EDGE_SHAPES = (
+    (1, 768, "one row"), (1, 1024, "one row"),
+    (4099, 768, "rows no multiple of a block's 8 warps"),
+    (4099, 1024, "rows no multiple of a block's 8 warps"),
+    (200, 1024, "fewer rows than the grid's blocks"),
+    (77, 8, "one group of 8"), (77, 256, "one group a lane"), (77, 512, "two groups a lane"),
+    (77, 520, "65 groups: predicated lanes"), (77, 1016, "127 groups: predicated lanes"),
+)
+
+
+def _ln_edge_dtypes(rows, n):
+    f32, bf16 = torch.float32, torch.bfloat16
+    if (rows, n) == (4099, 768):              # every combination once
+        return [(xd, rd, od) for xd in (f32, bf16) for rd in (None, f32, bf16)
+                for od in (f32, bf16)]
+    return [(bf16, bf16, bf16), (bf16, None, bf16), (f32, f32, f32), (f32, bf16, bf16)]
+
+
+def ln_edge_rows(card):
+    """The LN forward at its edges, fp32 out and rstd against the plain
+    version's: the output at phase 3's tolerance, the rstd within 1e-5 of
+    each value; each call twice, bit for bit. At LN_EDGE_SHAPES the wrapper
+    must pick the vector instance, and the per-element one (asked for) is
+    held the same way; a width of 100 and views one element off (x, and
+    the residual) must take the per-element instance, and the vector
+    instance asked for there must refuse. Both launch counters are held
+    to the calls made."""
+    from k3m_tpu_torch.kernels import fused_layernorm
+    from k3m_tpu_torch.kernels.layernorm import _forward, _plain_fwd
+    g = torch.Generator(device="cuda").manual_seed(11)
+    f32, bf16 = torch.float32, torch.bfloat16
+    rows_out, vector_calls, element_calls = [], 0, 0
+    fused_layernorm.launches = fused_layernorm.per_element_launches = 0
+
+    def make(rows, n, xd, rd, x_off=0, r_off=0):
+        x = (torch.randn(rows * n + x_off, generator=g, device="cuda") * 2 + 1)
+        x = x.to(xd)[x_off:].view(rows, n)
+        res = None
+        if rd is not None:
+            res = torch.randn(rows * n + r_off, generator=g, device="cuda").to(rd)
+            res = res[r_off:].view(rows, n)
+        return (x, torch.randn(n, generator=g, device="cuda"),
+                torch.randn(n, generator=g, device="cuda"), res)
+
+    def hold(x, s, b, res, od, instance, what):
+        got = _forward(x, s, b, res, 1e-12, od, True, instance)
+        again = _forward(x, s, b, res, 1e-12, od, True, instance)
+        want = _plain_fwd(x, s, b, res, 1e-12, od)
+        torch.cuda.synchronize()
+        err, tol = max_err(got[0], want[0]), tolerance(want[0], od)
+        rstd_err = float(((got[1] - want[1]).abs() / want[1].abs()).max())
+        same = torch.equal(got[0], again[0]) and torch.equal(got[1], again[1])
+        row = dict(what=what, shape=list(x.shape), instance=instance or "picked",
+                   dtypes=[_dt_name(t.dtype) if t is not None else None for t in (x, res)]
+                   + [_dt_name(od)], max_abs_err=err, tol=tol, rstd_rel_err=rstd_err,
+                   twice_bit_identical=same)
+        rows_out.append(row)
+        if not (err <= tol and rstd_err <= 1e-5 and same):
+            raise AssertionError(f"LN forward edge {row}")
+        return row
+
+    for rows, n, what in LN_EDGE_SHAPES:
+        for xd, rd, od in _ln_edge_dtypes(rows, n):
+            args = make(rows, n, xd, rd)
+            hold(*args, od, None, what)
+            vector_calls += 2
+            hold(*args, od, "per_element", what)
+            element_calls += 2
+    for n, x_off, r_off, what in ((100, 0, 0, "width 100"), (768, 1, 0, "x one element off"),
+                                  (768, 0, 1, "residual one element off"),
+                                  (1024, 1, 1, "both one element off")):
+        for xd, od in ((bf16, bf16), (f32, f32)):
+            x, s, b, res = make(333, n, xd, xd, x_off, r_off)
+            hold(x, s, b, res, od, None, what)
+            element_calls += 2
+            try:                               # refused: nothing launched or counted
+                _forward(x, s, b, res, 1e-12, od, True, "vector")
+            except RuntimeError:
+                continue
+            raise AssertionError(f"LN forward {what}: the vector instance took it")
+    counts = (fused_layernorm.launches, fused_layernorm.per_element_launches)
+    log(f"LN forward edges: {len(rows_out)} rows within tolerance, each twice bit for bit; "
+        f"launches {counts[0]}, per-element {counts[1]} (expected "
+        f"{vector_calls + element_calls}, {element_calls}) | {card}")
+    if counts != (vector_calls + element_calls, element_calls):
+        raise AssertionError(f"LN forward edges: launch counters {counts}")
+    worst = max(rows_out, key=lambda r: r["max_abs_err"] / r["tol"])
+    return dict(rows=rows_out, worst=worst, launches=counts[0], per_element_launches=counts[1])
 
 
 def kernel_phase_layernorm_bwd(card, rows_out, cases=None):
@@ -1174,13 +1390,15 @@ def phase_kernels(card):
     masks = timed("dropout_mask_check", lambda: {B: dropout_mask_check(card, B)
                                                  for B in TRAINING_BATCHES})
     edges = timed("forward_edge_check", forward_edge_check, card)
+    ln_edges = timed("ln_edge_rows", ln_edge_rows, card)
     host_us = timed("launch_overhead", launch_overhead, card)
     tp_rows = timed("tp_kernel_rows", tp_kernel_rows, card)
     option_rows = timed("option_kernel_rows", option_kernel_rows, card)
     packed_rows = timed("packed_kernel_rows", packed_kernel_rows, card)
     log(f"kernels: part seconds { {k: round(v, 1) for k, v in parts.items()} }")
-    return dict(rows=rows, host_us=host_us, masks=masks, edges=edges, tp_rows=tp_rows,
-                option_rows=option_rows, packed_rows=packed_rows, part_seconds=parts)
+    return dict(rows=rows, host_us=host_us, masks=masks, edges=edges, ln_edges=ln_edges,
+                tp_rows=tp_rows, option_rows=option_rows, packed_rows=packed_rows,
+                part_seconds=parts)
 
 
 # ------------------------------------------------------------ slice phase
@@ -1243,6 +1461,17 @@ def expected_launches(cfg, n_item_forwards):
                 fused_biattention=n_item_forwards * conn)
 
 
+def vector_ln_only(what, card):
+    """Every LN forward of `what` took the vector instance: the per-element
+    instance's counter (reset with the others) reads 0."""
+    from k3m_tpu_torch.kernels import fused_layernorm
+    n = fused_layernorm.per_element_launches
+    log(f"{what}: LN forward per-element launches {n} (of {fused_layernorm.launches}) | {card}")
+    if n:
+        raise AssertionError(f"{what}: {n} LN forward launches took the per-element instance")
+    return n
+
+
 def phase_slice(card, profile=False):
     from k3m_tpu_torch import finetune, kernels
     from k3m_tpu_torch.config import K3MConfig
@@ -1272,6 +1501,7 @@ def phase_slice(card, profile=False):
     for name, want in expected.items():
         if counts[name] != want or counts[name] == 0:
             raise AssertionError(f"{name}: {counts[name]} launches, expected {want}")
+    per_element = vector_ln_only("slice", card)
 
     lines = Path(stats["output"]).read_text().splitlines()
     if len(lines) != N_PAIRS:
@@ -1291,7 +1521,7 @@ def phase_slice(card, profile=False):
                                  profile)
     return dict(launches=counts, expected=expected, pairs_per_s=pairs_per_s,
                 batch_seconds=stats["batch_seconds"], loader_s_per_batch=loader_s,
-                **device)
+                ln_per_element_launches=per_element, **device)
 
 
 def _shapes():
@@ -1338,7 +1568,7 @@ def _kernel_class(name):
     for key, cls in (("biattn_fwd", "fused_biattention"),
                      ("attn_fwd", "fused_attention"),
                      ("attn_bwd", "attention_bwd"),
-                     ("ln_fwd_kernel", "fused_layernorm"),
+                     ("ln_fwd", "fused_layernorm"),
                      ("ln_bwd", "layernorm_bwd")):
         if key in name:
             return cls
@@ -1598,6 +1828,7 @@ def phase_train(card):
     for name, want in expected.items():
         if counts[name] != want or counts[name] == 0:
             raise AssertionError(f"{name}: {counts[name]} launches, expected {want}")
+    per_element = vector_ln_only("train", card)
     for i, losses in enumerate(hist["step_losses"]):
         if not all(math.isfinite(v) for v in losses.values()):
             raise AssertionError(f"train step {i}: non-finite losses {losses}")
@@ -1617,6 +1848,7 @@ def phase_train(card):
     # phase 12 starts a finetune run from the model file; the full state goes
     Path(hist["checkpoint_path"], "state.pt").unlink()
     res = dict(launches=counts, expected=expected, samples_per_s=samples_per_s,
+               ln_per_element_launches=per_element,
                step_ms=step_ms, first_step_ms=1e3 * hist["step_seconds"][0],
                peak_gib=peak, checkpoint_s=hist["checkpoint_seconds"],
                checkpoint_gib=ckpt_gib, model_file_gib=model_gib,
@@ -1796,6 +2028,7 @@ def phase_finetune(card):
     for name, want in expected.items():
         if counts[name] != want or counts[name] == 0:
             raise AssertionError(f"{name}: {counts[name]} launches, expected {want}")
+    per_element = vector_ln_only("finetune", card)
     losses = hist["step_losses"]
     if not all(math.isfinite(x) for x in losses):
         raise AssertionError(f"finetune: non-finite step losses {losses}")
@@ -1824,6 +2057,7 @@ def phase_finetune(card):
     prefetch = check_staged_prefetch(trainer, data_dir / "valid_item_alignment.k3mr", cfg,
                                       card)
     res = dict(launches=counts, expected=expected, pairs_per_s=pairs_per_s, step_ms=step_ms,
+               ln_per_element_launches=per_element,
                first_step_ms=1e3 * hist["step_seconds"][0], peak_gib=peak,
                checkpoint_s=hist["checkpoint_seconds"], checkpoint_gib=ckpt_gib,
                model_file_gib=model_gib, step_losses=losses, sweep=sweep, prefetch=prefetch)
@@ -4239,6 +4473,7 @@ def _check_launches(what, got, want, card):
     log(f"{what}: kernel launches {got} | {card}")
     if got != want:
         raise AssertionError(f"{what}: launches {got}, the config gives {want}")
+    vector_ln_only(what, card)
 
 
 def _seeded(make, cfg, device, states):
@@ -4392,13 +4627,62 @@ def _fp32_run(build, inputs, device, grads_of_inputs=()):
     return got, grads
 
 
+class _ReluBranches:
+    """`torch.relu` (model/fusion.py) for the fp32 cross-checks. Its
+    gradient jumps at 0: an input that rounding puts on either side of 0
+    (within ~1e-6 in an fp32 trunk) sends the whole upstream gradient down
+    one branch or the other, and either is right. So the card's run records
+    each call's branches ("record"), and the CPU's run ("replay") takes the
+    card's branch wherever its own input lies within the output check's
+    limit of 0 (1e-4 of max(1, the input's scale)); everywhere else the
+    CPU's relu stands. `decided` counts the inputs whose branch the card's
+    record changed."""
+
+    def __init__(self):
+        self.relu, self.signs, self.decided = torch.relu, [], 0
+
+    @contextlib.contextmanager
+    def use(self, mode):
+        self.mode, self.calls = mode, 0
+        torch.relu = self._relu
+        try:
+            yield
+        finally:
+            torch.relu = self.relu
+        if mode == "replay" and self.calls != len(self.signs):
+            raise AssertionError(f"relu: {self.calls} calls on the CPU, {len(self.signs)} "
+                                 "on the card")
+
+    def _relu(self, x):
+        if self.mode == "record":
+            self.signs.append((x.detach() > 0).cpu())
+            return self.relu(x)
+        card_pos = self.signs[self.calls].to(x.device)
+        self.calls += 1
+        if card_pos.shape != x.shape:
+            raise AssertionError(f"relu: input {tuple(x.shape)} on the CPU, "
+                                 f"{tuple(card_pos.shape)} on the card")
+        v = x.detach()
+        near = v.abs() <= 1e-4 * max(1.0, float(v.abs().max()))
+        self.decided += int((near & ((v > 0) != card_pos)).sum())
+        return torch.where(near, x * card_pos.to(x.dtype), self.relu(x))
+
+
 def _cross(what, build, inputs, card, dev, grads_of_inputs=()):
     """The fp32 cross-check of one part at CROSS_BATCH: `dev` (the card)
-    against the CPU, outputs and every gradient."""
-    cpu = _fp32_run(build, inputs, "cpu", grads_of_inputs)
-    card_ = _fp32_run(build, inputs, dev, grads_of_inputs)
+    against the CPU, outputs and every gradient, the CPU's relu taking the
+    card's branch where its input is within rounding of 0
+    (`_ReluBranches`)."""
+    branches = _ReluBranches()
+    with branches.use("record"):
+        card_ = _fp32_run(build, inputs, dev, grads_of_inputs)
+    with branches.use("replay"):
+        cpu = _fp32_run(build, inputs, "cpu", grads_of_inputs)
+    log(f"{what}: {len(branches.signs)} relu calls, {branches.decided} inputs within "
+        f"rounding of 0 on the card's branch | {card}")
     return dict(outputs=_hold(f"{what} fp32 card vs cpu", cpu[0], card_[0], "output", card),
-                grads=_hold(f"{what} fp32 card vs cpu", cpu[1], card_[1], "gradient", card))
+                grads=_hold(f"{what} fp32 card vs cpu", cpu[1], card_[1], "gradient", card),
+                relu_calls=len(branches.signs), relu_decided_by_card=branches.decided)
 
 
 def _no_grad_outputs(model, *args):
@@ -5031,6 +5315,72 @@ def phase_grain(card, train_res):
     return out
 
 
+# ------------------------------------- the LN forward on the main paths (--ln-paths)
+
+LN_PATHS_RUN = """
+import json, shutil, sys
+sys.path.insert(0, '.')
+import chip_smoke as c
+card = c.phase_env()
+c.phase_build()
+c.phase_native_build(card)
+if c.WORK.exists():
+    shutil.rmtree(c.WORK)
+res = dict(slice=c.phase_slice(card, profile=True), train=c.phase_train(card),
+           finetune=c.phase_finetune(card), host_us=c.launch_overhead(card))
+print('LN_PATHS ' + json.dumps(res, default=str), flush=True)
+"""
+
+
+def ln_path_readings(res):
+    """What the LN forward moves in phases 4 (profiled), 6 and 8: its device
+    ms and kernels in the profiled serving forward and train steps, their
+    busy ms, the device forward ms, the step rates, and the host us per
+    call of the tree's LN wrapper and of F.layer_norm."""
+    out = {}
+    for name, key in (("serving forward", "slice"), ("pretraining step", "train"),
+                      ("finetune step", "finetune")):
+        prof = res[key]["profile"]
+        out[name] = dict(ln_fwd_ms=prof["device_ms_by_class"].get("fused_layernorm", 0.0),
+                         ln_fwd_kernels=prof["launches_by_class"].get("fused_layernorm", 0),
+                         busy_ms=prof["busy_ms"])
+    out["serving forward"]["forward_ms"] = res["slice"]["forward_ms"]
+    out["pretraining step"]["samples_per_s"] = res["train"]["samples_per_s"]
+    out["finetune step"]["pairs_per_s"] = res["finetune"]["pairs_per_s"]
+    out["host_us_per_call"] = res["host_us"]
+    return out
+
+
+def _ln_paths_run(tree, card):
+    """LN_PATHS_RUN in a process of its own from the root of `tree`; its log
+    goes to chiprun_out/ln_paths_<n>.log."""
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", LN_PATHS_RUN], cwd=tree, capture_output=True,
+                          text=True, timeout=900)
+    OUT_JSON.parent.mkdir(parents=True, exist_ok=True)
+    n = len(list(OUT_JSON.parent.glob("ln_paths_*.log")))
+    (OUT_JSON.parent / f"ln_paths_{n}.log").write_text(proc.stdout + proc.stderr)
+    if proc.returncode != 0:
+        raise AssertionError(f"phases 4, 6, 8 of {tree} failed ({proc.returncode}): "
+                             f"{proc.stderr[-2000:]}")
+    line = next(x for x in proc.stdout.splitlines() if x.startswith("LN_PATHS "))
+    res = ln_path_readings(json.loads(line[len("LN_PATHS "):]))
+    log(f"ln paths: {tree} in {time.perf_counter() - t0:.1f} s: {res} | {card}")
+    return res
+
+
+def phase_ln_paths(card):
+    """--ln-paths: phases 4 (profiled), 6 and 8, each run in a process of its
+    own and reduced by ln_path_readings: with --parent DIR, DIR's
+    chip_smoke.py and this tree's in turns (parent, this tree, this tree,
+    parent, parent, this tree), else this tree's once."""
+    trees = [ROOT] if PARENT_DIR is None else [PARENT_DIR, ROOT, ROOT, PARENT_DIR,
+                                                PARENT_DIR, ROOT]
+    runs = [dict(tree="this tree" if Path(t).resolve() == ROOT else "parent",
+                 **_ln_paths_run(Path(t).resolve(), card)) for t in trees]
+    return runs
+
+
 SUMMARY = {
     # name: (source, TPU kernel, heaviest main-path row: shape part, dtype, rate)
     "fused_layernorm": ("k3m_tpu_torch/kernels/csrc/layernorm.cu",
@@ -5090,6 +5440,11 @@ OPTION_SUMMARY = {
 }
 
 
+# the LN forward's rows also time the parent's kernel (--parent) and the
+# two-call F.layer_norm(x + r)
+LN_TIMES = ("parent_ms", "two_call_library_ms", "l2_copies")
+
+
 def summarize(krows, paths, legacy, tp_rows, option_rows, packed_rows):
     """One entry per kernel: the row of its heaviest main-path shape (the
     pretraining batch), `launches` from the pretraining run, the launches
@@ -5112,6 +5467,7 @@ def summarize(krows, paths, legacy, tp_rows, option_rows, packed_rows):
                      bound_by=row["bound_by"], library_ms=row["library_ms"],
                      shape=row["shape"], dtype=row["dtype"], rate=row.get("rate"))
         keys = ("shape", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+        entry.update({k: row[k] for k in LN_TIMES if k in row})
         ft = _row(krows, name, shape, dtype, rate, FT_BATCH)
         if ft is not None:
             entry["finetune_row"] = {k: ft[k] for k in keys}
@@ -5141,6 +5497,18 @@ def main(argv):
         return 1
     if argv[:1] == ["--dp-worker"]:       # one rank of phases 17-19
         return dp_worker(argv[1])
+    global PARENT_DIR
+    if "--parent" in argv:
+        i = argv.index("--parent")
+        PARENT_DIR = argv[i + 1]
+        argv = argv[:i] + argv[i + 2:]
+    if argv[:1] == ["--ln-paths"]:         # phases 4, 6, 8 for the LN forward, alone
+        card = phase_env()
+        runs = phase_ln_paths(card)
+        OUT_JSON.parent.mkdir(parents=True, exist_ok=True)
+        (OUT_JSON.parent / "ln_paths.json").write_text(json.dumps(
+            {"card": card, "ln_paths": runs}, indent=1, default=float))
+        return 0
     if argv[:1] in (["--dp-cards"], ["--tp-cards"]):   # on N cards, alone
         card = phase_env()
         run_build = phase_build()
@@ -5171,7 +5539,8 @@ def main(argv):
                                                 k["packed_rows"])
     kernel_json = dict(kernels=krows, tp_kernels=tp_rows, option_kernels=option_rows,
                        packed_kernels=packed_rows, dropout_masks=k["masks"],
-                       forward_edges=k["edges"], host_us_per_call=k["host_us"],
+                       forward_edges=k["edges"], ln_edges=k["ln_edges"],
+                       host_us_per_call=k["host_us"],
                        kernel_part_seconds=k["part_seconds"])
     if kernels_only:                   # quick check of a kernel change
         OUT_JSON.parent.mkdir(parents=True, exist_ok=True)

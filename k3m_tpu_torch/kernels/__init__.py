@@ -1,7 +1,9 @@
 """Hand-written CUDA kernels of the port and their plain PyTorch versions.
 
 Each wrapper launches its kernel for CUDA tensors and runs its plain
-version for CPU tensors, and counts its kernel launches in `.launches`.
+version for CPU tensors, and counts its kernel launches in `.launches`
+(`fused_layernorm.per_element_launches` counts those of the LN forward's
+per-element instance apart).
 The forward wrappers are differentiable: their backward runs
 `layernorm_bwd` / `attention_bwd`, which count their own launches.
 """
@@ -27,6 +29,7 @@ WRAPPERS = {
 def reset_launch_counts() -> None:
     for fn in WRAPPERS.values():
         fn.launches = 0
+    fused_layernorm.per_element_launches = 0
 
 
 def launch_counts() -> dict:

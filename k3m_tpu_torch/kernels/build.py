@@ -98,7 +98,7 @@ def build(verbose: bool = False) -> Path:
 
 def _declare(lib):
     P, I, F, U = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_uint
-    lib.k3m_layernorm_fwd.argtypes = [P, I, P, I, P, P, P, I, P, I, I, F, P]
+    lib.k3m_layernorm_fwd.argtypes = [P, I, P, I, P, P, P, I, P, I, I, F, I, P]
     lib.k3m_ln_bwd_bands.argtypes = [I]
     lib.k3m_layernorm_bwd.argtypes = [P, I, P, P, P, P, P, I, P, P, P, I, I, P]
     lib.k3m_attention_fwd.argtypes = [P, P, P, P, P, P, P, I, I, I, I, I, I, P, F,

@@ -17,10 +17,33 @@
 // res when given; y and dy in the backward) and written once, with ~10-16
 // flops per element, far below the card's flop/byte balance.
 //
-// Forward design: one warp per row (N <= 1024), so a row lives in 32
-// registers per lane; the row statistics come from warp shuffles, and
-// nothing but the row tensors touches device memory. Lane l handles columns
-// l, l+32, ..., so each warp load is one contiguous run of the row.
+// Forward design. What bounds it is device-memory bytes: ~6 bytes an
+// element in bf16 with a residual against ~10 flops, so the card must keep
+// ~25 KB in flight per SM (3.35 TB/s x ~1 us of latency over 132 SMs) and
+// move them in few, wide loads and stores. Two instances:
+// - The vector instance (ln_fwd_vec_kernel) takes rows of a multiple of 8
+//   columns whose tensors start on 16-byte boundaries: every shape of the
+//   main path. A warp owns a row at a time; lane l owns the column groups
+//   l, l + 32, ... (8 columns where every tensor is bf16, else 4, so that
+//   each warp load or store is one contiguous run of 16- or 8-byte
+//   vectors), templated on the groups per lane, so at 768 and 1024 columns
+//   no loop carries a predicate, and keeps those columns' scale and bias in
+//   registers for the whole kernel. The grid is persistent (the SMs times
+//   the blocks an SM holds, from the occupancy query; two such waves where
+//   each warp would take more than 4 rows, so that the last rows go to
+//   whichever blocks are free) and warp w of it takes rows w, w + warps,
+//   ..., loading the next row into registers while it reduces and stores
+//   this one (the backward's pattern; up to 255 registers, so the
+//   1024-column rows do not spill). A design that brought the rows into
+//   per-warp rings of shared memory by Hopper's bulk asynchronous copy
+//   (cp.async.bulk completing on mbarriers, ~100-190 KB in flight per SM)
+//   was no faster at the main-path shapes and was dropped (PERF.md).
+// - The per-element instance (ln_fwd_kernel, the first design) takes
+//   every other shape: any width up to 1024 and any element alignment, one
+//   warp per row, lane l on columns l, l + 32, ...
+// The wrapper picks the instance (kernels/layernorm.py ln_instance). Each
+// row is computed by one warp in a fixed order in both, so the same input
+// gives the same bits whatever the grid.
 //
 // Backward design. The TPU sums dscale/dbias across its sequential grid in
 // VMEM; blocks on the card run in no order, so the rows are cut into bands,
@@ -37,11 +60,13 @@
 // multiple of 8 in bf16, of 4 in fp32).
 #include <stdint.h>
 
+#include <atomic>
+
 #include "common.cuh"
 
 namespace {
 
-constexpr int kWarps = 4;          // rows in flight per CTA
+constexpr int kWarps = 4;          // rows in flight per CTA of the per-element instance
 constexpr int kMaxPerLane = 32;    // N <= 32 * 32
 constexpr int kMaxN = 32 * kMaxPerLane;
 
@@ -87,7 +112,7 @@ ln_fwd_kernel(const TX* __restrict__ x, const TR* __restrict__ res,
 }
 
 template <typename TX, typename TR, typename TO, bool kRes>
-void launch(const void* x, const void* res, const void* scale, const void* bias,
+void launch_elem(const void* x, const void* res, const void* scale, const void* bias,
             void* out, float* rstd, int rows, int n, float eps, cudaStream_t stream) {
   const int grid = (rows + kWarps - 1) / kWarps;
   ln_fwd_kernel<TX, TR, TO, kRes><<<grid, kWarps * 32, 0, stream>>>(
@@ -97,15 +122,16 @@ void launch(const void* x, const void* res, const void* scale, const void* bias,
 }
 
 template <typename TX, typename TO>
-void launch_res(const void* x, const void* res, int res_dtype, const void* scale,
-                const void* bias, void* out, float* rstd, int rows, int n, float eps,
-                cudaStream_t stream) {
+void launch_elem_res(const void* x, const void* res, int res_dtype, const void* scale,
+                     const void* bias, void* out, float* rstd, int rows, int n, float eps,
+                     cudaStream_t stream) {
   if (res == nullptr)
-    launch<TX, float, TO, false>(x, res, scale, bias, out, rstd, rows, n, eps, stream);
+    launch_elem<TX, float, TO, false>(x, res, scale, bias, out, rstd, rows, n, eps, stream);
   else if (res_dtype == k3m::kF32)
-    launch<TX, float, TO, true>(x, res, scale, bias, out, rstd, rows, n, eps, stream);
+    launch_elem<TX, float, TO, true>(x, res, scale, bias, out, rstd, rows, n, eps, stream);
   else
-    launch<TX, __nv_bfloat16, TO, true>(x, res, scale, bias, out, rstd, rows, n, eps, stream);
+    launch_elem<TX, __nv_bfloat16, TO, true>(x, res, scale, bias, out, rstd, rows, n, eps,
+                                             stream);
 }
 
 constexpr int kBwdWarps = 8;       // rows in flight per block of the backward
@@ -153,6 +179,237 @@ __device__ __forceinline__ void store(float* p, const float (&f)[E]) {
 #pragma unroll
   for (int i = 0; i < E; i += 4)
     *reinterpret_cast<float4*>(p + i) = make_float4(f[i], f[i + 1], f[i + 2], f[i + 3]);
+}
+
+// ------------------------------------------------- the forward's vector instance
+
+constexpr int kVecWarps = 8;         // warps of a block, each on its own row
+constexpr int kMaxDevices = 64;
+
+// Columns of a lane's group: 8 where x, the residual and the output are all
+// bf16 (one 16-byte vector each), else 4 (16 bytes of fp32, 8 of bf16), so
+// that every load and store of a warp covers one contiguous run of a row.
+template <typename TX, typename TR, typename TO, bool kRes>
+__host__ __device__ constexpr int group_cols() {
+  return sizeof(TX) == 2 && sizeof(TO) == 2 && (!kRes || sizeof(TR) == 2) ? 8 : 4;
+}
+
+// E values of T as loaded: 8, 16 or 32 bytes
+template <typename T, int E>
+struct Group {
+  static constexpr int kWords = E * static_cast<int>(sizeof(T)) / 4;
+  uint32_t w[kWords];
+};
+
+template <typename T, int E>
+__device__ __forceinline__ void load_group(Group<T, E>& g, const T* p) {
+  if constexpr (Group<T, E>::kWords == 2) {
+    const uint2 v = *reinterpret_cast<const uint2*>(p);
+    g.w[0] = v.x;
+    g.w[1] = v.y;
+  } else {
+#pragma unroll
+    for (int q = 0; q < Group<T, E>::kWords / 4; ++q) {
+      const uint4 v = reinterpret_cast<const uint4*>(p)[q];
+      g.w[4 * q] = v.x;
+      g.w[4 * q + 1] = v.y;
+      g.w[4 * q + 2] = v.z;
+      g.w[4 * q + 3] = v.w;
+    }
+  }
+}
+
+template <int E>
+__device__ __forceinline__ void to_f32(const Group<__nv_bfloat16, E>& g, float (&f)[E]) {
+#pragma unroll
+  for (int k = 0; k < E / 2; ++k) {
+    const float2 v = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&g.w[k]));
+    f[2 * k] = v.x;
+    f[2 * k + 1] = v.y;
+  }
+}
+
+template <int E>
+__device__ __forceinline__ void to_f32(const Group<float, E>& g, float (&f)[E]) {
+#pragma unroll
+  for (int k = 0; k < E; ++k) f[k] = __uint_as_float(g.w[k]);
+}
+
+template <typename T, int E>
+__device__ __forceinline__ void load_f32(const T* p, float (&f)[E]) {
+  Group<T, E> g;
+  load_group(g, p);
+  to_f32(g, f);
+}
+
+// rows of n = E * nv columns in groups of E = group_cols(), nv <= 32 * VPL
+// groups (nv == 32 * VPL where kFull); the next row is prefetched into
+// registers while this one is reduced and stored.
+template <typename TX, typename TR, typename TO, bool kRes, int VPL, bool kFull>
+__global__ void __launch_bounds__(kVecWarps * 32, 1)
+ln_fwd_vec_kernel(const TX* __restrict__ x, const TR* __restrict__ res,
+                  const float* __restrict__ scale, const float* __restrict__ bias,
+                  TO* __restrict__ out, float* __restrict__ rstd_out, int rows, int n,
+                  float eps) {
+  constexpr int E = group_cols<TX, TR, TO, kRes>();
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int nv = kFull ? 32 * VPL : n / E;
+  const int step = gridDim.x * kVecWarps;       // warps of the grid
+  int row = blockIdx.x * kVecWarps + warp;      // this warp's rows: row, row + step, ...
+  if (row >= rows) return;                      // no block-wide barrier follows
+
+  float sc[VPL][E], bs[VPL][E];
+#pragma unroll
+  for (int i = 0; i < VPL; ++i) {
+    const int vi = lane + 32 * i;
+    if (kFull || vi < nv) {
+      load_f32(scale + vi * E, sc[i]);
+      load_f32(bias + vi * E, bs[i]);
+    }
+  }
+
+  Group<TX, E> nx[VPL];                         // the next row
+  Group<TR, E> nr[VPL];
+  auto prefetch = [&](int r) {
+#pragma unroll
+    for (int i = 0; i < VPL; ++i) {
+      const int vi = lane + 32 * i;
+      if (kFull || vi < nv) {
+        load_group(nx[i], x + static_cast<size_t>(r) * n + vi * E);
+        if (kRes) load_group(nr[i], res + static_cast<size_t>(r) * n + vi * E);
+      }
+    }
+  };
+  prefetch(row);
+
+  for (; row < rows; row += step) {
+    float v[VPL][E];
+    float sum = 0.f;
+#pragma unroll
+    for (int i = 0; i < VPL; ++i) {
+      const int vi = lane + 32 * i;
+      if (kFull || vi < nv) {
+        to_f32(nx[i], v[i]);
+        if (kRes) {
+          float t[E];
+          to_f32(nr[i], t);
+#pragma unroll
+          for (int e = 0; e < E; ++e) v[i][e] += t[e];
+        }
+      }
+    }
+    if (row + step < rows) prefetch(row + step);
+#pragma unroll
+    for (int i = 0; i < VPL; ++i) {
+      if (kFull || lane + 32 * i < nv) {
+#pragma unroll
+        for (int e = 0; e < E; ++e) sum += v[i][e];
+      }
+    }
+    const float mean = k3m::warp_sum(sum) / n;
+    float sq = 0.f;
+#pragma unroll
+    for (int i = 0; i < VPL; ++i) {
+      if (kFull || lane + 32 * i < nv) {
+#pragma unroll
+        for (int e = 0; e < E; ++e) {
+          const float d = v[i][e] - mean;
+          v[i][e] = d;
+          sq += d * d;
+        }
+      }
+    }
+    const float rstd = rsqrtf(k3m::warp_sum(sq) / n + eps);
+    TO* o = out + static_cast<size_t>(row) * n;
+#pragma unroll
+    for (int i = 0; i < VPL; ++i) {
+      const int vi = lane + 32 * i;
+      if (kFull || vi < nv) {
+        float y[E];
+#pragma unroll
+        for (int e = 0; e < E; ++e) y[e] = v[i][e] * rstd * sc[i][e] + bs[i][e];
+        store<E>(o + vi * E, y);
+      }
+    }
+    if (rstd_out != nullptr && lane == 0) rstd_out[row] = rstd;
+  }
+}
+
+// Launches one instantiation on a persistent grid: the SMs times the blocks
+// an SM holds (a wave), at most one warp per row. The occupancy query costs
+// microseconds of host time, so its result is kept per device.
+template <typename TX, typename TR, typename TO, bool kRes, int VPL, bool kFull>
+int launch_vec(const void* x, const void* res, const float* scale, const float* bias, void* out,
+               float* rstd, int rows, int n, float eps, cudaStream_t stream) {
+  const auto kernel = ln_fwd_vec_kernel<TX, TR, TO, kRes, VPL, kFull>;
+  static std::atomic<int> wave[kMaxDevices];     // blocks of a wave, 0 until queried
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  int blocks = dev < kMaxDevices ? wave[dev].load(std::memory_order_relaxed) : 0;
+  if (blocks == 0) {
+    int sms = 0, per_sm = 0;
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kVecWarps * 32, 0);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    if (per_sm <= 0) return cudaErrorInvalidConfiguration;
+    blocks = sms * per_sm;
+    if (dev < kMaxDevices) wave[dev].store(blocks, std::memory_order_relaxed);
+  }
+  // one row per warp where the rows fit one wave of blocks; else one wave,
+  // or two waves' worth where a wave's warps would take more than 4 rows
+  // each, so that the hardware hands the last rows to whichever blocks are
+  // free instead of leaving the wave's slowest warps a row behind
+  const int want = (rows + kVecWarps - 1) / kVecWarps;
+  const int grid = want <= blocks ? want : (want <= 4 * blocks ? blocks : 2 * blocks);
+  kernel<<<grid, kVecWarps * 32, 0, stream>>>(
+      static_cast<const TX*>(x), static_cast<const TR*>(res), scale, bias, static_cast<TO*>(out),
+      rstd, rows, n, eps);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// One instantiation per groups-per-lane where the row fills them (256, 512,
+// 768 and 1024 columns; 512 to 1024 where groups are of 4), one with
+// predicates for every other width of whole groups.
+template <typename TX, typename TR, typename TO, bool kRes>
+int launch_vec_width(const void* x, const void* res, const float* scale, const float* bias,
+                     void* out, float* rstd, int rows, int n, float eps, cudaStream_t stream) {
+  constexpr int E = group_cols<TX, TR, TO, kRes>();
+  const int nv = n / E;
+#define K3M_LN_VEC(VPL, FULL) \
+  launch_vec<TX, TR, TO, kRes, VPL, FULL>(x, res, scale, bias, out, rstd, rows, n, eps, stream)
+  if constexpr (E == 8) {
+    switch (nv) {
+      case 32: return K3M_LN_VEC(1, true);
+      case 64: return K3M_LN_VEC(2, true);
+      case 96: return K3M_LN_VEC(3, true);
+      case 128: return K3M_LN_VEC(4, true);
+      default: return K3M_LN_VEC(4, false);
+    }
+  } else {
+    switch (nv) {
+      case 128: return K3M_LN_VEC(4, true);
+      case 192: return K3M_LN_VEC(6, true);
+      case 256: return K3M_LN_VEC(8, true);
+      default: return K3M_LN_VEC(8, false);
+    }
+  }
+#undef K3M_LN_VEC
+}
+
+template <typename TX, typename TO>
+int launch_vec_res(const void* x, const void* res, int res_dtype, const void* scale,
+                   const void* bias, void* out, float* rstd, int rows, int n, float eps,
+                   cudaStream_t stream) {
+  const float* s = static_cast<const float*>(scale);
+  const float* b = static_cast<const float*>(bias);
+  if (res == nullptr)
+    return launch_vec_width<TX, float, TO, false>(x, res, s, b, out, rstd, rows, n, eps, stream);
+  if (res_dtype == k3m::kF32)
+    return launch_vec_width<TX, float, TO, true>(x, res, s, b, out, rstd, rows, n, eps, stream);
+  return launch_vec_width<TX, __nv_bfloat16, TO, true>(x, res, s, b, out, rstd, rows, n, eps,
+                                                       stream);
 }
 
 // dx of the rows in this block's band, and the band's dscale/dbias partials.
@@ -372,22 +629,45 @@ int launch_bwd(const void* y, const float* rstd, const float* scale, const float
 
 }  // namespace
 
-// Returns cudaGetLastError() after the launch (0 on success). `rstd` may be
-// null (no gradient needed); otherwise it receives fp32 [rows].
+// `vec`: 1 for the vector instance (n a multiple of 8; x, res, out, scale
+// and bias 16-byte aligned; cudaErrorInvalidValue otherwise), 0 for the
+// per-element one (any width up to kMaxN, any alignment). Returns
+// cudaGetLastError() after the launch (0 on success). `rstd` may be null
+// (no gradient needed); otherwise it receives fp32 [rows].
 extern "C" int k3m_layernorm_fwd(const void* x, int x_dtype, const void* res,
                                  int res_dtype, const void* scale, const void* bias,
                                  void* out, int out_dtype, float* rstd, int rows, int n,
-                                 float eps, void* stream_ptr) {
+                                 float eps, int vec, void* stream_ptr) {
   if (n <= 0 || n > kMaxN || rows <= 0) return cudaErrorInvalidValue;
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+  if (vec) {
+    if (n % 8 || reinterpret_cast<uintptr_t>(x) % 16 || reinterpret_cast<uintptr_t>(res) % 16 ||
+        reinterpret_cast<uintptr_t>(out) % 16 || reinterpret_cast<uintptr_t>(scale) % 16 ||
+        reinterpret_cast<uintptr_t>(bias) % 16)
+      return cudaErrorInvalidValue;
+    if (x_dtype == k3m::kF32 && out_dtype == k3m::kF32)
+      return launch_vec_res<float, float>(x, res, res_dtype, scale, bias, out, rstd, rows, n, eps,
+                                          stream);
+    if (x_dtype == k3m::kF32)
+      return launch_vec_res<float, __nv_bfloat16>(x, res, res_dtype, scale, bias, out, rstd, rows,
+                                                  n, eps, stream);
+    if (out_dtype == k3m::kF32)
+      return launch_vec_res<__nv_bfloat16, float>(x, res, res_dtype, scale, bias, out, rstd, rows,
+                                                  n, eps, stream);
+    return launch_vec_res<__nv_bfloat16, __nv_bfloat16>(x, res, res_dtype, scale, bias, out, rstd,
+                                                         rows, n, eps, stream);
+  }
   if (x_dtype == k3m::kF32 && out_dtype == k3m::kF32)
-    launch_res<float, float>(x, res, res_dtype, scale, bias, out, rstd, rows, n, eps, stream);
+    launch_elem_res<float, float>(x, res, res_dtype, scale, bias, out, rstd, rows, n, eps, stream);
   else if (x_dtype == k3m::kF32 && out_dtype == k3m::kBF16)
-    launch_res<float, __nv_bfloat16>(x, res, res_dtype, scale, bias, out, rstd, rows, n, eps, stream);
+    launch_elem_res<float, __nv_bfloat16>(x, res, res_dtype, scale, bias, out, rstd, rows, n, eps,
+                                          stream);
   else if (x_dtype == k3m::kBF16 && out_dtype == k3m::kF32)
-    launch_res<__nv_bfloat16, float>(x, res, res_dtype, scale, bias, out, rstd, rows, n, eps, stream);
+    launch_elem_res<__nv_bfloat16, float>(x, res, res_dtype, scale, bias, out, rstd, rows, n, eps,
+                                          stream);
   else
-    launch_res<__nv_bfloat16, __nv_bfloat16>(x, res, res_dtype, scale, bias, out, rstd, rows, n, eps, stream);
+    launch_elem_res<__nv_bfloat16, __nv_bfloat16>(x, res, res_dtype, scale, bias, out, rstd, rows,
+                                                  n, eps, stream);
   return static_cast<int>(cudaGetLastError());
 }
 

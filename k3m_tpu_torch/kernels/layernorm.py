@@ -3,11 +3,16 @@ plain versions.
 
 `fused_layernorm` launches `csrc/layernorm.cu` for CUDA tensors and runs
 `layernorm_plain` for CPU tensors; it never falls back from one to the
-other. Numerics follow k3m_tpu/kernels/layernorm.py: fp32 two-pass mean and
-centered variance, eps inside the rsqrt, cast to the output dtype at the
-end. Where a gradient is needed the call goes through `_FusedLayerNorm`,
-which saves the output, the fp32 row rstd, scale and bias (never the
-inputs, as `_fused_ln_fwd` does) and runs `layernorm_bwd` (kernel) or
+other. The forward kernel has two instances, which `ln_instance` picks from
+the width and the tensors' alignment: the vector instance (16-byte loads
+and stores, the next row prefetched; every main-path shape) and the
+per-element one (any other width or alignment), counted apart in
+`fused_layernorm.per_element_launches`. Numerics follow
+k3m_tpu/kernels/layernorm.py: fp32 two-pass mean and centered variance,
+eps inside the rsqrt, cast to the output dtype at the end. Where a
+gradient is needed the call goes through `_FusedLayerNorm`, which saves the
+output, the fp32 row rstd, scale and bias (never the inputs, as
+`_fused_ln_fwd` does) and runs `layernorm_bwd` (kernel) or
 `layernorm_bwd_plain` (CPU) on them.
 """
 
@@ -18,6 +23,7 @@ import torch
 from k3m_tpu_torch.kernels import build
 
 MAX_N = 1024
+VEC = 8    # the vector instance takes widths that are multiples of VEC
 
 
 def _plain_fwd(x, scale, bias, residual, eps, out_dtype):
@@ -74,9 +80,22 @@ def _check(x, scale, bias, residual, out_dtype):
             raise ValueError(f"fused_layernorm: {name} must be fp32 [{n}] on {x.device}")
 
 
-def _forward(x, scale, bias, residual, eps, out_dtype, with_rstd):
+def ln_instance(n: int, ptrs: int) -> str:
+    """The forward kernel's instance for rows of `n` columns whose tensors
+    (x, the residual, scale and bias; the output is allocated 16-byte
+    aligned) start at addresses whose bitwise or is `ptrs`: "vector" where
+    n is a multiple of VEC (so a row is a whole number of 16-byte vectors in
+    bf16 and in fp32, and each row of a contiguous tensor is 16-byte aligned
+    where the tensor is) and every tensor is 16-byte aligned; "per_element"
+    otherwise."""
+    return "vector" if n % VEC == 0 and ptrs % 16 == 0 else "per_element"
+
+
+def _forward(x, scale, bias, residual, eps, out_dtype, with_rstd, instance=None):
     """(out, rstd or None) on x's device: the kernel for CUDA tensors, the
-    plain version for CPU tensors."""
+    plain version for CPU tensors. `instance` ("vector" or "per_element")
+    overrides the one `ln_instance` picks; one the shape cannot take
+    raises."""
     if x.device.type == "cpu":
         out, rstd = _plain_fwd(x, scale, bias, residual, eps, out_dtype)
         return out, (rstd if with_rstd else None)
@@ -88,15 +107,21 @@ def _forward(x, scale, bias, residual, eps, out_dtype, with_rstd):
     out = torch.empty(x.shape, dtype=out_dtype, device=x.device)
     rstd = torch.empty(x.shape[:-1], dtype=torch.float32, device=x.device) \
         if with_rstd else None
+    xp, sp, bp = x.data_ptr(), scale.data_ptr(), bias.data_ptr()
+    rp = residual.data_ptr() if residual is not None else None
+    if instance is None:
+        instance = ln_instance(n, xp | sp | bp | (rp or 0))
     rc = build.library().k3m_layernorm_fwd(
-        x.data_ptr(), build.DTYPE_CODES[x.dtype],
-        residual.data_ptr() if residual is not None else None,
+        xp, build.DTYPE_CODES[x.dtype], rp,
         build.DTYPE_CODES[residual.dtype] if residual is not None else 0,
-        scale.data_ptr(), bias.data_ptr(), out.data_ptr(),
-        build.DTYPE_CODES[out_dtype], rstd.data_ptr() if rstd is not None else None,
-        rows, n, eps, build.stream_handle(x.device))
-    build.check(rc, "k3m_layernorm_fwd")
+        sp, bp, out.data_ptr(), build.DTYPE_CODES[out_dtype],
+        rstd.data_ptr() if rstd is not None else None,
+        rows, n, eps, instance == "vector", build.stream_handle(x.device))
+    if rc:
+        build.check(rc, f"k3m_layernorm_fwd ({instance} instance)")
     fused_layernorm.launches += 1
+    if instance == "per_element":
+        fused_layernorm.per_element_launches += 1
     return out, rstd
 
 
@@ -166,5 +191,6 @@ def fused_layernorm(x, scale, bias, residual=None, *, eps: float = 1e-12,
     return _forward(x, scale, bias, residual, eps, out_dtype, False)[0]
 
 
-fused_layernorm.launches = 0
+fused_layernorm.launches = 0                # every launch of the forward kernel
+fused_layernorm.per_element_launches = 0    # those of its per-element instance
 layernorm_bwd.launches = 0

@@ -1,0 +1,8 @@
+"""Host ms a batch in `k3m.stage.wire`, in the program's traced segment
+(lib/program_trace.py)."""
+
+from benchmark.lib import program_trace
+
+
+def read(run):
+    return program_trace.host_ms(run, "score", "k3m.stage.wire")

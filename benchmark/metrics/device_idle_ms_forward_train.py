@@ -1,0 +1,8 @@
+"""Idle ms a step of the card under `k3m.forward`, in the program's traced
+segment (lib/program_trace.py)."""
+
+from benchmark.lib import program_trace
+
+
+def read(run):
+    return program_trace.idle_ms(run, "pretrain", "forward")

@@ -2947,23 +2947,32 @@ def _sha(named):
     return h.hexdigest()
 
 
+AR_STEPS = 4    # train steps after a data-parallel finetune that time its all-reduce
+
+
 def _dp_finetune(spec):
     """`k3m_tpu_torch.finetune` with the spec's argv, in the world its
     environment gives; under `profile`, one more train step on this rank's
     rows after the run is read (every rank steps, rank 0 under the
-    profiler: device ms, launch calls and wall ms of that step)."""
-    from k3m_tpu_torch import finetune
+    profiler: device ms, launch calls and wall ms of that step). The
+    kernels' launch counts (`launches`) are read then. Where the world has
+    ranks to sum over, AR_STEPS more train steps follow, each recording
+    (utils/trace.py) so that the span `k3m.allreduce` times its all-reduce
+    between two device syncs: the history's `allreduce_seconds`. The run's
+    own steps are not recorded, so their times are the program's alone."""
+    from k3m_tpu_torch import finetune, kernels
     from k3m_tpu_torch.dist import World
     from k3m_tpu_torch.train import dist
+    from k3m_tpu_torch.utils import trace
     held, init = [], dist.init_from_env
-    if spec.get("profile"):
-        # the CLI leaves its world at its end: keep it for the step below
-        def init_and_hold(device):
-            world = init(device)
-            world.close = lambda: None
-            held.append(world)
-            return world
-        dist.init_from_env = init_and_hold
+
+    # the CLI leaves its world at its end: keep it for the steps below
+    def init_and_hold(*args, **kwargs):
+        world = init(*args, **kwargs)
+        world.close = lambda: None
+        held.append(world)
+        return world
+    dist.init_from_env = init_and_hold
     try:
         run = finetune.main(spec["argv"])
     finally:
@@ -2972,18 +2981,20 @@ def _dp_finetune(spec):
     if "history" in run:
         (h,) = run["history"]
         out["history"] = {k: h[k] for k in ("step_seconds", "step_pairs", "step_losses",
-                                            "sweep", "allreduce_bytes", "allreduce_seconds",
-                                            "checkpoint_path") if k in h}
+                                            "sweep", "allreduce_bytes", "checkpoint_path")
+                          if k in h}
         out["params_sha"] = _sha(run["trainer"].model.named_parameters())
     if "output" in run:
         out.update(output=run["output"], batch_seconds=run["batch_seconds"],
                    batch_pairs=run["batch_pairs"])
-    if spec.get("profile"):
+    timed = "history" in run and bool(run["trainer"].world.group)
+    if timed or spec.get("profile"):
         trainer = run["trainer"]
         path = Path(spec["argv"][spec["argv"].index("--data_dir") + 1])
         batch = trainer.stage(_load_batch(path / "train_item_alignment.k3mr", trainer.config,
                                           out["history"]["step_pairs"][0]))
         step = lambda: trainer.train_step(batch)
+    if spec.get("profile"):
         out["profile"] = None
         if trainer.world.rank == 0:
             out["profile"] = profile_device(step, spec.get("card", ""), f"rank 0 of "
@@ -2991,6 +3002,15 @@ def _dp_finetune(spec):
         else:
             step()
             torch.cuda.synchronize()
+    out["launches"] = kernels.launch_counts()
+    if timed:
+        seconds = []
+        for _ in range(AR_STEPS):
+            with trace.recording():
+                step()
+            seconds.append(trainer.allreduce[1])
+        out["history"]["allreduce_seconds"] = seconds
+    if held:
         World.close(held[0])
     return out
 
@@ -3070,8 +3090,8 @@ DP_MODES = {"finetune": _dp_finetune, "pretrain_step": _dp_pretrain_step,
 def dp_worker(spec_path):
     """One process of phases 17-19 and 22-23 (`chip_smoke.py --dp-worker
     <spec>`):
-    the spec's mode, with the kernels' launch counts and the peak memory
-    of this process; under `deterministic`, with
+    the spec's mode, with the kernels' launch counts (unless the mode read
+    them) and the peak memory of this process; under `deterministic`, with
     torch.use_deterministic_algorithms (warn_only: an op without a
     deterministic implementation is reported, not raised)."""
     import warnings
@@ -3089,8 +3109,8 @@ def dp_worker(spec_path):
         torch.cuda.reset_peak_memory_stats()
         out = DP_MODES[spec["mode"]](spec)
         torch.cuda.synchronize()
-    out.update(launches=kernels.launch_counts(),
-               peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+    out.setdefault("launches", kernels.launch_counts())
+    out.update(peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
                nondeterministic=sorted({str(w.message).splitlines()[0] for w in caught
                                         if "deterministic" in str(w.message)}))
     Path(spec["result"]).write_text(json.dumps(out))

@@ -43,6 +43,7 @@ import math
 import torch
 
 from k3m_tpu_torch.kernels import build
+from k3m_tpu_torch.utils import trace
 
 HEAD_DIMS = (64, 96, 128)
 U32 = 0xFFFFFFFF
@@ -259,6 +260,7 @@ def _plain_forward(q, k, v, bias, rate, seed, salt, for_backward, row0=0, head0=
     return attention_plain(q, k, v, bias, keep, rate), None, words
 
 
+@trace.spanned("k3m.kernel.fused_attention", arguments=True)
 def _forward(q, k, v, bias, rate, seed, for_backward=False, row0=0, head0=0,
              heads_global=None):
     """(out, lse, keep_words): the kernel for CUDA tensors, which keeps lse
@@ -288,6 +290,7 @@ def _forward(q, k, v, bias, rate, seed, for_backward=False, row0=0, head0=0,
     return out, lse, words
 
 
+@trace.spanned("k3m.kernel.attention_bwd", arguments=True)
 def attention_bwd(q, k, v, bias, out, lse, keep_words, dout, rate: float = 0.0):
     """(dq, dk, dv) of one attention direction whose forward at `rate` gave
     `out`, the row log-sum-exp `lse` and, under dropout, its mask words

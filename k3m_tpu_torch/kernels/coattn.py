@@ -28,6 +28,7 @@ from k3m_tpu_torch.kernels.attention import (
     U32, _device_kind, _plain_forward, _ptr, attention_bwd, attention_plain, bld_strides,
     check_mask_key, check_operands, keep_threshold, keep_words_for,
 )
+from k3m_tpu_torch.utils import trace
 
 SALT2 = 7919
 
@@ -38,6 +39,7 @@ def biattention_plain(q1, k1, v1, bias1, q2, k2, v2, bias2, keep1=None,
             attention_plain(q1, k2, v2, bias2, keep2, dropout2))
 
 
+@trace.spanned("k3m.kernel.fused_biattention", arguments=True)
 def _forward(q1, k1, v1, bias1, q2, k2, v2, bias2, dropout1, dropout2, seed,
              for_backward=False, row0=0, head0=0, heads_global=None):
     """(out1, out2, kept1, kept2): each direction's (lse, keep_words) as

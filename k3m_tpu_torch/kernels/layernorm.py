@@ -21,6 +21,7 @@ from __future__ import annotations
 import torch
 
 from k3m_tpu_torch.kernels import build
+from k3m_tpu_torch.utils import trace
 
 MAX_N = 1024
 VEC = 8    # the vector instance takes widths that are multiples of VEC
@@ -91,6 +92,7 @@ def ln_instance(n: int, ptrs: int) -> str:
     return "vector" if n % VEC == 0 and ptrs % 16 == 0 else "per_element"
 
 
+@trace.spanned("k3m.kernel.fused_layernorm", arguments=True)
 def _forward(x, scale, bias, residual, eps, out_dtype, with_rstd, instance=None):
     """(out, rstd or None) on x's device: the kernel for CUDA tensors, the
     plain version for CPU tensors. `instance` ("vector" or "per_element")
@@ -125,6 +127,7 @@ def _forward(x, scale, bias, residual, eps, out_dtype, with_rstd, instance=None)
     return out, rstd
 
 
+@trace.spanned("k3m.kernel.layernorm_bwd", arguments=True)
 def layernorm_bwd(y, rstd, scale, bias, dy, x_dtype):
     """(dx, dscale, dbias): the backward kernel for CUDA tensors, the plain
     version for CPU tensors. The kernel reads rows of whole 16-byte vectors:

@@ -42,8 +42,11 @@ from k3m_tpu_torch.model.alignment import build_model
 from k3m_tpu_torch.model.layers import compute_dtype
 from k3m_tpu_torch.dist import World
 from k3m_tpu_torch.train.state import CheckpointManager
-from k3m_tpu_torch.train.trainer import Trainer, batch_rows, stage_array, stage_arrays
+from k3m_tpu_torch.train.trainer import (
+    Trainer, allreduce_summary, batch_rows, stage_batch, wire_array, wire_batch,
+)
 from k3m_tpu_torch.train.wire import decode, wire_mode
+from k3m_tpu_torch.utils import trace
 
 logger = logging.getLogger(__name__)
 
@@ -64,7 +67,7 @@ def precision_recall_f1(labels: np.ndarray, preds: np.ndarray):
 
 def batch_to_device(batch: Dict, device, config=None, wire: str = "exact") -> Dict:
     """A host pair batch's model inputs on `device`, as the trainer, the
-    sweep and predict stage them (`stage_arrays`): labels fp32, integer
+    sweep and predict stage them (`stage_batch`): labels fp32, integer
     arrays int64, image_feat in the wire's form (bf16 under the `fp` wire
     and a bf16 `config`, int8 and its row scales under `int8`, which
     `decode_items` undoes on the device). A batch already there passes
@@ -72,9 +75,10 @@ def batch_to_device(batch: Dict, device, config=None, wire: str = "exact") -> Di
     device = torch.device(device)
     if isinstance(batch.get("label"), torch.Tensor) and batch["label"].device == device:
         return batch
-    return dict(label=stage_array("label", np.asarray(batch["label"], np.float32), device),
-                **{side: stage_arrays(batch[side], ITEM_KEYS, device, config, wire)
-                   for side in ("item1", "item2")})
+    return stage_batch(lambda: dict(
+        label=wire_array("label", np.asarray(batch["label"], np.float32)),
+        **{side: wire_batch(batch[side], ITEM_KEYS, config, wire)
+           for side in ("item1", "item2")}), device)
 
 
 def decode_items(batch: Dict, config) -> Dict:
@@ -84,6 +88,7 @@ def decode_items(batch: Dict, config) -> Dict:
     return dict(batch, item1=decode(batch["item1"], dt), item2=decode(batch["item2"], dt))
 
 
+@trace.spanned("k3m.forward")
 def forward(model, device_batch: Dict, world: Optional[World] = None):
     """(emb1, emb2, probs, loss) of one batch already on the model's device;
     `world`: the ranks whose batches make the global one."""
@@ -200,10 +205,12 @@ class AlignmentTrainer(Trainer):
         self.model.train()
         losses, probs = [], []
         for rows, rng in self.micro_slices(staged["label"].shape[0]):
-            part = batch_rows(staged, rows)
-            _, _, p, loss = self.model(part["label"], part["item1"], part["item2"],
-                                       deterministic=False, rng=rng, world=self.world)
-            (loss / (self.micro_steps * self.grad_accum_steps)).backward()
+            with trace.span("k3m.forward"):
+                part = batch_rows(staged, rows)
+                _, _, p, loss = self.model(part["label"], part["item1"], part["item2"],
+                                           deterministic=False, rng=rng, world=self.world)
+            with trace.span("k3m.backward"):
+                (loss / (self.micro_steps * self.grad_accum_steps)).backward()
             losses.append(loss.detach())
             probs.append(p.detach())
         loss = losses[0] if len(losses) == 1 else torch.stack(losses).mean()
@@ -211,6 +218,7 @@ class AlignmentTrainer(Trainer):
         self.update()
         return loss, torch.cat(probs)
 
+    @trace.spanned("k3m.fit")
     def fit(self, train_loader: Iterable, val_loader: Optional[Iterable] = None,
             num_epochs: int = 1, start_epoch: int = 0, log_steps: int = 20,
             checkpoint_dir: Optional[str] = None):
@@ -220,7 +228,8 @@ class AlignmentTrainer(Trainer):
         0 writes, the path is None on the other ranks). Each step ends with a
         device synchronisation so that its host time (`step_seconds`) is the
         step's; every step's loss (the global batch's) is kept
-        (`step_losses`)."""
+        (`step_losses`). Spans (utils/trace.py): `k3m.fit`, `k3m.epoch`,
+        `k3m.step`, `k3m.sync`."""
         ckpt = (CheckpointManager(checkpoint_dir, self.config)
                 if checkpoint_dir and self.world.rank == 0 else None)
         source = self.epoch_source(train_loader)
@@ -235,25 +244,27 @@ class AlignmentTrainer(Trainer):
             from_cache = cache is not None and cache.cached
             t_epoch = t_prev = time.perf_counter()
             seconds, pairs, losses, allreduce = [], [], [], []
-            for batch in self.prefetch(source):
-                loss, _ = self.train_step(batch)
-                sync()
-                t_now = time.perf_counter()
-                seconds.append(t_now - t_prev)
-                t_prev = t_now
-                pairs.append(int(batch["label"].shape[0]))
-                losses.append(loss)
-                allreduce.append(self.allreduce)
-                if log_steps and len(seconds) % log_steps == 0:
-                    logger.info("epoch %d step %d loss %.4f (%.3f s)", epoch, len(seconds),
-                                float(loss), seconds[-1])
+            with trace.span("k3m.epoch", epoch=epoch):
+                for batch in self.prefetch(source):
+                    pairs.append(int(batch["label"].shape[0]))
+                    with trace.span("k3m.step", samples=pairs[-1]):
+                        loss, _ = self.train_step(batch)
+                        with trace.span("k3m.sync"):
+                            sync()
+                    t_now = time.perf_counter()
+                    seconds.append(t_now - t_prev)
+                    t_prev = t_now
+                    losses.append(loss)
+                    allreduce.append(self.allreduce)
+                    if log_steps and len(seconds) % log_steps == 0:
+                        logger.info("epoch %d step %d loss %.4f (%.3f s)", epoch,
+                                    len(seconds), float(loss), seconds[-1])
             dt = time.perf_counter() - t_epoch
             summary = dict(epoch=epoch, seconds=dt, samples_per_sec=sum(pairs) / max(dt, 1e-9),
                            step_seconds=seconds, step_pairs=pairs,
                            step_losses=[float(x) for x in losses])
             if self.world.group:
-                summary["allreduce_bytes"] = [b for b, _ in allreduce]
-                summary["allreduce_seconds"] = [t for _, t in allreduce]
+                summary.update(allreduce_summary(allreduce))
             if cache is not None:
                 summary["device_cache"] = dict(from_cache=from_cache, cached=cache.cached,
                                                bytes=cache.bytes, budget_bytes=cache.max_bytes)

@@ -11,7 +11,8 @@ event after each batch; the consumer makes its current stream wait on that
 event before it hands the batch out, and records every staged tensor on
 that stream, so that the caching allocator does not reuse a tensor's
 memory while the compute stream may still read it. On the CPU it stages
-with no stream.
+with no stream. The consumer's wait for a staged batch is the span
+`k3m.data_wait` (utils/trace.py).
 """
 
 from __future__ import annotations
@@ -22,6 +23,8 @@ import threading
 from typing import Callable, Iterable, Iterator, Optional
 
 import torch
+
+from k3m_tpu_torch.utils import trace
 
 _DONE = object()
 
@@ -86,18 +89,21 @@ def staged_prefetch(loader: Iterable, stage: Callable, depth: Optional[int] = No
     t.start()
     try:
         while True:
-            item = q.get()
-            if item is _DONE:
-                if err:
-                    raise err[0]
-                return
-            staged, event = item
-            if event is not None:
-                compute = torch.cuda.current_stream(device)
-                compute.wait_event(event)
-                for x in _tensors(staged):
-                    if x.is_cuda:
-                        x.record_stream(compute)
+            # the wait is closed before the yield: the consumer's step runs
+            # outside it
+            with trace.span("k3m.data_wait"):
+                item = q.get()
+                if item is _DONE:
+                    if err:
+                        raise err[0]
+                    return
+                staged, event = item
+                if event is not None:
+                    compute = torch.cuda.current_stream(device)
+                    compute.wait_event(event)
+                    for x in _tensors(staged):
+                        if x.is_cuda:
+                            x.record_stream(compute)
             yield staged
     finally:
         stop.set()

@@ -51,8 +51,9 @@ from k3m_tpu_torch.model.pretrain import build_pretraining_model
 from k3m_tpu_torch.model.random import StepRandom
 from k3m_tpu_torch.dist import World
 from k3m_tpu_torch.train.state import CheckpointManager
-from k3m_tpu_torch.train.trainer import Trainer, batch_rows, stage_arrays
+from k3m_tpu_torch.train.trainer import Trainer, allreduce_summary, batch_rows, stage_arrays
 from k3m_tpu_torch.train.wire import decode
+from k3m_tpu_torch.utils import trace
 from k3m_tpu_torch.utils.metrics import MetricsLogger
 
 logger = logging.getLogger(__name__)
@@ -138,9 +139,10 @@ class PretrainTrainer(Trainer):
 
     # -------------------------------------------------------------- steps
 
+    @trace.spanned("k3m.forward")
     def losses(self, batch: Dict[str, torch.Tensor], *, deterministic: bool,
                rng: Optional[StepRandom] = None):
-        """(loss, metrics) of a staged batch."""
+        """(loss, metrics) of a staged batch (span `k3m.forward`)."""
         batch = decode(dict(batch), compute_dtype(self.config))
         batch = apply_objective(batch, self.objective)
         inject = {k: batch.pop(k) for k in INJECT_KEYS if k in batch}
@@ -159,7 +161,8 @@ class PretrainTrainer(Trainer):
         for rows, rng in self.micro_slices(staged["input_ids"].shape[0]):
             loss, metrics = self.losses(batch_rows(staged, rows), deterministic=False,
                                         rng=rng)
-            (loss / (self.micro_steps * self.grad_accum_steps)).backward()
+            with trace.span("k3m.backward"):
+                (loss / (self.micro_steps * self.grad_accum_steps)).backward()
             parts.append(metrics)
         metrics = parts[0] if len(parts) == 1 else {
             k: torch.stack([m[k] for m in parts]).mean() for k in parts[0]}
@@ -177,6 +180,7 @@ class PretrainTrainer(Trainer):
 
     # ---------------------------------------------------------------- fit
 
+    @trace.spanned("k3m.fit")
     def fit(self, train_loader: Iterable, val_loader: Optional[Iterable] = None,
             num_epochs: int = 1, start_epoch: int = 0, log_steps: int = 20,
             checkpoint_dir: Optional[str] = None, save_steps: Optional[int] = None,
@@ -194,7 +198,8 @@ class PretrainTrainer(Trainer):
         (the path is None on the others). Each
         step ends with a device synchronisation so that its host time
         (`step_seconds`) is the step's; every step's losses are kept
-        (`step_losses`)."""
+        (`step_losses`). Spans (utils/trace.py): `k3m.fit`, `k3m.epoch`,
+        `k3m.step`, `k3m.sync`."""
         writer = checkpoint_dir and self.world.rank == 0
         ckpt = CheckpointManager(checkpoint_dir, self.config) if writer else None
         mlog = MetricsLogger(checkpoint_dir) if writer else None
@@ -216,9 +221,11 @@ class PretrainTrainer(Trainer):
                         # draws, so a resumed run sees the uninterrupted
                         # run's data
                         ld.epoch = epoch
-                summary = self._epoch(source, epoch, start_step if epoch == start_epoch else 0,
-                                      ckpt, bool(checkpoint_dir), mlog, save_steps,
-                                      log_steps, preempted, sync)
+                with trace.span("k3m.epoch", epoch=epoch):
+                    summary = self._epoch(source, epoch,
+                                          start_step if epoch == start_epoch else 0, ckpt,
+                                          bool(checkpoint_dir), mlog, save_steps, log_steps,
+                                          preempted, sync)
                 history.append(summary)
                 if "preempted_at_step" in summary:
                     return history
@@ -252,12 +259,14 @@ class PretrainTrainer(Trainer):
         seconds, samples, step_metrics, allreduce = [], [], [], []
         with contextlib.closing(self.prefetch(batches)) as staged:
             for step, batch in enumerate(staged, start=skip):
-                metrics = self.train_step(batch)
-                sync()
+                samples.append(int(batch["input_ids"].shape[0]))
+                with trace.span("k3m.step", samples=samples[-1]):
+                    metrics = self.train_step(batch)
+                    with trace.span("k3m.sync"):
+                        sync()
                 t_now = time.perf_counter()
                 seconds.append(t_now - t_prev)
                 t_prev = t_now
-                samples.append(int(batch["input_ids"].shape[0]))
                 step_metrics.append(metrics)
                 allreduce.append(self.allreduce)
                 if save_steps and checkpointing and (step + 1) % save_steps == 0:
@@ -290,8 +299,7 @@ class PretrainTrainer(Trainer):
                        step_losses=[{k: float(v) for k, v in m.items()}
                                     for m in step_metrics])
         if self.world.group:
-            summary["allreduce_bytes"] = [b for b, _ in allreduce]
-            summary["allreduce_seconds"] = [t for _, t in allreduce]
+            summary.update(allreduce_summary(allreduce))
         if cache is not None:
             summary["device_cache"] = dict(from_cache=from_cache, cached=cache.cached,
                                            bytes=cache.bytes, budget_bytes=cache.max_bytes)

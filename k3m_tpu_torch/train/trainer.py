@@ -35,8 +35,7 @@
 
 from __future__ import annotations
 
-import time
-from typing import Dict, Iterable, Iterator, Optional, Set
+from typing import Callable, Dict, Iterable, Iterator, Optional, Set
 
 import numpy as np
 import torch
@@ -49,8 +48,9 @@ from k3m_tpu_torch.train.device_cache import DeviceEpochCache, cache_enabled
 from k3m_tpu_torch.train.optim import make_optimizer
 from k3m_tpu_torch.train.prefetch import staged_prefetch
 from k3m_tpu_torch.train.wire import (
-    FEAT_Q, TGT_Q, encode_pretrain, exact_targets, wire_mode,
+    FEAT_Q, TGT_Q, encode_pretrain, exact_targets, wire_bytes, wire_mode,
 )
+from k3m_tpu_torch.utils import trace
 
 
 def batch_rows(tree, rows: slice):
@@ -76,17 +76,17 @@ def wire_array(key: str, value, config=None, wire: str = "exact") -> torch.Tenso
     return t
 
 
-def stage_array(key: str, value, device: torch.device, config=None,
-                wire: str = "exact") -> torch.Tensor:
-    """One host array of a batch on `device` in its wire form (`wire_array`),
-    copied from pinned memory to a CUDA device; integers as int64
-    (embedding and gather indices), the int8 wire's quantized arrays as
-    they are."""
-    t = wire_array(key, value, config, wire)
-    if device.type == "cuda":
-        t = t.pin_memory().to(device, non_blocking=True)
-    else:
-        t = t.to(device)
+def _tree_map(fn, tree: Dict) -> Dict:
+    """`fn(key, array)` over a batch's arrays, each under the key it has in
+    its innermost dict (a pair batch's items, the Gumbel draws by stream)."""
+    return {k: _tree_map(fn, v) if isinstance(v, dict) else fn(k, v) for k, v in tree.items()}
+
+
+def _on_device(key: str, t: torch.Tensor, device: torch.device) -> torch.Tensor:
+    """One wired array on `device` (non-blocking from pinned memory to a
+    CUDA device); integers as int64 (embedding and gather indices), the
+    int8 wire's quantized arrays as they are."""
+    t = t.to(device, non_blocking=device.type == "cuda")
     if t.is_floating_point() or key in (FEAT_Q, TGT_Q):
         return t
     return t.long()
@@ -108,12 +108,37 @@ def wire_batch(arrays: Dict, keys, config=None, wire: str = "exact") -> Dict:
             for k, v in arrays.items()}
 
 
+def stage_batch(wired: Callable[[], Dict], device: torch.device) -> Dict:
+    """A batch on `device`, under the span `k3m.stage` (which records the
+    wire bytes): `wired()` makes its host wire form (`k3m.stage.wire`),
+    every array is pinned for a CUDA device (`k3m.stage.pin`), then
+    copied (`k3m.stage.h2d`, `_on_device`)."""
+    with trace.span("k3m.stage") as sp:
+        with trace.span("k3m.stage.wire"):
+            tree = wired()
+        if trace.on():
+            sp.set(bytes=wire_bytes(tree))
+        with trace.span("k3m.stage.pin"):
+            if device.type == "cuda":
+                tree = _tree_map(lambda k, t: t.pin_memory(), tree)
+        with trace.span("k3m.stage.h2d"):
+            return _tree_map(lambda k, t: _on_device(k, t, device), tree)
+
+
 def stage_arrays(arrays: Dict, keys, device: torch.device, config=None,
                  wire: str = "exact") -> Dict[str, torch.Tensor]:
-    """`wire_batch` of the arrays, on `device` (`stage_array`)."""
-    return {k: ({n: stage_array(k, x, device) for n, x in v.items()}
-                if isinstance(v, dict) else stage_array(k, v, device))
-            for k, v in wire_batch(arrays, keys, config, wire).items()}
+    """`wire_batch` of the arrays, on `device` (`stage_batch`)."""
+    return stage_batch(lambda: wire_batch(arrays, keys, config, wire), device)
+
+
+def allreduce_summary(allreduce) -> Dict:
+    """An epoch summary's all-reduce entries from its steps' (bytes,
+    seconds or None): `allreduce_bytes`, and `allreduce_seconds` where
+    every step was timed (recording on, utils/trace.py)."""
+    out = dict(allreduce_bytes=[b for b, _ in allreduce])
+    if all(t is not None for _, t in allreduce):
+        out["allreduce_seconds"] = [t for _, t in allreduce]
+    return out
 
 
 class Trainer:
@@ -129,8 +154,9 @@ class Trainer:
         self.device = next(model.parameters()).device
         self.world = world or World(device=self.device)
         self.model = mesh.shard_model(model, self.world)
-        # bytes and host seconds of the last update's gradient all-reduce
-        self.allreduce = (0, 0.0)
+        # bytes and host seconds (None unless recording) of the last
+        # update's gradient all-reduce
+        self.allreduce = (0, None)
         self.seed = seed
         self.wire = wire_mode(wire)                   # K3M_WIRE when not given
         self.device_cache = cache_enabled(device_cache)   # K3M_DEVICE_CACHE
@@ -188,13 +214,15 @@ class Trainer:
             yield (slice(i * size, (i + 1) * size),
                    StepRandom(self.seed, self.step, self.device, micro=i))
 
+    @trace.spanned("k3m.update")
     def update(self) -> Optional[torch.Tensor]:
         """Count the step whose gradients were just accumulated and, once
-        every grad_accum_steps steps, apply them. Returns 1.0 (a device
-        scalar) where skip_nonfinite skipped the update, else None."""
+        every grad_accum_steps steps, apply them (span `k3m.update`).
+        Returns 1.0 (a device scalar) where skip_nonfinite skipped the
+        update, else None."""
         self.step += 1
         self._micro += 1
-        self.allreduce = (0, 0.0)
+        self.allreduce = (0, 0.0 if trace.on() else None)
         if self._micro < self.grad_accum_steps:
             return None
         self._micro = 0
@@ -217,14 +245,20 @@ class Trainer:
         return skipped
 
     def _all_reduce_grads(self) -> None:
-        """Sum the gradients over the ranks (train/dist.py), timed on the
-        host between two device synchronisations."""
+        """Sum the gradients over the ranks (train/dist.py). While recording
+        (utils/trace.py), the span `k3m.allreduce` times it on the host
+        between two device synchronisations; otherwise nothing waits for the
+        device here. `allreduce`: (bytes, those seconds or None)."""
+        if not trace.on():
+            self.allreduce = (all_reduce_grads(self.world, self.model.parameters()), None)
+            return
         sync = torch.cuda.synchronize if self.device.type == "cuda" else (lambda: None)
         sync()
-        t0 = time.perf_counter()
-        nbytes = all_reduce_grads(self.world, self.model.parameters())
-        sync()
-        self.allreduce = (nbytes, time.perf_counter() - t0)
+        with trace.span("k3m.allreduce") as sp:
+            nbytes = all_reduce_grads(self.world, self.model.parameters())
+            sync()
+            sp.set(bytes=nbytes)
+        self.allreduce = (nbytes, sp.seconds)
 
     def global_metrics(self, metrics: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
         """The step's losses summed over the ranks (each rank's is its

@@ -43,7 +43,7 @@ from k3m_tpu_torch.model.layers import compute_dtype
 from k3m_tpu_torch.dist import World
 from k3m_tpu_torch.train.state import CheckpointManager
 from k3m_tpu_torch.train.trainer import (
-    Trainer, allreduce_summary, batch_rows, stage_batch, wire_array, wire_batch,
+    Trainer, allreduce_summary, batch_rows, host_array, stage_batch, wire_plan,
 )
 from k3m_tpu_torch.train.wire import decode, wire_mode
 from k3m_tpu_torch.utils import trace
@@ -76,8 +76,8 @@ def batch_to_device(batch: Dict, device, config=None, wire: str = "exact") -> Di
     if isinstance(batch.get("label"), torch.Tensor) and batch["label"].device == device:
         return batch
     return stage_batch(lambda: dict(
-        label=wire_array("label", np.asarray(batch["label"], np.float32)),
-        **{side: wire_batch(batch[side], ITEM_KEYS, config, wire)
+        label=host_array("label", np.asarray(batch["label"], np.float32)),
+        **{side: wire_plan(batch[side], ITEM_KEYS, config, wire)
            for side in ("item1", "item2")}), device)
 
 

@@ -1,7 +1,8 @@
 """What the port's two trainers share (PretrainTrainer, AlignmentTrainer).
 
-  * staging (`stage_arrays`): a host batch's arrays in their wire form
-    (`wire_batch`, train/wire.py) copied to the device from pinned memory;
+  * staging (`stage_arrays`): a host batch's arrays written in their wire
+    form (`wire_plan`, train/wire.py) in one pass into a reused pinned slot
+    (train/slots.py) and copied to the device from there;
     `staged_prefetch` runs it ahead on a producer thread, and with the
     device cache (train/device_cache.py) the first epoch's staged batches
     are kept on the card;
@@ -42,13 +43,13 @@ import torch
 
 from k3m_tpu_torch.model.random import StepRandom
 from k3m_tpu_torch.dist import World
-from k3m_tpu_torch.train import mesh
+from k3m_tpu_torch.train import mesh, slots
 from k3m_tpu_torch.train.dist import all_reduce_grads
 from k3m_tpu_torch.train.device_cache import DeviceEpochCache, cache_enabled
 from k3m_tpu_torch.train.optim import make_optimizer
 from k3m_tpu_torch.train.prefetch import staged_prefetch
 from k3m_tpu_torch.train.wire import (
-    FEAT_Q, TGT_Q, encode_pretrain, exact_targets, wire_bytes, wire_mode,
+    FEAT_Q, TGT_Q, encode_pretrain, exact_targets, wire_mode,
 )
 from k3m_tpu_torch.utils import trace
 
@@ -60,26 +61,40 @@ def batch_rows(tree, rows: slice):
     return tree[rows]
 
 
-def wire_array(key: str, value, config=None, wire: str = "exact") -> torch.Tensor:
-    """One host array of a batch as it crosses to the device. Under the `fp`
-    wire and a bf16 `config` the two largest tensors are halved: image_feat
-    goes to the compute dtype (its first use casts it anyway), the soft
-    labels in [0, 1] to fp16 unless K3M_EXACT_TARGETS is set
-    (k3m_tpu/train/pretrain_loop.py:336-353)."""
-    t = torch.from_numpy(np.ascontiguousarray(value)) \
-        if isinstance(value, np.ndarray) else torch.as_tensor(value)
+def wire_dtype(key: str, dtype: torch.dtype, config=None, wire: str = "exact") -> torch.dtype:
+    """The dtype in which array `key`, held in `dtype`, crosses to the
+    device. Under the `fp` wire and a bf16 `config` the two largest tensors
+    are halved: image_feat goes to the compute dtype (its first use casts it
+    anyway), the soft labels in [0, 1] to fp16 unless K3M_EXACT_TARGETS is
+    set (k3m_tpu/train/pretrain_loop.py:336-353)."""
     if wire == "fp" and config is not None and config.dtype == "bfloat16":
         if key == "image_feat":
-            t = t.to(torch.bfloat16)
-        elif key == "image_target" and config.visual_target == 0 and not exact_targets():
-            t = t.to(torch.float16)
-    return t
+            return torch.bfloat16
+        if key == "image_target" and config.visual_target == 0 and not exact_targets():
+            return torch.float16
+    return dtype
+
+
+def host_array(key: str, value, config=None, wire: str = "exact"):
+    """One host array of a batch as (a tensor over its memory, the dtype it
+    crosses in, `wire_dtype`)."""
+    t = torch.from_numpy(np.ascontiguousarray(value)) \
+        if isinstance(value, np.ndarray) else torch.as_tensor(value)
+    return t, wire_dtype(key, t.dtype, config, wire)
 
 
 def _tree_map(fn, tree: Dict) -> Dict:
     """`fn(key, array)` over a batch's arrays, each under the key it has in
     its innermost dict (a pair batch's items, the Gumbel draws by stream)."""
     return {k: _tree_map(fn, v) if isinstance(v, dict) else fn(k, v) for k, v in tree.items()}
+
+
+def _leaves(tree: Dict):
+    for v in tree.values():
+        if isinstance(v, dict):
+            yield from _leaves(v)
+        else:
+            yield v
 
 
 def _on_device(key: str, t: torch.Tensor, device: torch.device) -> torch.Tensor:
@@ -92,43 +107,118 @@ def _on_device(key: str, t: torch.Tensor, device: torch.device) -> torch.Tensor:
     return t.long()
 
 
-def wire_batch(arrays: Dict, keys, config=None, wire: str = "exact") -> Dict:
+def wire_plan(arrays: Dict, keys, config=None, wire: str = "exact") -> Dict:
     """The arrays of `keys` (those present) of one batch, or one item of a
-    pair batch, as they cross to the device: under the `int8` wire
-    image_feat (and, for visual_target 0 without K3M_EXACT_TARGETS,
-    image_target) in their quantized forms, which `wire.decode` undoes in
-    the step; `wire.wire_bytes` of it is the batch's host->device bytes."""
+    pair batch, as `host_array` pairs: under the `int8` wire image_feat
+    (and, for visual_target 0 without K3M_EXACT_TARGETS, image_target) in
+    their quantized forms, which `wire.decode` undoes in the step."""
     arrays = {k: arrays[k] for k in keys if k in arrays}
     if wire == "int8":
         quantize = (config is not None and config.visual_target == 0
                     and "image_target" in arrays and not exact_targets())
         arrays = encode_pretrain(arrays, quantize_target=quantize)
-    return {k: ({n: wire_array(k, x, config, wire) for n, x in v.items()}
-                if isinstance(v, dict) else wire_array(k, v, config, wire))
+    return {k: ({n: host_array(k, x, config, wire) for n, x in v.items()}
+                if isinstance(v, dict) else host_array(k, v, config, wire))
             for k, v in arrays.items()}
 
 
-def stage_batch(wired: Callable[[], Dict], device: torch.device) -> Dict:
+def _cast(plan: Dict) -> Dict:
+    return _tree_map(lambda k, p: p[0].to(p[1]), plan)
+
+
+def wire_batch(arrays: Dict, keys, config=None, wire: str = "exact") -> Dict:
+    """`wire_plan`'s arrays cast to their wire dtypes: the batch as it
+    crosses to the device; `wire.wire_bytes` of it is the batch's
+    host->device bytes."""
+    return _cast(wire_plan(arrays, keys, config, wire))
+
+
+SLOT_ALIGN = 256     # bytes; where each array of a batch starts in its slot
+# An array of at most SMALL_COPY bytes that needs no cast is copied on the
+# calling thread: a torch copy_ of more than 32,768 elements is a parallel
+# region of the intra-op threads, which ends with its slowest thread, and
+# with the batch producer's threads busy beside it a region took ~5 ms (a
+# B1024 pair batch's 21 small arrays 50-150 ms, against 2-6 ms on the
+# calling thread; H100 host, 8 cores).
+SMALL_COPY = 4 << 20
+
+
+def _aligned(n: int) -> int:
+    return -(-n // SLOT_ALIGN) * SLOT_ALIGN
+
+
+def plan_bytes(plan: Dict, aligned: bool = False) -> int:
+    """The wire bytes of a `wire_plan`; with `aligned`, the slot bytes it
+    fills (`fill_slot`)."""
+    sizes = (t.numel() * dtype.itemsize for t, dtype in _leaves(plan))
+    return sum(_aligned(n) for n in sizes) if aligned else sum(sizes)
+
+
+def fill_slot(buf: torch.Tensor, plan: Dict) -> Dict:
+    """A plan's arrays written into the byte tensor `buf` in one pass each,
+    at SLOT_ALIGN-aligned offsets: a cast or a large array by one `copy_`
+    (the wire cast inside it, on the intra-op threads), a small one that
+    needs no cast by one copy on the calling thread (SMALL_COPY). Returns
+    the batch's wire form, as views of `buf`."""
+    offset = 0
+
+    def put(key, leaf):
+        nonlocal offset
+        t, dtype = leaf
+        n = t.numel() * dtype.itemsize
+        view = buf[offset:offset + n].view(dtype).view(t.shape)
+        offset += _aligned(n)
+        if t.dtype == dtype != torch.bfloat16 and n <= SMALL_COPY:
+            np.copyto(view.numpy(), t.numpy())
+            return view
+        return view.copy_(t)
+
+    return _tree_map(put, plan)
+
+
+def stage_batch(plan: Callable[[], Dict], device: torch.device) -> Dict:
     """A batch on `device`, under the span `k3m.stage` (which records the
-    wire bytes): `wired()` makes its host wire form (`k3m.stage.wire`),
-    every array is pinned for a CUDA device (`k3m.stage.pin`), then
-    copied (`k3m.stage.h2d`, `_on_device`)."""
+    wire bytes). `plan()` gives its host arrays and their wire dtypes
+    (`wire_plan`, in `k3m.stage.wire`).
+
+    On a CUDA device a slot of the device's pool (train/slots.py) is taken
+    (`k3m.stage.pin`; `k3m.stage` records `slot_reused`, false where the
+    pool allocated), every array is written into it in one pass, the cast
+    included (a second `k3m.stage.wire`), and copied from it
+    (`k3m.stage.h2d`, `_on_device`); then the slot's event is recorded on
+    the current stream and the slot handed back. Elsewhere the wire form
+    is made in new tensors, in the first `k3m.stage.wire`, and copied
+    (`k3m.stage.h2d`; `k3m.stage.pin` is empty): a slot reused there would
+    be the staged batch itself."""
+    cuda = device.type == "cuda"
     with trace.span("k3m.stage") as sp:
         with trace.span("k3m.stage.wire"):
-            tree = wired()
+            arrays = plan()
+            wired = None if cuda else _cast(arrays)
         if trace.on():
-            sp.set(bytes=wire_bytes(tree))
+            sp.set(bytes=plan_bytes(arrays))
+        if not cuda:
+            with trace.span("k3m.stage.pin"):
+                pass
+            with trace.span("k3m.stage.h2d"):
+                return _tree_map(lambda k, t: _on_device(k, t, device), wired)
+        pool = slots.pool_for(device)
         with trace.span("k3m.stage.pin"):
-            if device.type == "cuda":
-                tree = _tree_map(lambda k, t: t.pin_memory(), tree)
-        with trace.span("k3m.stage.h2d"):
-            return _tree_map(lambda k, t: _on_device(k, t, device), tree)
+            slot, reused = pool.acquire(plan_bytes(arrays, aligned=True))
+        sp.set(slot_reused=reused)
+        try:
+            with trace.span("k3m.stage.wire"):
+                wired = fill_slot(slot.buf, arrays)
+            with trace.span("k3m.stage.h2d"):
+                return _tree_map(lambda k, t: _on_device(k, t, device), wired)
+        finally:
+            pool.release(slot, torch.cuda.current_stream(device))
 
 
 def stage_arrays(arrays: Dict, keys, device: torch.device, config=None,
                  wire: str = "exact") -> Dict[str, torch.Tensor]:
-    """`wire_batch` of the arrays, on `device` (`stage_batch`)."""
-    return stage_batch(lambda: wire_batch(arrays, keys, config, wire), device)
+    """`wire_plan` of the arrays, on `device` (`stage_batch`)."""
+    return stage_batch(lambda: wire_plan(arrays, keys, config, wire), device)
 
 
 def allreduce_summary(allreduce) -> Dict:

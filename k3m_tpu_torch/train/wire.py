@@ -19,7 +19,7 @@ reference shapes:
 
 Modes (`wire=` of the trainers, else the K3M_WIRE environment variable):
   "fp"    (default) image_feat in the compute dtype, the soft labels in
-          fp16 under bf16 (trainer.wire_array); K3M_EXACT_TARGETS=1 keeps
+          fp16 under bf16 (trainer.wire_dtype); K3M_EXACT_TARGETS=1 keeps
           the labels fp32;
   "int8"  the scheme above (the labels stay fp32 under K3M_EXACT_TARGETS=1);
   "exact" fp32 everything.

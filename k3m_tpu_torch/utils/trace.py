@@ -29,10 +29,10 @@ bound only while recording.
 | `k3m.update` | `Trainer.update`: the all-reduce, the non-finite check, AdamW and its schedule, `zero_grad` | |
 | `k3m.allreduce` | the data-parallel gradient sum, between two device syncs | `bytes` |
 | `k3m.data_wait` | `staged_prefetch`'s consumer: the queue and the stream wait | |
-| `k3m.stage` | staging of one batch (`stage_batch`) | `bytes` (the wire bytes) |
-| `k3m.stage.wire` | the host's wire form of the batch (`wire_batch`, casts) | |
-| `k3m.stage.pin` | every array's `pin_memory()` | |
-| `k3m.stage.h2d` | every array's copy to the device | |
+| `k3m.stage` | staging of one batch (`stage_batch`) | `bytes` (the wire bytes); on a CUDA device `slot_reused` (false where the slot pool allocated) |
+| `k3m.stage.wire` | the batch's host arrays and wire dtypes (`wire_plan`; the int8 wire's quantization); on a CUDA device a second span, the one-pass fill of the slot (casts included), elsewhere the casts into new tensors inside the first | |
+| `k3m.stage.pin` | on a CUDA device the slot's acquisition from the pool (train/slots.py: the wait for its last copies, any allocation); empty elsewhere | |
+| `k3m.stage.h2d` | every array's copy to the device (the enqueue, on a CUDA device) | |
 | `k3m.kernel.<function>` | each call of the function that launches the kernel of `fused_layernorm` (`layernorm._forward`), `layernorm_bwd`, `fused_attention` (`attention._forward`), `attention_bwd`, `fused_biattention` (`coattn._forward`) | the call's arguments, defaults left out |
 """
 

@@ -8,13 +8,38 @@ verbatim. A frozen dataclass: modules read it, nothing mutates it.
 Fields that select TPU-only levers (`use_pallas`, `use_pallas_ln`, `remat`)
 are accepted for file compatibility; the port always runs its own kernels on
 a CUDA device and their plain versions on the CPU.
+
+`text_block` selects the text layer: "bert" (the default: BERT's post-LN
+layer, model/layers.py TextLayer, every existing config) or "deepseek_v2"
+(DeepSeek-V2's pre-norm layer of latent attention and a routed,
+shared-expert MoE, model/deepseek.py), whose keys carry DeepSeek-V2's
+published names (its config.json) and whose `experts_held` is the range of
+routed experts this process holds (all of them by default).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import json
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
+
+
+# DeepSeek-V2's keys whose one value model/deepseek.py builds (no q-LoRA,
+# softmax scores, greedy top-k without renormalisation, groups or scaling,
+# the sequence-wise balance loss, no attention bias, every layer past the
+# dense ones MoE); a config file that states another value is refused
+DEEPSEEK_FIXED = dict(q_lora_rank=None, scoring_func="softmax", topk_method="greedy",
+                      norm_topk_prob=False, n_group=1, topk_group=1, routed_scaling_factor=1,
+                      seq_aux=True, attention_bias=False, moe_layer_freq=1)
+
+
+# the text-block selector and DeepSeek-V2's keys: a BERT config's dict form
+# leaves them out (`to_dict`)
+TEXT_BLOCK_KEYS = ("text_block", "kv_lora_rank", "qk_nope_head_dim", "qk_rope_head_dim",
+                   "v_head_dim", "rope_theta", "rope_scaling", "rms_norm_eps",
+                   "moe_intermediate_size", "n_routed_experts", "n_shared_experts",
+                   "num_experts_per_tok", "first_k_dense_replace", "aux_loss_alpha",
+                   "experts_held")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -93,6 +118,25 @@ class K3MConfig:
                                   # (model/layers.py fused_dense); the same
                                   # math and state dict
 
+    # --- the text block (module docstring) ---
+    text_block: str = "bert"      # "bert" | "deepseek_v2"
+    # DeepSeek-V2's keys (read where text_block is "deepseek_v2")
+    kv_lora_rank: int = 512
+    qk_nope_head_dim: int = 128
+    qk_rope_head_dim: int = 64
+    v_head_dim: int = 128
+    rope_theta: float = 10000.0
+    rope_scaling: Optional[Dict[str, Any]] = None   # YaRN's keys, or None
+    rms_norm_eps: float = 1e-6
+    moe_intermediate_size: int = 1408
+    n_routed_experts: int = 64    # the router's outputs, all experts
+    n_shared_experts: int = 2
+    num_experts_per_tok: int = 6
+    first_k_dense_replace: int = 1
+    aux_loss_alpha: float = 0.001
+    experts_held: Tuple[int, ...] = ()   # [first, end) of the routed experts held
+                                         # here; () holds every one
+
     def __post_init__(self):
         if len(self.v_biattention_id) != len(self.t_biattention_id):
             raise ValueError("v_biattention_id and t_biattention_id must have equal length")
@@ -110,11 +154,34 @@ class K3MConfig:
             raise ValueError(
                 "visualization=True needs the unfused attention path "
                 "(set use_pallas=False to collect attention probs)")
+        if self.text_block not in ("bert", "deepseek_v2"):
+            raise ValueError(f"text_block {self.text_block!r} is not 'bert' or 'deepseek_v2'")
+        if self.text_block == "deepseek_v2":
+            self._check_deepseek()
+
+    def _check_deepseek(self):
+        """A held range inside the routed experts, a top-k within them,
+        YaRN's rope scaling or none, no visualization."""
+        held = self.held_experts
+        bad = dict(visualization=self.visualization,
+                   experts_held=not 0 <= held[0] < held[1] <= self.n_routed_experts,
+                   num_experts_per_tok=not 0 < self.num_experts_per_tok
+                   <= self.n_routed_experts,
+                   rope_scaling=self.rope_scaling is not None
+                   and self.rope_scaling.get("type") != "yarn")
+        bad = [k for k, v in bad.items() if v]
+        if bad:
+            raise ValueError(f"text_block 'deepseek_v2' does not build {bad}")
 
     # ------------------------------------------------------------------ io
 
     @classmethod
     def from_dict(cls, d: Dict[str, Any]) -> "K3MConfig":
+        if d.get("text_block") == "deepseek_v2":
+            fixed = {k: d[k] for k in DEEPSEEK_FIXED if k in d and d[k] != DEEPSEEK_FIXED[k]}
+            if fixed:
+                raise ValueError(f"text_block 'deepseek_v2' builds {DEEPSEEK_FIXED}, not "
+                                 f"{fixed}")
         fields = {f.name for f in dataclasses.fields(cls)}
         clean: Dict[str, Any] = {}
         for k, v in d.items():
@@ -133,7 +200,12 @@ class K3MConfig:
             return cls.from_dict(json.load(f))
 
     def to_dict(self) -> Dict[str, Any]:
+        """The fields as JSON values; under the BERT text block without the
+        text-block keys, so that its configs read and write as before them."""
         d = dataclasses.asdict(self)
+        if self.text_block == "bert":
+            for k in TEXT_BLOCK_KEYS:
+                del d[k]
         for k, v in d.items():
             if isinstance(v, tuple):
                 d[k] = list(v)
@@ -151,3 +223,9 @@ class K3MConfig:
     @property
     def num_coattention_layers(self) -> int:
         return len(self.v_biattention_id)
+
+    @property
+    def held_experts(self) -> Tuple[int, int]:
+        """[first, end) of the routed experts this process holds."""
+        return tuple(self.experts_held) if self.experts_held else (0, self.n_routed_experts)
+

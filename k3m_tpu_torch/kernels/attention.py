@@ -34,6 +34,14 @@ scores, so that P = exp(S - lse) needs no pass of its own, and the output
 O, whose rowsum(dO O) stands in for rowsum(dP P) inside the one pass over
 the keys until the exact sum is known at its end (csrc/attention_bwd.cu).
 The plain backward keeps the JAX formulas and reads only the mask.
+
+Scale and widths. The scale is 1 / sqrt(D) unless the caller gives one
+(`scale`): DeepSeek-V2's latent attention (model/deepseek.py) passes
+m^2 / sqrt(192), YaRN's attention factor folded into the softmax scale.
+q and k share their width D; v, and so the output, may be narrower: the
+latent-attention instance takes q.k 192 wide and v 128 (SPLIT_DIMS), a
+kernel of its own beside the one-width instances (bf16 on the card; the
+plain version on the CPU, as for every instance).
 """
 
 from __future__ import annotations
@@ -46,6 +54,7 @@ from k3m_tpu_torch.kernels import build
 from k3m_tpu_torch.utils import trace
 
 HEAD_DIMS = (64, 96, 128)
+SPLIT_DIMS = ((192, 128),)   # (q.k width, v width) of the two-width instances
 U32 = 0xFFFFFFFF
 _PHILOX_M = (0xD2511F53, 0xCD9E8D57)
 _PHILOX_W = (0x9E3779B9, 0xBB67AE85)
@@ -132,17 +141,20 @@ def unpack_keep_words(words, lk: int):
 
 # ------------------------------------------------------------------ plain
 
-def _scores_probs(q, k, bias):
-    scale = 1.0 / math.sqrt(q.shape[-1])
-    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
+def softmax_scale(q, scale=None) -> float:
+    """The caller's scale, else 1 / sqrt(D) of q's width."""
+    return 1.0 / math.sqrt(q.shape[-1]) if scale is None else float(scale)
+
+
+def _scores_probs(q, k, bias, scale=None):
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * softmax_scale(q, scale)
     return torch.softmax(s + bias.float()[:, None, None, :], dim=-1)
 
 
-def attention_lse_plain(q, k, bias):
+def attention_lse_plain(q, k, bias, scale=None):
     """fp32 [B, H, Lq] logsumexp over the keys of the scaled, biased scores:
     what the forward kernels write for the backward."""
-    scale = 1.0 / math.sqrt(q.shape[-1])
-    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * softmax_scale(q, scale)
     return torch.logsumexp(s + bias.float()[:, None, None, :], dim=-1)
 
 
@@ -150,21 +162,21 @@ def _drop_factor(keep, rate):
     return None if keep is None else keep.float() / (1.0 - rate)
 
 
-def attention_plain(q, k, v, bias, keep=None, rate: float = 0.0):
-    """softmax(q k^T / sqrt(D) + bias), times `keep` / (1 - rate) where a
+def attention_plain(q, k, v, bias, keep=None, rate: float = 0.0, scale=None):
+    """softmax(q k^T scale + bias), times `keep` / (1 - rate) where a
     bool keep mask [B, H, Lq, Lk] is given, then times v."""
-    p = _scores_probs(q, k, bias)
+    p = _scores_probs(q, k, bias, scale)
     f = _drop_factor(keep, rate)
     if f is not None:
         p = p * f
     return torch.einsum("bhqk,bkhd->bqhd", p, v.float()).to(q.dtype)
 
 
-def attention_bwd_plain(q, k, v, bias, dout, keep=None, rate: float = 0.0):
+def attention_bwd_plain(q, k, v, bias, dout, keep=None, rate: float = 0.0, scale=None):
     """(dq, dk, dv) in q's dtype, with the formulas of the backward kernel
     (rowsum(dP * P) from the recomputed P, as the TPU kernel takes it)."""
-    scale = 1.0 / math.sqrt(q.shape[-1])
-    p = _scores_probs(q, k, bias)
+    scale = softmax_scale(q, scale)
+    p = _scores_probs(q, k, bias, scale)
     f = _drop_factor(keep, rate)
     do = dout.float()
     pd = p if f is None else p * f
@@ -201,10 +213,17 @@ def check_operands(q, k, v, bias, name):
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
         raise ValueError(f"{name}: q/k/v must be [B, L, H, D]")
     B, _, H, D = q.shape
-    if k.shape != v.shape or k.shape[0] != B or k.shape[2:] != (H, D):
+    if k.shape[:3] != v.shape[:3] or k.shape[0] != B or k.shape[2:] != (H, D) \
+            or v.shape[2] != H:
         raise ValueError(f"{name}: shapes {tuple(q.shape)} {tuple(k.shape)} "
                          f"{tuple(v.shape)} do not match")
-    if D not in HEAD_DIMS:
+    dv = v.shape[-1]
+    if dv != D:
+        if (D, dv) not in SPLIT_DIMS:
+            raise ValueError(f"{name}: head dims q.k {D} / v {dv} not in {SPLIT_DIMS}")
+        if q.dtype != torch.bfloat16:
+            raise TypeError(f"{name}: the q.k {D} / v {dv} kernel is bf16 only")
+    elif D not in HEAD_DIMS:
         raise ValueError(f"{name}: head dim {D} not in {HEAD_DIMS}")
     if q.dtype not in build.DTYPE_CODES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"{name}: q/k/v must share a dtype in fp32/bf16")
@@ -251,47 +270,52 @@ def _ptr(t):
 
 
 def _plain_forward(q, k, v, bias, rate, seed, salt, for_backward, row0=0, head0=0,
-                   heads_global=None):
+                   heads_global=None, scale=None):
     """(out, None, keep_words) of one direction on the CPU: the plain
     version, and where a backward follows under dropout the words of its
     mask (the plain backward reads no lse)."""
     keep = _plain_keep(q, k, rate, seed, salt, row0, head0, heads_global)
     words = pack_keep_words(keep) if for_backward and keep is not None else None
-    return attention_plain(q, k, v, bias, keep, rate), None, words
+    return attention_plain(q, k, v, bias, keep, rate, scale), None, words
 
 
 @trace.spanned("k3m.kernel.fused_attention", arguments=True)
 def _forward(q, k, v, bias, rate, seed, for_backward=False, row0=0, head0=0,
-             heads_global=None):
+             heads_global=None, scale=None):
     """(out, lse, keep_words): the kernel for CUDA tensors, which keeps lse
     and (under dropout) the mask words where the backward will read them;
     the plain version for CPU tensors, which keeps the mask words alone."""
     if _device_kind(q, "fused_attention") == "cpu":
         return _plain_forward(q, k, v, bias, rate, seed, 0, for_backward, row0, head0,
-                              heads_global)
+                              heads_global, scale)
     check_operands(q, k, v, bias, "fused_attention")
     keep_min, keep_scale = keep_threshold(rate)
     B, Lq, H, D = q.shape
-    out = torch.empty((B, Lq, H, D), dtype=q.dtype, device=q.device)
+    dv = v.shape[-1]
+    out = torch.empty((B, Lq, H, dv), dtype=q.dtype, device=q.device)
     lse = words = None
     if for_backward:
         lse = torch.empty((B, H, Lq), dtype=torch.float32, device=q.device)
         words = keep_words_for(q, k.shape[1], rate)
     strides = build.int64_array(bld_strides(q) + bld_strides(k) + bld_strides(v)
                                 + bld_strides(out) + [bias.stride(0)])
-    rc = build.library().k3m_attention_fwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
-        out.data_ptr(), _ptr(lse), _ptr(words),
-        build.DTYPE_CODES[q.dtype], B, H, Lq, k.shape[1], D, strides,
-        1.0 / math.sqrt(D), seed & U32, keep_min, keep_scale, row0, head0,
-        H if heads_global is None else heads_global, build.stream_handle(q.device))
+    tail = (strides, softmax_scale(q, scale), seed & U32, keep_min, keep_scale, row0, head0,
+            H if heads_global is None else heads_global, build.stream_handle(q.device))
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(), out.data_ptr(),
+            _ptr(lse), _ptr(words))
+    lib = build.library()
+    if dv == D:
+        rc = lib.k3m_attention_fwd(*ptrs, build.DTYPE_CODES[q.dtype], B, H, Lq, k.shape[1],
+                                   D, *tail)
+    else:
+        rc = lib.k3m_attention_fwd_split(*ptrs, B, H, Lq, k.shape[1], D, dv, *tail)
     build.check(rc, "k3m_attention_fwd")
     fused_attention.launches += 1
     return out, lse, words
 
 
 @trace.spanned("k3m.kernel.attention_bwd", arguments=True)
-def attention_bwd(q, k, v, bias, out, lse, keep_words, dout, rate: float = 0.0):
+def attention_bwd(q, k, v, bias, out, lse, keep_words, dout, rate: float = 0.0, scale=None):
     """(dq, dk, dv) of one attention direction whose forward at `rate` gave
     `out`, the row log-sum-exp `lse` and, under dropout, its mask words
     `keep_words` (`_forward(..., for_backward=True)`): the backward kernel
@@ -309,13 +333,15 @@ def attention_bwd(q, k, v, bias, out, lse, keep_words, dout, rate: float = 0.0):
         raise ValueError(f"attention_bwd: dropout needs the forward's keep_words int32 {want}")
     if device == "cpu":
         keep = None if want is None else unpack_keep_words(keep_words, Lk)
-        return attention_bwd_plain(q, k, v, bias, dout, keep, rate)
+        return attention_bwd_plain(q, k, v, bias, dout, keep, rate, scale)
     if not _rows_aligned(dout):
         dout = dout.contiguous()
     check_operands(q, k, v, bias, "attention_bwd")
+    dv_width = v.shape[-1]
     for name, t in (("dout", dout), ("out", out)):
-        if t.shape != q.shape or t.dtype != q.dtype or t.device != q.device:
-            raise ValueError(f"attention_bwd: {name} must be shaped and typed like q")
+        if t.shape != (B, Lq, H, dv_width) or t.dtype != q.dtype or t.device != q.device:
+            raise ValueError(f"attention_bwd: {name} must be q's rows at v's width, "
+                             "in q's dtype")
     if q.dtype == torch.bfloat16 and not _rows_aligned(out):
         raise ValueError("attention_bwd: bf16 out rows must be 16-byte aligned")
     if lse.dtype != torch.float32 or lse.shape != (B, H, Lq) or not lse.is_contiguous() \
@@ -323,16 +349,20 @@ def attention_bwd(q, k, v, bias, out, lse, keep_words, dout, rate: float = 0.0):
         raise ValueError(f"attention_bwd: lse must be contiguous fp32 [{B}, {H}, {Lq}]")
     dq = torch.empty((B, Lq, H, D), dtype=q.dtype, device=q.device)
     dk = torch.empty((B, Lk, H, D), dtype=q.dtype, device=q.device)
-    dv = torch.empty((B, Lk, H, D), dtype=q.dtype, device=q.device)
+    dv = torch.empty((B, Lk, H, dv_width), dtype=q.dtype, device=q.device)
     delta = torch.empty((B, H, Lq), dtype=torch.float32, device=q.device)
     strides = build.int64_array(bld_strides(q) + bld_strides(k) + bld_strides(v)
                                 + bld_strides(out) + bld_strides(dout) + [bias.stride(0)])
-    rc = build.library().k3m_attention_bwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(), out.data_ptr(),
-        lse.data_ptr(), _ptr(keep_words if want is not None else None), dout.data_ptr(),
-        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), delta.data_ptr(),
-        build.DTYPE_CODES[q.dtype], B, H, Lq, Lk, D, strides,
-        1.0 / math.sqrt(D), keep_min, keep_scale, build.stream_handle(q.device))
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(), out.data_ptr(),
+            lse.data_ptr(), _ptr(keep_words if want is not None else None), dout.data_ptr(),
+            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), delta.data_ptr())
+    tail = (strides, softmax_scale(q, scale), keep_min, keep_scale,
+            build.stream_handle(q.device))
+    lib = build.library()
+    if dv_width == D:
+        rc = lib.k3m_attention_bwd(*ptrs, build.DTYPE_CODES[q.dtype], B, H, Lq, Lk, D, *tail)
+    else:
+        rc = lib.k3m_attention_bwd_split(*ptrs, B, H, Lq, Lk, D, dv_width, *tail)
     build.check(rc, "k3m_attention_bwd")
     attention_bwd.launches += 1
     return dq, dk, dv
@@ -340,17 +370,19 @@ def attention_bwd(q, k, v, bias, out, lse, keep_words, dout, rate: float = 0.0):
 
 class _FusedAttention(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, q, k, v, bias, rate, seed, row0, head0, heads_global):
+    def forward(ctx, q, k, v, bias, rate, seed, row0, head0, heads_global, scale):
         out, lse, words = _forward(q, k, v, bias, rate, seed, for_backward=True,
-                                   row0=row0, head0=head0, heads_global=heads_global)
+                                   row0=row0, head0=head0, heads_global=heads_global,
+                                   scale=scale)
         ctx.save_for_backward(q, k, v, bias, out, lse, words)
         ctx.rate = rate
+        ctx.scale = scale
         return out
 
     @staticmethod
     def backward(ctx, dout):
-        dq, dk, dv = attention_bwd(*ctx.saved_tensors, dout, ctx.rate)
-        return dq, dk, dv, None, None, None, None, None, None
+        dq, dk, dv = attention_bwd(*ctx.saved_tensors, dout, ctx.rate, scale=ctx.scale)
+        return dq, dk, dv, None, None, None, None, None, None, None
 
 
 def check_mask_key(name, B, H, row0, head0, heads_global):
@@ -370,8 +402,9 @@ def check_mask_key(name, B, H, row0, head0, heads_global):
 
 
 def fused_attention(q, k, v, bias, *, dropout_rate: float = 0.0, seed: int = 0,
-                    row0: int = 0, head0: int = 0, heads_global=None):
-    """softmax(q k^T / sqrt(D) + bias) v per (batch, head), probabilities
+                    row0: int = 0, head0: int = 0, heads_global=None, scale=None):
+    """softmax(q k^T scale + bias) v per (batch, head), scale 1 / sqrt(D)
+    unless given, probabilities
     dropped at `dropout_rate` with the Philox mask of `seed` for rows
     row0 .. row0 + B - 1 and heads head0 .. head0 + H - 1 of `heads_global`
     (default H). Differentiable in q, k and v."""
@@ -381,9 +414,9 @@ def fused_attention(q, k, v, bias, *, dropout_rate: float = 0.0, seed: int = 0,
     check_mask_key("fused_attention", B, H, row0, head0, heads_global)
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
         return _FusedAttention.apply(q, k, v, bias, dropout_rate, seed, row0, head0,
-                                     heads_global)
+                                     heads_global, scale)
     return _forward(q, k, v, bias, dropout_rate, seed, row0=row0, head0=head0,
-                    heads_global=heads_global)[0]
+                    heads_global=heads_global, scale=scale)[0]
 
 
 fused_attention.launches = 0

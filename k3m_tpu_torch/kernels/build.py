@@ -107,8 +107,13 @@ def _declare(lib):
                                       I, I, I, I, I, I, P, F, U, F, P]
     lib.k3m_biattention_fwd.argtypes = [P, P, P, P, P, P, P, P, P, P, P, P, P, P,
                                         I, I, I, I, I, I, P, F, U, U, F, U, F, I, I, I, P]
+    lib.k3m_attention_fwd_split.argtypes = [P, P, P, P, P, P, P, I, I, I, I, I, I, P, F,
+                                            U, U, F, I, I, I, P]
+    lib.k3m_attention_bwd_split.argtypes = [P, P, P, P, P, P, P, P, P, P, P, P,
+                                            I, I, I, I, I, I, P, F, U, F, P]
     for fn in (lib.k3m_layernorm_fwd, lib.k3m_ln_bwd_bands, lib.k3m_layernorm_bwd,
-               lib.k3m_attention_fwd, lib.k3m_attention_bwd, lib.k3m_biattention_fwd):
+               lib.k3m_attention_fwd, lib.k3m_attention_bwd, lib.k3m_biattention_fwd,
+               lib.k3m_attention_fwd_split, lib.k3m_attention_bwd_split):
         fn.restype = I
 
 

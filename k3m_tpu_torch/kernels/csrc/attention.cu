@@ -26,25 +26,27 @@ __global__ void __launch_bounds__(k3m::kAttnThreads) attn_fwd_kernel(k3m::AttnAr
   k3m::attn_tile<T, D>(a, blockIdx.z, blockIdx.y, blockIdx.x * k3m::kBQ, s);
 }
 
-template <int D, bool kDrop>
+// DV: the width of v and the output, D but for the latent-attention
+// instance (q.k 192, v 128)
+template <int D, bool kDrop, int DV = D>
 __global__ void __launch_bounds__(k3m::kMmaThreads, k3m::fwd_min_blocks<D>())
 attn_fwd_mma_kernel(k3m::AttnArgs a) {
   extern __shared__ __align__(16) unsigned char smem[];
-  k3m::attn_tile_mma<D, kDrop>(a, blockIdx.z, blockIdx.y, blockIdx.x * k3m::kMmaBQ,
-                               *reinterpret_cast<k3m::FwdSmem<D>*>(smem));
+  k3m::attn_tile_mma<D, kDrop, DV>(a, blockIdx.z, blockIdx.y, blockIdx.x * k3m::kMmaBQ,
+                                   *reinterpret_cast<k3m::FwdSmem<D, DV>*>(smem));
 }
 
 // The tile's shared memory is over the 48 KB a launch gets without asking
 // (dynamically) at D 128: the kernel's limit is raised on the current
 // device at every launch (cheap; nothing is cached).
-template <int D, bool kDrop>
+template <int D, bool kDrop, int DV = D>
 int launch_mma_d(const k3m::AttnArgs& a, int B, int H, cudaStream_t stream) {
-  constexpr int bytes = sizeof(k3m::FwdSmem<D>);
-  const cudaError_t e = cudaFuncSetAttribute(attn_fwd_mma_kernel<D, kDrop>,
+  constexpr int bytes = sizeof(k3m::FwdSmem<D, DV>);
+  const cudaError_t e = cudaFuncSetAttribute(attn_fwd_mma_kernel<D, kDrop, DV>,
                                              cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (e != cudaSuccess) return static_cast<int>(e);
   const dim3 grid((a.lq + k3m::kMmaBQ - 1) / k3m::kMmaBQ, H, B);
-  attn_fwd_mma_kernel<D, kDrop><<<grid, k3m::kMmaThreads, bytes, stream>>>(a);
+  attn_fwd_mma_kernel<D, kDrop, DV><<<grid, k3m::kMmaThreads, bytes, stream>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -110,4 +112,34 @@ extern "C" int k3m_attention_fwd(const void* q, const void* k, const void* v,
   if (dtype == k3m::kF32) return launch<float>(a, B, H, d, stream);
   if (!k3m::mma_aligned(a)) return cudaErrorInvalidValue;
   return launch_mma(a, B, H, d, stream);
+}
+
+// The latent-attention instance: q and k `dk` wide, v and the output `dv`
+// wide (192 and 128, DeepSeek-V2's MLA heads), bf16 only; otherwise the
+// arguments of k3m_attention_fwd, `scale` the caller's (the softmax scale
+// with YaRN's m^2 folded in).
+extern "C" int k3m_attention_fwd_split(const void* q, const void* k, const void* v,
+                                       const float* bias, void* out, float* lse,
+                                       uint32_t* keep_words, int B, int H, int lq, int lk,
+                                       int dk, int dv, const long long* strides, float scale,
+                                       unsigned seed, unsigned keep_min, float keep_scale,
+                                       int row0, int head0, int heads_global,
+                                       void* stream_ptr) {
+  if (B <= 0 || H <= 0 || lq <= 0 || lk <= 0 || B > 65535 || H > 65535 ||
+      keep_min >= k3m::kKeepMinLimit || row0 < 0 || head0 < 0 ||
+      static_cast<long long>(head0) + H > heads_global ||
+      (static_cast<long long>(row0) + B) * heads_global > 0x7fffffffLL ||
+      dk != 192 || dv != 128)
+    return cudaErrorInvalidValue;
+  k3m::AttnArgs a = k3m::make_args(q, k, v, bias, out, strides, lq, lk, H, scale,
+                                   seed, keep_min, keep_scale);
+  a.lse = lse;
+  a.keep_words = keep_words;
+  a.batch_row0 = row0;
+  a.key_heads = heads_global;
+  a.key_head0 = head0;
+  if (!k3m::mma_aligned(a)) return cudaErrorInvalidValue;
+  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+  return keep_min ? launch_mma_d<192, true, 128>(a, B, H, stream)
+                  : launch_mma_d<192, false, 128>(a, B, H, stream);
 }

@@ -272,44 +272,48 @@ int launch(const BwdArgs& g, int B, int H, cudaStream_t stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int D>
+// DV: the width of v, O and dO, D but for the latent-attention instance
+// (q.k 192, v 128)
+template <int D, int DV = D>
 __global__ void __launch_bounds__(k3m::kMmaThreads) attn_bwd_dq_mma_kernel(BwdArgs g) {
   extern __shared__ __align__(16) unsigned char smem[];
-  k3m::attn_bwd_dq_mma<D>(g, blockIdx.z, blockIdx.y, blockIdx.x * k3m::kMmaBQ,
-                          *reinterpret_cast<k3m::DqMmaSmem<D>*>(smem));
+  k3m::attn_bwd_dq_mma<D, DV>(g, blockIdx.z, blockIdx.y, blockIdx.x * k3m::kMmaBQ,
+                              *reinterpret_cast<k3m::DqMmaSmem<D, DV>*>(smem));
 }
 
-template <int D>
+template <int D, int DV = D>
 __global__ void __launch_bounds__(k3m::kMmaThreads) attn_bwd_dkv_mma_kernel(BwdArgs g) {
   extern __shared__ __align__(16) unsigned char smem[];
-  k3m::attn_bwd_dkv_mma<D>(g, blockIdx.z, blockIdx.y, blockIdx.x * k3m::kMmaBQ,
-                           *reinterpret_cast<k3m::DkvMmaSmem<D>*>(smem));
+  k3m::attn_bwd_dkv_mma<D, DV>(g, blockIdx.z, blockIdx.y, blockIdx.x * k3m::kMmaBQ,
+                               *reinterpret_cast<k3m::DkvMmaSmem<D, DV>*>(smem));
 }
 
 // Both kernels take more shared memory than the 48 KB a launch gets
 // without asking (dynamically): raise each kernel's limit, on the current
 // device, at every launch (the call is cheap and nothing is cached).
-template <int D>
+template <int D, int DV = D>
 cudaError_t allow_smem() {
-  const cudaError_t e = cudaFuncSetAttribute(attn_bwd_dq_mma_kernel<D>,
+  const cudaError_t e = cudaFuncSetAttribute(attn_bwd_dq_mma_kernel<D, DV>,
                                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                             sizeof(k3m::DqMmaSmem<D>));
+                                             sizeof(k3m::DqMmaSmem<D, DV>));
   if (e != cudaSuccess) return e;
-  return cudaFuncSetAttribute(attn_bwd_dkv_mma_kernel<D>,
+  return cudaFuncSetAttribute(attn_bwd_dkv_mma_kernel<D, DV>,
                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              sizeof(k3m::DkvMmaSmem<D>));
+                              sizeof(k3m::DkvMmaSmem<D, DV>));
 }
 
-template <int D>
+template <int D, int DV = D>
 int launch_mma(const BwdArgs& g, int B, int H, cudaStream_t stream) {
-  const cudaError_t ok = allow_smem<D>();
+  const cudaError_t ok = allow_smem<D, DV>();
   if (ok != cudaSuccess) return static_cast<int>(ok);
   const dim3 grid_q((g.f.lq + k3m::kMmaBQ - 1) / k3m::kMmaBQ, H, B);
   const dim3 grid_k((g.f.lk + k3m::kMmaBQ - 1) / k3m::kMmaBQ, H, B);
-  attn_bwd_dq_mma_kernel<D><<<grid_q, k3m::kMmaThreads, sizeof(k3m::DqMmaSmem<D>), stream>>>(g);
+  attn_bwd_dq_mma_kernel<D, DV>
+      <<<grid_q, k3m::kMmaThreads, sizeof(k3m::DqMmaSmem<D, DV>), stream>>>(g);
   const cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
-  attn_bwd_dkv_mma_kernel<D><<<grid_k, k3m::kMmaThreads, sizeof(k3m::DkvMmaSmem<D>), stream>>>(g);
+  attn_bwd_dkv_mma_kernel<D, DV>
+      <<<grid_k, k3m::kMmaThreads, sizeof(k3m::DkvMmaSmem<D, DV>), stream>>>(g);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -341,17 +345,13 @@ int launch_d_f32(const BwdArgs& g, int B, int H, int d, cudaStream_t stream) {
 // [B, H, Lq, ceil(Lk / 32)], needed under dropout (keep_min > 0, the
 // forward's; keep_scale its 1 / (1 - rate)).
 // Returns cudaGetLastError() after the launches (0 on success).
-extern "C" int k3m_attention_bwd(const void* q, const void* k, const void* v,
-                                 const float* bias, const void* out, const float* lse,
-                                 const uint32_t* keep_words, const void* dout, void* dq,
-                                 void* dk, void* dv, float* delta, int dtype, int B, int H,
-                                 int lq, int lk, int d, const long long* strides,
-                                 float scale, unsigned keep_min, float keep_scale,
-                                 void* stream_ptr) {
-  if (B <= 0 || H <= 0 || lq <= 0 || lk <= 0 || B > 65535 || H > 65535 ||
-      (keep_min && keep_words == nullptr))
-    return cudaErrorInvalidValue;
-  const long long* st = strides;
+namespace {
+
+BwdArgs make_bwd_args(const void* q, const void* k, const void* v, const float* bias,
+                      const void* out, const float* lse, const uint32_t* keep_words,
+                      const void* dout, void* dq, void* dk, void* dv, float* delta, int H,
+                      int lq, int lk, const long long* st, float scale, unsigned keep_min,
+                      float keep_scale) {
   const long long fst[13] = {st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7],
                              st[8], st[12], st[13], st[14], st[15]};
   BwdArgs g;
@@ -367,13 +367,56 @@ extern "C" int k3m_attention_bwd(const void* q, const void* k, const void* v,
   g.dq = dq;
   g.dk = dk;
   g.dv = dv;
+  return g;
+}
+
+// the tensor cores read 16-byte rows; the wrapper refuses other layouts
+bool mma_ready(const BwdArgs& g, const void* out, const void* dq, const void* dk,
+               const void* dv) {
+  return k3m::mma_aligned(g.f) && !(reinterpret_cast<uintptr_t>(out) % 16 || g.o_sb % 8 ||
+                                    g.o_sl % 8 || g.o_sh % 8 ||
+                                    reinterpret_cast<uintptr_t>(dq) % 16 ||
+                                    reinterpret_cast<uintptr_t>(dk) % 16 ||
+                                    reinterpret_cast<uintptr_t>(dv) % 16);
+}
+
+}  // namespace
+
+extern "C" int k3m_attention_bwd(const void* q, const void* k, const void* v,
+                                 const float* bias, const void* out, const float* lse,
+                                 const uint32_t* keep_words, const void* dout, void* dq,
+                                 void* dk, void* dv, float* delta, int dtype, int B, int H,
+                                 int lq, int lk, int d, const long long* strides,
+                                 float scale, unsigned keep_min, float keep_scale,
+                                 void* stream_ptr) {
+  if (B <= 0 || H <= 0 || lq <= 0 || lk <= 0 || B > 65535 || H > 65535 ||
+      (keep_min && keep_words == nullptr))
+    return cudaErrorInvalidValue;
+  const BwdArgs g = make_bwd_args(q, k, v, bias, out, lse, keep_words, dout, dq, dk, dv, delta,
+                                  H, lq, lk, strides, scale, keep_min, keep_scale);
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   if (dtype == k3m::kF32) return launch_d_f32(g, B, H, d, stream);
   // bf16 runs on the tensor cores only, which read 16-byte rows; the wrapper
   // refuses other layouts, as the forward's does
-  if (!k3m::mma_aligned(g.f) || reinterpret_cast<uintptr_t>(out) % 16 || g.o_sb % 8 ||
-      g.o_sl % 8 || g.o_sh % 8 || reinterpret_cast<uintptr_t>(dq) % 16 || reinterpret_cast<uintptr_t>(dk) % 16 ||
-      reinterpret_cast<uintptr_t>(dv) % 16)
-    return cudaErrorInvalidValue;
+  if (!mma_ready(g, out, dq, dk, dv)) return cudaErrorInvalidValue;
   return launch_d_mma(g, B, H, d, stream);
+}
+
+// The latent-attention instance: q, k, dq and dk `dk_width` wide, v, out,
+// dout and dv `dv_width` wide (192 and 128), bf16 only; otherwise the
+// arguments of k3m_attention_bwd, `scale` the forward's.
+extern "C" int k3m_attention_bwd_split(const void* q, const void* k, const void* v,
+                                       const float* bias, const void* out, const float* lse,
+                                       const uint32_t* keep_words, const void* dout, void* dq,
+                                       void* dk, void* dv, float* delta, int B, int H, int lq,
+                                       int lk, int dk_width, int dv_width,
+                                       const long long* strides, float scale,
+                                       unsigned keep_min, float keep_scale, void* stream_ptr) {
+  if (B <= 0 || H <= 0 || lq <= 0 || lk <= 0 || B > 65535 || H > 65535 ||
+      (keep_min && keep_words == nullptr) || dk_width != 192 || dv_width != 128)
+    return cudaErrorInvalidValue;
+  const BwdArgs g = make_bwd_args(q, k, v, bias, out, lse, keep_words, dout, dq, dk, dv, delta,
+                                  H, lq, lk, strides, scale, keep_min, keep_scale);
+  if (!mma_ready(g, out, dq, dk, dv)) return cudaErrorInvalidValue;
+  return launch_mma<192, 128>(g, B, H, static_cast<cudaStream_t>(stream_ptr));
 }

@@ -35,6 +35,14 @@
 // waits on a load of its own. BK = BQ = 64 at D 64 and 32 at D 96/128.
 // The sums are fp32; D_i goes through device memory [B, H, Lq] from the
 // first kernel to the second. No atomics.
+//
+// The latent-attention instance (q and k D = 192 wide, v, O and dO DV = 128)
+// runs the same two kernels with the products over d split by operand: S,
+// S^T, dQ and dK at D, dP, dP^T, dV and D'_i at DV. Its dQ kernel keeps no
+// A = P K beside dQ' (96 more fp32 registers a thread at D 192, which would
+// spill): it writes dQ = dS' K, FlashAttention-2's form, with D'_i from the
+// bf16 O (the rounding of O stays in dQ, at 2^-9 of |dP| where dS cancels);
+// it still sums the exact D_i for the dK/dV kernel.
 #pragma once
 
 #include "attention_mma.cuh"
@@ -58,25 +66,27 @@ struct BwdArgs {
 template <int D>
 constexpr int bwd_tile() { return D <= 64 ? 64 : 32; }
 
-template <int D>
+// D: the width of q and k; DV: that of v, O and dO (D but for the latent-
+// attention instance)
+template <int D, int DV = D>
 struct DqMmaSmem {
   static constexpr int BK = bwd_tile<D>();
   __nv_bfloat16 q[kMmaBQ][D + kPad];
-  __nv_bfloat16 dout[kMmaBQ][D + kPad];
-  __nv_bfloat16 o[kMmaBQ][D + kPad];    // the forward's output, for D'_i
+  __nv_bfloat16 dout[kMmaBQ][DV + kPad];
+  __nv_bfloat16 o[kMmaBQ][DV + kPad];   // the forward's output, for D'_i
   __nv_bfloat16 k[2][BK][D + kPad];
-  __nv_bfloat16 v[2][BK][D + kPad];
+  __nv_bfloat16 v[2][BK][DV + kPad];
   float bias[2][BK];
   uint32_t keep[2][kMmaBQ][BK / 32];   // keep words of the tile's keys, per query row
 };
 
-template <int D>
+template <int D, int DV = D>
 struct DkvMmaSmem {
   static constexpr int BQ = bwd_tile<D>();
   __nv_bfloat16 k[kMmaBQ][D + kPad];
-  __nv_bfloat16 v[kMmaBQ][D + kPad];
+  __nv_bfloat16 v[kMmaBQ][DV + kPad];
   __nv_bfloat16 q[2][BQ][D + kPad];
-  __nv_bfloat16 dout[2][BQ][D + kPad];
+  __nv_bfloat16 dout[2][BQ][DV + kPad];
   float lse[2][BQ];
   float delta[2][BQ];
   uint32_t keep[2][BQ][2];    // keep words of the CTA's 64 keys, per query
@@ -130,11 +140,13 @@ __device__ __forceinline__ void row_dot(float& d0, float& d1, const __nv_bfloat1
 }
 
 // dQ kernel body: 64 query rows at q0 of head (b, h).
-template <int D>
+template <int D, int DV = D>
 __device__ __forceinline__ void attn_bwd_dq_mma(const BwdArgs& g, int b, int h, int q0,
-                                                DqMmaSmem<D>& s) {
-  constexpr int BK = DqMmaSmem<D>::BK;
+                                                DqMmaSmem<D, DV>& s) {
+  constexpr int BK = DqMmaSmem<D, DV>::BK;
   constexpr int kNB = BK / 8;        // n-blocks of S per key tile
+  constexpr bool kExact = D <= 128;  // dQ' - (D_i - D'_i) A; else dS' K (header)
+  constexpr int kPK = kExact ? D / 8 : 1;
   const AttnArgs& a = g.f;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int gr = lane / 4, t = lane % 4;
@@ -153,7 +165,7 @@ __device__ __forceinline__ void attn_bwd_dq_mma(const BwdArgs& g, int b, int h, 
   // this CTA's rows
   auto issue = [&](int st, int k0) {
     cp_tile<BK, D>(s.k[st], k, a.k_sl, k0, a.lk);
-    cp_tile<BK, D>(s.v[st], v, a.v_sl, k0, a.lk);
+    cp_tile<BK, DV>(s.v[st], v, a.v_sl, k0, a.lk);
     cp_row<BK>(s.bias[st], bias, k0, a.lk);
     if (a.keep_min) {
       for (int i = tid; i < kMmaBQ * (BK / 32); i += kMmaThreads) {
@@ -166,8 +178,8 @@ __device__ __forceinline__ void attn_bwd_dq_mma(const BwdArgs& g, int b, int h, 
     cp_async_commit();
   };
   cp_tile<kMmaBQ, D>(s.q, q, a.q_sl, q0, a.lq);   // committed with stage 0
-  cp_tile<kMmaBQ, D>(s.dout, dout, a.o_sl, q0, a.lq);
-  cp_tile<kMmaBQ, D>(s.o, o, g.o_sl, q0, a.lq);
+  cp_tile<kMmaBQ, DV>(s.dout, dout, a.o_sl, q0, a.lq);
+  cp_tile<kMmaBQ, DV>(s.o, o, g.o_sl, q0, a.lq);
   issue(0, 0);
 
   float da0 = 0.f, da1 = 0.f;        // D'_i of rows r0, r1 (zero rows past Lq)
@@ -177,12 +189,11 @@ __device__ __forceinline__ void attn_bwd_dq_mma(const BwdArgs& g, int b, int h, 
   const float scale2 = a.scale * kLog2e;
 
   float dt0 = 0.f, dt1 = 0.f;        // D_i of rows r0, r1 (this lane's keys)
-  float acc[D / 8][4], pk[D / 8][4];  // dQ' and A = P K
+  float acc[D / 8][4], pk[kPK][4];  // dQ' and A = P K
 #pragma unroll
-  for (int i = 0; i < D / 8; ++i) {
-    acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
-    pk[i][0] = pk[i][1] = pk[i][2] = pk[i][3] = 0.f;
-  }
+  for (int i = 0; i < D / 8; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
+#pragma unroll
+  for (int i = 0; i < kPK; ++i) pk[i][0] = pk[i][1] = pk[i][2] = pk[i][3] = 0.f;
   for (int it = 0; it < tiles; ++it) {
     const int st = it & 1, k0 = it * BK;
     if (it + 1 < tiles) {
@@ -192,11 +203,11 @@ __device__ __forceinline__ void attn_bwd_dq_mma(const BwdArgs& g, int b, int h, 
       cp_async_wait<0>();
     }
     __syncthreads();
-    if (it == 0) row_dot<D>(da0, da1, s.dout, s.o, warp * 16 + gr, t);
+    if (it == 0) row_dot<DV>(da0, da1, s.dout, s.o, warp * 16 + gr, t);
 
     float p[kNB][4], dp[kNB][4];
     mma_over_d<D, kNB>(p, s.q, warp * 16, s.k[st], lane);      // S = Q K^T
-    mma_over_d<D, kNB>(dp, s.dout, warp * 16, s.v[st], lane);  // dP = dO V^T
+    mma_over_d<DV, kNB>(dp, s.dout, warp * 16, s.v[st], lane);  // dP = dO V^T
     const bool ragged = k0 + BK > a.lk;
 #pragma unroll
     for (int nb = 0; nb < kNB; ++nb) {
@@ -224,7 +235,7 @@ __device__ __forceinline__ void attn_bwd_dq_mma(const BwdArgs& g, int b, int h, 
     to_a_frags<kNB>(dsa, dp);
     to_a_frags<kNB>(pa, p);
     mma_over_rows<D, kNB>(acc, dsa, s.k[st], lane);   // dQ' += dS' K
-    mma_over_rows<D, kNB>(pk, pa, s.k[st], lane);     // A += P K
+    if constexpr (kExact) mma_over_rows<D, kNB>(pk, pa, s.k[st], lane);   // A += P K
     __syncthreads();   // stage st is consumed
   }
 
@@ -238,29 +249,28 @@ __device__ __forceinline__ void attn_bwd_dq_mma(const BwdArgs& g, int b, int h, 
     if (r0 < a.lq) g.delta[row_base + r0] = dt0;
     if (r1 < a.lq) g.delta[row_base + r1] = dt1;
   }
-  const float c0 = dt0 - da0, c1 = dt1 - da1;
+  const float c0 = kExact ? dt0 - da0 : 0.f, c1 = kExact ? dt1 - da1 : 0.f;
   __nv_bfloat16* dq = static_cast<__nv_bfloat16*>(g.dq) +
                       (static_cast<long long>(b) * a.lq * a.heads + h) * D;
   const long long row_stride = static_cast<long long>(a.heads) * D;
 #pragma unroll
   for (int db = 0; db < D / 8; ++db) {
     const int c = db * 8 + 2 * t;
+    const float* x = pk[kExact ? db : 0];
     if (r0 < a.lq)
       *reinterpret_cast<uint32_t*>(dq + r0 * row_stride + c) =
-          pack_bf16((acc[db][0] - c0 * pk[db][0]) * a.scale,
-                    (acc[db][1] - c0 * pk[db][1]) * a.scale);
+          pack_bf16((acc[db][0] - c0 * x[0]) * a.scale, (acc[db][1] - c0 * x[1]) * a.scale);
     if (r1 < a.lq)
       *reinterpret_cast<uint32_t*>(dq + r1 * row_stride + c) =
-          pack_bf16((acc[db][2] - c1 * pk[db][2]) * a.scale,
-                    (acc[db][3] - c1 * pk[db][3]) * a.scale);
+          pack_bf16((acc[db][2] - c1 * x[2]) * a.scale, (acc[db][3] - c1 * x[3]) * a.scale);
   }
 }
 
 // dK/dV kernel body: 64 keys at k0 of head (b, h).
-template <int D>
+template <int D, int DV = D>
 __device__ __forceinline__ void attn_bwd_dkv_mma(const BwdArgs& g, int b, int h, int k0,
-                                                 DkvMmaSmem<D>& s) {
-  constexpr int BQ = DkvMmaSmem<D>::BQ;
+                                                 DkvMmaSmem<D, DV>& s) {
+  constexpr int BQ = DkvMmaSmem<D, DV>::BQ;
   constexpr int kNB = BQ / 8;        // n-blocks of S^T per query tile
   const AttnArgs& a = g.f;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
@@ -281,7 +291,7 @@ __device__ __forceinline__ void attn_bwd_dkv_mma(const BwdArgs& g, int b, int h,
   // this CTA's two 32-key groups
   auto issue = [&](int st, int q0) {
     cp_tile<BQ, D>(s.q[st], q, a.q_sl, q0, a.lq);
-    cp_tile<BQ, D>(s.dout[st], dout, a.o_sl, q0, a.lq);
+    cp_tile<BQ, DV>(s.dout[st], dout, a.o_sl, q0, a.lq);
     cp_row<BQ>(s.lse[st], g.lse + row_base, q0, a.lq);
     cp_row<BQ>(s.delta[st], g.delta + row_base, q0, a.lq);
     if (a.keep_min) {
@@ -295,15 +305,14 @@ __device__ __forceinline__ void attn_bwd_dkv_mma(const BwdArgs& g, int b, int h,
     cp_async_commit();
   };
   cp_tile<kMmaBQ, D>(s.k, k, a.k_sl, k0, a.lk);   // committed with stage 0
-  cp_tile<kMmaBQ, D>(s.v, v, a.v_sl, k0, a.lk);
+  cp_tile<kMmaBQ, DV>(s.v, v, a.v_sl, k0, a.lk);
   issue(0, 0);
 
-  float dka[D / 8][4], dva[D / 8][4];
+  float dka[D / 8][4], dva[DV / 8][4];
 #pragma unroll
-  for (int i = 0; i < D / 8; ++i) {
-    dka[i][0] = dka[i][1] = dka[i][2] = dka[i][3] = 0.f;
-    dva[i][0] = dva[i][1] = dva[i][2] = dva[i][3] = 0.f;
-  }
+  for (int i = 0; i < D / 8; ++i) dka[i][0] = dka[i][1] = dka[i][2] = dka[i][3] = 0.f;
+#pragma unroll
+  for (int i = 0; i < DV / 8; ++i) dva[i][0] = dva[i][1] = dva[i][2] = dva[i][3] = 0.f;
 
   for (int it = 0; it < tiles; ++it) {
     const int st = it & 1, q0 = it * BQ;
@@ -317,7 +326,7 @@ __device__ __forceinline__ void attn_bwd_dkv_mma(const BwdArgs& g, int b, int h,
 
     float pt[kNB][4], dpt[kNB][4];
     mma_over_d<D, kNB>(pt, s.k, warp * 16, s.q[st], lane);       // S^T = K Q^T
-    mma_over_d<D, kNB>(dpt, s.v, warp * 16, s.dout[st], lane);   // dP^T = V dO^T
+    mma_over_d<DV, kNB>(dpt, s.v, warp * 16, s.dout[st], lane);   // dP^T = V dO^T
     const bool ragged = q0 + BQ > a.lq;
 #pragma unroll
     for (int nb = 0; nb < kNB; ++nb) {
@@ -344,7 +353,7 @@ __device__ __forceinline__ void attn_bwd_dkv_mma(const BwdArgs& g, int b, int h,
     uint32_t pa[kNB / 2][4], dsa[kNB / 2][4];
     to_a_frags<kNB>(pa, pt);
     to_a_frags<kNB>(dsa, dpt);
-    mma_over_rows<D, kNB>(dva, pa, s.dout[st], lane);   // dV += P~^T dO
+    mma_over_rows<DV, kNB>(dva, pa, s.dout[st], lane);   // dV += P~^T dO
     mma_over_rows<D, kNB>(dka, dsa, s.q[st], lane);     // dK += dS^T Q
     __syncthreads();   // stage st is consumed
   }
@@ -356,18 +365,24 @@ __device__ __forceinline__ void attn_bwd_dkv_mma(const BwdArgs& g, int b, int h,
 #pragma unroll
   for (int db = 0; db < D / 8; ++db) {
     const int c = db * 8 + 2 * t;
-    if (j0 < a.lk) {
+    if (j0 < a.lk)
       *reinterpret_cast<uint32_t*>(dk + base + j0 * row_stride + c) =
           pack_bf16(dka[db][0] * a.scale, dka[db][1] * a.scale);
-      *reinterpret_cast<uint32_t*>(dv + base + j0 * row_stride + c) =
-          pack_bf16(dva[db][0], dva[db][1]);
-    }
-    if (j1 < a.lk) {
+    if (j1 < a.lk)
       *reinterpret_cast<uint32_t*>(dk + base + j1 * row_stride + c) =
           pack_bf16(dka[db][2] * a.scale, dka[db][3] * a.scale);
-      *reinterpret_cast<uint32_t*>(dv + base + j1 * row_stride + c) =
+  }
+  const long long row_stride_v = static_cast<long long>(a.heads) * DV;
+  const long long base_v = (static_cast<long long>(b) * a.lk * a.heads + h) * DV;
+#pragma unroll
+  for (int db = 0; db < DV / 8; ++db) {
+    const int c = db * 8 + 2 * t;
+    if (j0 < a.lk)
+      *reinterpret_cast<uint32_t*>(dv + base_v + j0 * row_stride_v + c) =
+          pack_bf16(dva[db][0], dva[db][1]);
+    if (j1 < a.lk)
+      *reinterpret_cast<uint32_t*>(dv + base_v + j1 * row_stride_v + c) =
           pack_bf16(dva[db][2], dva[db][3]);
-    }
   }
 }
 

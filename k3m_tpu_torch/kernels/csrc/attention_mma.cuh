@@ -63,13 +63,17 @@ constexpr int fwd_bk() { return D <= 64 ? 64 : 32; }
 template <int D>
 constexpr int fwd_min_blocks() { return D <= 64 ? 4 : 3; }
 
-template <int D>
+// D: the width of q and k; DV: that of v and the output (D but for the
+// latent-attention instance, q.k 192 wide and v 128, whose output rows fit
+// in the Q rows that stage them)
+template <int D, int DV = D>
 struct FwdSmem {
+  static_assert(DV <= D, "the output is staged in the query rows");
   static constexpr int BK = fwd_bk<D>();
   __nv_bfloat16 q[kMmaBQ][D + kPad];     // the CTA's query rows; at the end each
                                          // warp's 16 rows take its output
   __nv_bfloat16 k[2][BK][D + kPad];      // the two stages of the key ring
-  __nv_bfloat16 v[2][BK][D + kPad];
+  __nv_bfloat16 v[2][BK][DV + kPad];
   float bias[2][BK];
 };
 
@@ -99,14 +103,15 @@ struct Flag {
 };
 
 // kDrop: compiled with dropout (a.keep_min 0 keeps every element); the
-// copies without it carry none of its registers (the serving path)
-template <int D, bool kDrop>
+// copies without it carry none of its registers (the serving path). DV: the
+// width of v and the output (FwdSmem)
+template <int D, bool kDrop, int DV = D>
 __device__ __forceinline__ void attn_tile_mma(const AttnArgs& a, int b, int h, int q0,
-                                              FwdSmem<D>& s) {
-  static_assert(D % 16 == 0, "head dim must be a multiple of 16");
-  constexpr int BK = FwdSmem<D>::BK;
+                                              FwdSmem<D, DV>& s) {
+  static_assert(D % 16 == 0 && DV % 16 == 0, "head dims must be multiples of 16");
+  constexpr int BK = FwdSmem<D, DV>::BK;
   constexpr int kNB = BK / 8;        // n-blocks of S per key tile
-  constexpr int kDB = D / 8;         // n-blocks of O
+  constexpr int kDB = DV / 8;        // n-blocks of O
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int g = lane / 4, t = lane % 4;   // fragment row group, column pair
   const __nv_bfloat16* q = static_cast<const __nv_bfloat16*>(a.q) + b * a.q_sb + h * a.q_sh;
@@ -129,7 +134,7 @@ __device__ __forceinline__ void attn_tile_mma(const AttnArgs& a, int b, int h, i
   // for its rows r0 and r1, no exchange between lanes
   auto issue = [&](int st, int k0) {
     cp_tile<BK, D, true>(s.k[st], k, a.k_sl, k0, a.lk);
-    cp_tile<BK, D, true>(s.v[st], v, a.v_sl, k0, a.lk);
+    cp_tile<BK, DV, true>(s.v[st], v, a.v_sl, k0, a.lk);
     cp_row<BK, true>(s.bias[st], bias, k0, a.lk);
     cp_async_commit();
   };
@@ -244,7 +249,7 @@ __device__ __forceinline__ void attn_tile_mma(const AttnArgs& a, int b, int h, i
       o[db][2] *= al1;
       o[db][3] *= al1;
     }
-    mma_over_rows<D, kNB>(o, pa, s.v[st], lane, nlive);   // O += P V
+    mma_over_rows<DV, kNB>(o, pa, s.v[st], lane, nlive);   // O += P V
   };
 
   for (int it = 0; it < tiles; ++it) {

@@ -43,7 +43,13 @@
 //   warp per row, lane l on columns l, l + 32, ...
 // The wrapper picks the instance (kernels/layernorm.py ln_instance). Each
 // row is computed by one warp in a fixed order in both, so the same input
-// gives the same bits whatever the grid.
+// gives the same bits whatever the grid. Rows of 1,025 to 2,048 columns
+// (the DeepSeek-V2 text block's 2048-wide text in the co-attention and the
+// heads) take the vector instance only: its kernel for them
+// (ln_fwd_wide_kernel) keeps a row's 64 values a lane in registers but not
+// scale and bias, which it reads per group as it stores the row (they stay
+// in L1), and launches a warp per row with no prefetch, the occupancy
+// keeping the loads in flight.
 //
 // Backward design. The TPU sums dscale/dbias across its sequential grid in
 // VMEM; blocks on the card run in no order, so the rows are cut into bands,
@@ -57,7 +63,14 @@
 // [bands, N]; a second kernel, parallel over columns, adds the partials in
 // band order. No atomics: the parameter gradients are the same in every
 // run. The backward takes widths that are whole 16-byte vectors (N a
-// multiple of 8 in bf16, of 4 in fp32).
+// multiple of 8 in bf16, of 4 in fp32). Rows of 1,025 to 2,048 columns
+// (ln_bwd_wide_kernel) would not keep a lane's scale, bias, 1 / safe(scale)
+// and sums in registers, so those live in dynamic shared memory (152 KB at
+// 2,048 columns, one block an SM), column E vi + e of a lane's vector vi at
+// word e nv + vi, so that a warp's lanes read consecutive words; each warp
+// sums its rows into its own words, and a lane keeps its row's xhat and g
+// in registers between the two passes. The partials and their reduction
+// are the narrow kernel's.
 #include <stdint.h>
 
 #include <atomic>
@@ -69,6 +82,7 @@ namespace {
 constexpr int kWarps = 4;          // rows in flight per CTA of the per-element instance
 constexpr int kMaxPerLane = 32;    // N <= 32 * 32
 constexpr int kMaxN = 32 * kMaxPerLane;
+constexpr int kMaxWideN = 2048;    // the vector instance's and the backward's widest rows
 
 template <typename TX, typename TR, typename TO, bool kRes>
 __global__ void __launch_bounds__(kWarps * 32)
@@ -369,14 +383,96 @@ int launch_vec(const void* x, const void* res, const float* scale, const float* 
   return static_cast<int>(cudaGetLastError());
 }
 
+// rows of kMaxN < n <= kMaxWideN columns in groups of E = group_cols()
+// (nv = n / E <= 32 * VPL groups): a warp per row, the row in registers,
+// scale and bias loaded per group as the row is stored.
+template <typename TX, typename TR, typename TO, bool kRes, int VPL>
+__global__ void __launch_bounds__(kVecWarps * 32)
+ln_fwd_wide_kernel(const TX* __restrict__ x, const TR* __restrict__ res,
+                   const float* __restrict__ scale, const float* __restrict__ bias,
+                   TO* __restrict__ out, float* __restrict__ rstd_out, int rows, int n,
+                   float eps) {
+  constexpr int E = group_cols<TX, TR, TO, kRes>();
+  const int lane = threadIdx.x & 31;
+  const int row = blockIdx.x * kVecWarps + (threadIdx.x >> 5);
+  if (row >= rows) return;
+  const int nv = n / E;
+  const size_t base = static_cast<size_t>(row) * n;
+  float v[VPL][E];
+  float sum = 0.f;
+#pragma unroll
+  for (int i = 0; i < VPL; ++i) {
+    const int vi = lane + 32 * i;
+    if (vi < nv) {
+      load_f32(x + base + vi * E, v[i]);
+      if (kRes) {
+        float t[E];
+        load_f32(res + base + vi * E, t);
+#pragma unroll
+        for (int e = 0; e < E; ++e) v[i][e] += t[e];
+      }
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < VPL; ++i) {
+    if (lane + 32 * i < nv) {
+#pragma unroll
+      for (int e = 0; e < E; ++e) sum += v[i][e];
+    }
+  }
+  const float mean = k3m::warp_sum(sum) / n;
+  float sq = 0.f;
+#pragma unroll
+  for (int i = 0; i < VPL; ++i) {
+    if (lane + 32 * i < nv) {
+#pragma unroll
+      for (int e = 0; e < E; ++e) {
+        const float d = v[i][e] - mean;
+        v[i][e] = d;
+        sq += d * d;
+      }
+    }
+  }
+  const float rstd = rsqrtf(k3m::warp_sum(sq) / n + eps);
+  TO* o = out + base;
+#pragma unroll
+  for (int i = 0; i < VPL; ++i) {
+    const int vi = lane + 32 * i;
+    if (vi < nv) {
+      float sc[E], bs[E], y[E];
+      load_f32(scale + vi * E, sc);
+      load_f32(bias + vi * E, bs);
+#pragma unroll
+      for (int e = 0; e < E; ++e) y[e] = v[i][e] * rstd * sc[e] + bs[e];
+      store<E>(o + vi * E, y);
+    }
+  }
+  if (rstd_out != nullptr && lane == 0) rstd_out[row] = rstd;
+}
+
+template <typename TX, typename TR, typename TO, bool kRes>
+int launch_wide(const void* x, const void* res, const float* scale, const float* bias,
+                void* out, float* rstd, int rows, int n, float eps, cudaStream_t stream) {
+  constexpr int E = group_cols<TX, TR, TO, kRes>();
+  constexpr int VPL = kMaxWideN / (32 * E);   // 8 groups of 8 columns, or 16 of 4
+  const int grid = (rows + kVecWarps - 1) / kVecWarps;
+  ln_fwd_wide_kernel<TX, TR, TO, kRes, VPL><<<grid, kVecWarps * 32, 0, stream>>>(
+      static_cast<const TX*>(x), static_cast<const TR*>(res), scale, bias,
+      static_cast<TO*>(out), rstd, rows, n, eps);
+  return static_cast<int>(cudaGetLastError());
+}
+
 // One instantiation per groups-per-lane where the row fills them (256, 512,
 // 768 and 1024 columns; 512 to 1024 where groups are of 4), one with
-// predicates for every other width of whole groups.
+// predicates for every other width of whole groups up to kMaxN; wider rows
+// take ln_fwd_wide_kernel.
 template <typename TX, typename TR, typename TO, bool kRes>
 int launch_vec_width(const void* x, const void* res, const float* scale, const float* bias,
                      void* out, float* rstd, int rows, int n, float eps, cudaStream_t stream) {
   constexpr int E = group_cols<TX, TR, TO, kRes>();
   const int nv = n / E;
+  if (n > kMaxN)
+    return launch_wide<TX, TR, TO, kRes>(x, res, scale, bias, out, rstd, rows, n, eps, stream);
 #define K3M_LN_VEC(VPL, FULL) \
   launch_vec<TX, TR, TO, kRes, VPL, FULL>(x, res, scale, bias, out, rstd, rows, n, eps, stream)
   if constexpr (E == 8) {
@@ -537,6 +633,103 @@ ln_bwd_kernel(const TY* __restrict__ y, const float* __restrict__ rstd,
   }
 }
 
+// ln_bwd_kernel for rows of kMaxN < n <= kMaxWideN columns (VPL: 16-byte
+// vectors of TY per lane and row at kMaxWideN): scale, 1 / safe(scale),
+// bias and each warp's dscale/dbias sums in dynamic shared memory, column
+// vi * E + e at word e * nv + vi (the header), (3 + 2 kBwdWarps) n floats.
+template <typename TY, typename TX, int VPL>
+__global__ void __launch_bounds__(kBwdWarps * 32, 1)
+ln_bwd_wide_kernel(const TY* __restrict__ y, const float* __restrict__ rstd,
+                   const float* __restrict__ scale, const float* __restrict__ bias,
+                   const TY* __restrict__ dy, TX* __restrict__ dx,
+                   float* __restrict__ part_ds, float* __restrict__ part_db, int rows,
+                   int n, int band) {
+  constexpr int E = VecOf<TY>::kElems;
+  extern __shared__ float smem[];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int nv = n / E;                         // vectors per row
+  float* s_sc = smem;
+  float* s_inv = smem + n;
+  float* s_bs = smem + 2 * n;
+  float* acc = smem + 3 * n;                    // [kBwdWarps][dscale, dbias][n]
+  for (int k = threadIdx.x; k < n; k += kBwdWarps * 32) {   // word k: column c
+    const int c = (k % nv) * E + k / nv;
+    const float s = scale[c];
+    s_sc[k] = s;
+    s_inv[k] = 1.f / (fabsf(s) < 1e-6f ? 1e-6f : s);
+    s_bs[k] = bias[c];
+  }
+  for (int c = threadIdx.x; c < 2 * kBwdWarps * n; c += kBwdWarps * 32) acc[c] = 0.f;
+  __syncthreads();
+  float* ads = acc + 2 * warp * n;
+  float* adb = ads + n;
+
+  const int r0 = blockIdx.x * band, r1 = min(r0 + band, rows);
+  for (int row = r0 + warp; row < r1; row += kBwdWarps) {
+    const size_t base = static_cast<size_t>(row) * nv;
+    uint4 vy[VPL], vdy[VPL];
+#pragma unroll
+    for (int i = 0; i < VPL; ++i) {
+      const int vi = lane + 32 * i;
+      if (vi < nv) {
+        vy[i] = reinterpret_cast<const uint4*>(y)[base + vi];
+        vdy[i] = reinterpret_cast<const uint4*>(dy)[base + vi];
+      }
+    }
+    const float r = rstd[row];
+    // pass 1: xhat and g = dy * scale kept, their row sums, the warp's sums
+    float xh[VPL][E], g[VPL][E];
+    float sg = 0.f, sgx = 0.f;
+#pragma unroll
+    for (int i = 0; i < VPL; ++i) {
+      const int vi = lane + 32 * i;
+      if (vi < nv) {
+        float fy[E], fd[E];
+        unpack(vy[i], fy);
+        unpack(vdy[i], fd);
+#pragma unroll
+        for (int e = 0; e < E; ++e) {
+          const int k = e * nv + vi;
+          const float x = (fy[e] - s_bs[k]) * s_inv[k];
+          const float gg = fd[e] * s_sc[k];
+          xh[i][e] = x;
+          g[i][e] = gg;
+          sg += gg;
+          sgx += gg * x;
+          ads[k] += fd[e] * x;
+          adb[k] += fd[e];
+        }
+      }
+    }
+    const float gm = k3m::warp_sum(sg) / n, gxm = k3m::warp_sum(sgx) / n;
+    // pass 2: dx = rstd (g - mean(g) - xhat mean(g xhat))
+    TX* out = dx + static_cast<size_t>(row) * n;
+#pragma unroll
+    for (int i = 0; i < VPL; ++i) {
+      const int vi = lane + 32 * i;
+      if (vi < nv) {
+        float o[E];
+#pragma unroll
+        for (int e = 0; e < E; ++e) o[e] = r * (g[i][e] - gm - xh[i][e] * gxm);
+        store<E>(out + vi * E, o);
+      }
+    }
+  }
+  __syncthreads();
+  // the block's partials: its warps added in a fixed order
+  for (int k = threadIdx.x; k < n; k += kBwdWarps * 32) {
+    const int c = (k % nv) * E + k / nv;
+    float ds = 0.f, db = 0.f;
+#pragma unroll
+    for (int w = 0; w < kBwdWarps; ++w) {
+      ds += acc[2 * w * n + k];
+      db += acc[(2 * w + 1) * n + k];
+    }
+    part_ds[static_cast<size_t>(blockIdx.x) * n + c] = ds;
+    part_db[static_cast<size_t>(blockIdx.x) * n + c] = db;
+  }
+}
+
 // dscale[c] (blockIdx.y 0) or dbias[c] (1) = the sum over bands p of the
 // partials [p][c], in band order: warp w adds bands w, w + 8, ..., then
 // warp 0 adds the 8 warps in order. One lane per column of a 32-column group.
@@ -597,28 +790,40 @@ int launch_bwd(const void* y, const float* rstd, const float* scale, const float
   float* part_ds = part;
   float* part_db = part + static_cast<size_t>(bands) * n;
   const int vpl = (n / E + 31) / 32;
-  switch (vpl) {
-#define K3M_LN_BWD_CASE(V)                                                                  \
-  case V:                                                                                   \
-    launch_bwd_vpl<TY, TX, V>(y, rstd, scale, bias, dy, dx, part_ds, part_db, rows, n,     \
-                              bands, band, stream);                                        \
-    break;
-    K3M_LN_BWD_CASE(1)
-    K3M_LN_BWD_CASE(2)
-    K3M_LN_BWD_CASE(3)
-    K3M_LN_BWD_CASE(4)
+  if (n > kMaxN) {
+    constexpr int V = kMaxWideN / (32 * E);
+    const auto kernel = ln_bwd_wide_kernel<TY, TX, V>;
+    const int smem = (3 + 2 * kBwdWarps) * n * static_cast<int>(sizeof(float));
+    const cudaError_t e =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    kernel<<<bands, kBwdWarps * 32, smem, stream>>>(
+        static_cast<const TY*>(y), rstd, scale, bias, static_cast<const TY*>(dy),
+        static_cast<TX*>(dx), part_ds, part_db, rows, n, band);
+  } else {
+    switch (vpl) {
+#define K3M_LN_BWD_CASE(V)                                                              \
+    case V:                                                                             \
+      launch_bwd_vpl<TY, TX, V>(y, rstd, scale, bias, dy, dx, part_ds, part_db, rows, n, \
+                                bands, band, stream);                                    \
+      break;
+      K3M_LN_BWD_CASE(1)
+      K3M_LN_BWD_CASE(2)
+      K3M_LN_BWD_CASE(3)
+      K3M_LN_BWD_CASE(4)
 #undef K3M_LN_BWD_CASE
-    default:
-      if constexpr (E == 4) {   // fp32 y: up to 8 vectors per lane
-        if (vpl <= 6)
-          launch_bwd_vpl<TY, TX, 6>(y, rstd, scale, bias, dy, dx, part_ds, part_db, rows, n,
-                                    bands, band, stream);
-        else
-          launch_bwd_vpl<TY, TX, 8>(y, rstd, scale, bias, dy, dx, part_ds, part_db, rows, n,
-                                    bands, band, stream);
-        break;
-      }
-      return cudaErrorInvalidValue;
+      default:
+        if constexpr (E == 4) {   // fp32 y: up to 8 vectors per lane
+          if (vpl <= 6)
+            launch_bwd_vpl<TY, TX, 6>(y, rstd, scale, bias, dy, dx, part_ds, part_db, rows, n,
+                                      bands, band, stream);
+          else
+            launch_bwd_vpl<TY, TX, 8>(y, rstd, scale, bias, dy, dx, part_ds, part_db, rows, n,
+                                      bands, band, stream);
+          break;
+        }
+        return cudaErrorInvalidValue;
+    }
   }
   const cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
@@ -629,16 +834,17 @@ int launch_bwd(const void* y, const float* rstd, const float* scale, const float
 
 }  // namespace
 
-// `vec`: 1 for the vector instance (n a multiple of 8; x, res, out, scale
-// and bias 16-byte aligned; cudaErrorInvalidValue otherwise), 0 for the
-// per-element one (any width up to kMaxN, any alignment). Returns
+// `vec`: 1 for the vector instance (n a multiple of 8 up to kMaxWideN; x,
+// res, out, scale and bias 16-byte aligned; cudaErrorInvalidValue
+// otherwise), 0 for the per-element one (any width up to kMaxN, any
+// alignment). Returns
 // cudaGetLastError() after the launch (0 on success). `rstd` may be null
 // (no gradient needed); otherwise it receives fp32 [rows].
 extern "C" int k3m_layernorm_fwd(const void* x, int x_dtype, const void* res,
                                  int res_dtype, const void* scale, const void* bias,
                                  void* out, int out_dtype, float* rstd, int rows, int n,
                                  float eps, int vec, void* stream_ptr) {
-  if (n <= 0 || n > kMaxN || rows <= 0) return cudaErrorInvalidValue;
+  if (n <= 0 || n > (vec ? kMaxWideN : kMaxN) || rows <= 0) return cudaErrorInvalidValue;
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   if (vec) {
     if (n % 8 || reinterpret_cast<uintptr_t>(x) % 16 || reinterpret_cast<uintptr_t>(res) % 16 ||
@@ -676,7 +882,8 @@ extern "C" int k3m_layernorm_fwd(const void* x, int x_dtype, const void* res,
 extern "C" int k3m_ln_bwd_bands(int rows) { return bands_for(rows); }
 
 // y, dy: [rows, n] in y_dtype (the forward's output dtype), contiguous and
-// 16-byte aligned, n a multiple of 8 (bf16) or 4 (fp32); rstd fp32 [rows];
+// 16-byte aligned, n a multiple of 8 (bf16) or 4 (fp32) up to kMaxWideN;
+// rstd fp32 [rows];
 // dx: [rows, n] in x_dtype; dscale, dbias fp32 [n]; part: fp32 scratch of
 // 2 * k3m_ln_bwd_bands(rows) * n. Returns cudaGetLastError() after the
 // launches (0 on success).
@@ -684,7 +891,7 @@ extern "C" int k3m_layernorm_bwd(const void* y, int y_dtype, const float* rstd,
                                  const float* scale, const float* bias, const void* dy,
                                  void* dx, int x_dtype, float* part, float* dscale,
                                  float* dbias, int rows, int n, void* stream_ptr) {
-  if (n <= 0 || n > kMaxN || rows <= 0) return cudaErrorInvalidValue;
+  if (n <= 0 || n > kMaxWideN || rows <= 0) return cudaErrorInvalidValue;
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   if (y_dtype == k3m::kF32 && x_dtype == k3m::kF32)
     return launch_bwd<float, float>(y, rstd, scale, bias, dy, dx, part, dscale, dbias, rows, n, stream);

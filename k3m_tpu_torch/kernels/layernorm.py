@@ -3,11 +3,14 @@ plain versions.
 
 `fused_layernorm` launches `csrc/layernorm.cu` for CUDA tensors and runs
 `layernorm_plain` for CPU tensors; it never falls back from one to the
-other. The forward kernel has two instances, which `ln_instance` picks from
-the width and the tensors' alignment: the vector instance (16-byte loads
-and stores, the next row prefetched; every main-path shape) and the
-per-element one (any other width or alignment), counted apart in
-`fused_layernorm.per_element_launches`. Numerics follow
+other. The forward kernel has two instances, which `ln_instance` picks
+from the width and the tensors' alignment: the vector instance (16-byte
+loads and stores, the next row prefetched; every main-path shape, up to
+MAX_VEC_N columns: the 2048-wide text of the DeepSeek-V2 block's
+co-attention and heads) and the per-element one (any other width up to
+MAX_N, or alignment), counted apart in
+`fused_layernorm.per_element_launches`; a row wider than MAX_N that the
+vector instance cannot take raises. Numerics follow
 k3m_tpu/kernels/layernorm.py: fp32 two-pass mean and centered variance,
 eps inside the rsqrt, cast to the output dtype at the end. Where a
 gradient is needed the call goes through `_FusedLayerNorm`, which saves the
@@ -23,7 +26,8 @@ import torch
 from k3m_tpu_torch.kernels import build
 from k3m_tpu_torch.utils import trace
 
-MAX_N = 1024
+MAX_N = 1024       # the per-element instance's widest rows
+MAX_VEC_N = 2048   # the vector instance's and the backward's
 VEC = 8    # the vector instance takes widths that are multiples of VEC
 
 
@@ -66,8 +70,8 @@ def _check(x, scale, bias, residual, out_dtype):
     n = x.shape[-1]
     if x.dtype not in build.DTYPE_CODES or out_dtype not in build.DTYPE_CODES:
         raise TypeError(f"fused_layernorm: unsupported dtypes {x.dtype} -> {out_dtype}")
-    if not 0 < n <= MAX_N or x.numel() == 0:
-        raise ValueError(f"fused_layernorm: last dim {n} not in (0, {MAX_N}]")
+    if not 0 < n <= MAX_VEC_N or x.numel() == 0:
+        raise ValueError(f"fused_layernorm: last dim {n} not in (0, {MAX_VEC_N}]")
     if not x.is_contiguous():
         raise ValueError("fused_layernorm: x must be contiguous")
     if residual is not None:
@@ -88,7 +92,7 @@ def ln_instance(n: int, ptrs: int) -> str:
     n is a multiple of VEC (so a row is a whole number of 16-byte vectors in
     bf16 and in fp32, and each row of a contiguous tensor is 16-byte aligned
     where the tensor is) and every tensor is 16-byte aligned; "per_element"
-    otherwise."""
+    otherwise (which takes at most MAX_N columns)."""
     return "vector" if n % VEC == 0 and ptrs % 16 == 0 else "per_element"
 
 
@@ -113,6 +117,10 @@ def _forward(x, scale, bias, residual, eps, out_dtype, with_rstd, instance=None)
     rp = residual.data_ptr() if residual is not None else None
     if instance is None:
         instance = ln_instance(n, xp | sp | bp | (rp or 0))
+    if instance == "per_element" and n > MAX_N:
+        raise ValueError(f"fused_layernorm: rows of {n} columns need the vector instance "
+                         f"(a multiple of {VEC} columns, 16-byte aligned tensors); the "
+                         f"per-element one takes at most {MAX_N}")
     rc = build.library().k3m_layernorm_fwd(
         xp, build.DTYPE_CODES[x.dtype], rp,
         build.DTYPE_CODES[residual.dtype] if residual is not None else 0,
@@ -131,15 +139,16 @@ def _forward(x, scale, bias, residual, eps, out_dtype, with_rstd, instance=None)
 def layernorm_bwd(y, rstd, scale, bias, dy, x_dtype):
     """(dx, dscale, dbias): the backward kernel for CUDA tensors, the plain
     version for CPU tensors. The kernel reads rows of whole 16-byte vectors:
-    N a multiple of 8 in bf16, of 4 in fp32. A `dy` of another dtype or
-    layout than y is copied first (none is on the training path)."""
+    N a multiple of 8 in bf16, of 4 in fp32, up to MAX_VEC_N. A `dy` of
+    another dtype or layout than y is copied first (none is on the training
+    path)."""
     if y.device.type == "cpu":
         return layernorm_bwd_plain(y, rstd, scale, bias, dy, x_dtype)
     if y.device.type != "cuda":
         raise ValueError(f"layernorm_bwd: unsupported device {y.device}")
     n = y.shape[-1]
     rows = y.numel() // n
-    if not 0 < n <= MAX_N or x_dtype not in build.DTYPE_CODES \
+    if not 0 < n <= MAX_VEC_N or x_dtype not in build.DTYPE_CODES \
             or y.dtype not in build.DTYPE_CODES or n % (16 // y.element_size()):
         raise ValueError(f"layernorm_bwd: unsupported width {n} or dtypes "
                          f"{y.dtype} -> {x_dtype}")

@@ -48,6 +48,11 @@ both copies in a world of one data rank, one per copy under data
 parallelism). So N data ranks draw, bit for bit, what one process draws
 for the global batch; the draws differ from the sequential passes' (as
 the JAX package's do).
+
+The text stack is `config.text_block`'s: BERT's TextLayer, or DeepSeek-V2's
+layers (model/deepseek.py), which take the same one stream or `Packed`
+rows and after whose last layer every text stream's output goes through
+the final RMSNorm `norm` once (in each pass, or once over the packed rows).
 """
 
 from __future__ import annotations
@@ -60,8 +65,9 @@ from torch import nn
 
 from k3m_tpu_torch import dist
 from k3m_tpu_torch.config import K3MConfig
+from k3m_tpu_torch.model import deepseek
 from k3m_tpu_torch.model.coattention import ConnectionLayer, ConnectionLayerTwoText
-from k3m_tpu_torch.model.layers import ImageLayer, Packed, TextLayer
+from k3m_tpu_torch.model.layers import ImageLayer, Packed, TextLayer, compute_dtype
 
 
 def pair_streams(txt, txt_bias, other, other_bias):
@@ -101,7 +107,12 @@ class TriStreamEncoder(nn.Module):
         super().__init__()
         self.cfg = cfg
         n_co = cfg.num_coattention_layers
-        self.layer = nn.ModuleList(TextLayer(cfg) for _ in range(cfg.num_hidden_layers))
+        if cfg.text_block == "deepseek_v2":
+            self.layer = nn.ModuleList(deepseek.text_layers(cfg))
+            self.norm = deepseek.RMSNorm(cfg.hidden_size, cfg.rms_norm_eps, compute_dtype(cfg))
+        else:
+            self.layer = nn.ModuleList(TextLayer(cfg) for _ in range(cfg.num_hidden_layers))
+            self.norm = None
         if cfg.use_image:
             self.v_layer = nn.ModuleList(
                 ImageLayer(cfg) for _ in range(cfg.v_num_hidden_layers))
@@ -118,19 +129,24 @@ class TriStreamEncoder(nn.Module):
             x = self.layer[idx](x, bias, det)
             if idx < self.cfg.fixed_t_layer:
                 x = x.detach()
+        if self.norm is not None and end == self.cfg.num_hidden_layers:
+            x = self.norm(x)
         return x
 
     def _run_text_packed(self, xs, biases, start: int, end: int, det: bool):
         """Text layers [start, end) over the streams `xs` at once, as
         `Packed` rows (biases: one per stream); returns the streams, views
         of the last layer's rows."""
-        if start == end:
+        last = self.norm is not None and end == self.cfg.num_hidden_layers
+        if start == end and not last:
             return list(xs)
         p = Packed.pack(xs)
         for idx in range(start, end):
             p = self.layer[idx](p, biases, det)
             if idx < self.cfg.fixed_t_layer:
                 p = Packed(p.rows.detach(), p.shapes)
+        if last:
+            p = Packed(self.norm(p.rows), p.shapes)
         return list(p.unpack())
 
     def _run_image(self, x, bias, txt, txt_mask2, start: int, end: int, det: bool):

@@ -75,7 +75,7 @@ def act_fn(name: str):
         return F.gelu            # erf gelu (reference :120-125)
     if name == "relu":
         return F.relu
-    if name == "swish":
+    if name in ("swish", "silu"):
         return F.silu
     raise ValueError(f"unknown activation {name}")
 
@@ -121,7 +121,9 @@ def init_weights(model: nn.Module, seed: int, std: float) -> nn.Module:
     """Random init from a seed, as the JAX package initializes: Linear and
     Embedding weights ~ N(0, std), biases 0, LayerNorm scale 1 / bias 0.
     Drawn on the CPU from one torch.Generator, so the same seed gives the
-    same weights on every device."""
+    same weights on every device. A module with `init_drawn` (the held
+    experts' weight banks, model/deepseek.py) draws its own from the same
+    generator, in module order."""
     g = torch.Generator().manual_seed(seed)
     with torch.no_grad():
         for m in model.modules():
@@ -129,6 +131,8 @@ def init_weights(model: nn.Module, seed: int, std: float) -> nn.Module:
                 m.weight.copy_(torch.normal(0.0, std, m.weight.shape, generator=g))
             if isinstance(m, nn.Linear) and m.bias is not None:
                 m.bias.zero_()
+            if hasattr(m, "init_drawn"):
+                m.init_drawn(g, std)
     return model
 
 
@@ -239,12 +243,12 @@ def pack_rows(xs):
 
 
 def unpack_rows(rows, shapes):
-    """The streams of `pack_rows`' rows as [B, L_i, F] views (F the rows'
-    last dim, which may differ from the packed input's; rows may be a view
-    with a row stride, as a column slice of one fused projection is)."""
+    """The streams of `pack_rows`' rows as [B, L_i, ...] views (the rows'
+    trailing dims, which may differ from the packed input's; rows may be a
+    view with a row stride, as a column slice of one fused projection is)."""
     outs, o = [], 0
     for b, l in shapes:
-        outs.append(rows[o:o + b * l].view(b, l, rows.shape[-1]))
+        outs.append(rows[o:o + b * l].unflatten(0, (b, l)))
         o += b * l
     return tuple(outs)
 
@@ -281,7 +285,7 @@ def fused_dense(x, linears):
     first = linears[0]
     dt = first.compute_dtype or first.weight.dtype
     w = torch.cat([m.weight for m in linears]).to(dt)
-    b = torch.cat([m.bias for m in linears]).to(dt)
+    b = None if first.bias is None else torch.cat([m.bias for m in linears]).to(dt)
     return F.linear(x.to(dt), w, b).split([m.weight.shape[0] for m in linears], dim=-1)
 
 

@@ -10,6 +10,9 @@ the structure aggregator with its LPM loss, and the heads:
                       masked regions / their count; 1: masked MSE; 2: NCE
                       with 70/30 across/in-batch negatives
   masked_lm_loss_pv   CE(ignore -1) over the pv text
+  moe_balance_loss    DeepSeek-V2's sequence-wise balance loss, summed over
+                      the MoE text layers (text_block "deepseek_v2" only;
+                      model/deepseek.py)
   alignment loss      CE over the fused 2-way score with label
                       1 - 1 * ((is_next + is_next_pv_v + is_next_pv_t) == 0)
   loss_struc          the LPM margin ranking loss (structure.py)
@@ -35,6 +38,7 @@ from torch import nn
 
 from k3m_tpu_torch.config import K3MConfig
 from k3m_tpu_torch.device import resolve_device
+from k3m_tpu_torch.model import deepseek
 from k3m_tpu_torch.model import random as k3m_random
 from k3m_tpu_torch.model.encoder import TriStreamEncoder
 from k3m_tpu_torch.model.fusion import FusionBlock
@@ -59,7 +63,8 @@ class K3MTrunk(nn.Module):
     def __init__(self, cfg: K3MConfig):
         super().__init__()
         self.cfg = cfg
-        self.embeddings = BertEmbeddings(cfg)
+        self.embeddings = (deepseek.DeepSeekEmbeddings(cfg) if cfg.text_block == "deepseek_v2"
+                           else BertEmbeddings(cfg))
         if cfg.use_image:
             self.v_embeddings = ImageEmbeddings(cfg)
         self.encoder = TriStreamEncoder(cfg)
@@ -217,9 +222,14 @@ class K3MForPretraining(nn.Module):
                 neg_image_idx=None, world: Optional[dist.World] = None):
         """`world`: the ranks whose rows make the global batch (none: this
         batch is the global one)."""
-        with k3m_random.use(rng), dist.use(world, batch["input_ids"].shape[0]):
-            return self._forward(batch, deterministic, neg_entity_idx,
-                                 neg_value_idx, gumbel_noise, neg_image_idx)
+        rows = batch["input_ids"].shape[0]
+        with k3m_random.use(rng), dist.use(world, rows), deepseek.balance_loss() as balance:
+            out = self._forward(batch, deterministic, neg_entity_idx,
+                                neg_value_idx, gumbel_noise, neg_image_idx)
+            total = deepseek.balance_total(balance, self.cfg.aux_loss_alpha, rows)
+        if total is not None:
+            out["moe_balance_loss"] = total
+        return out
 
     def _forward(self, batch, det, neg_entity_idx, neg_value_idx, gumbel_noise,
                  neg_image_idx):

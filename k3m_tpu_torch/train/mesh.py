@@ -72,6 +72,10 @@ def check_model_axis(cfg, n_model: int) -> None:
     each model rank (model/layers.py `HeadParallel`)."""
     if n_model < 1:
         raise ValueError(f"--n_model {n_model} < 1")
+    if n_model > 1 and cfg.text_block != "bert":
+        raise ValueError(f"--n_model {n_model}: tensor parallelism is not built for the "
+                         f"{cfg.text_block!r} text block (ROADMAP.md); use data "
+                         "parallelism (--n_model 1)")
     widths = [("hidden_size", cfg.hidden_size), ("intermediate_size", cfg.intermediate_size)]
     if cfg.use_image:
         widths += [("v_hidden_size", cfg.v_hidden_size),

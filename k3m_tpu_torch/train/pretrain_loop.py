@@ -13,6 +13,7 @@ Loss composition (ref :481-533):
   objective == 2: the alignment loss is reported as 0
   loss = masked_lm_loss + masked_img_loss * loss_img_weight
          + masked_lm_loss_pv + loss_struc      (alignment CE is logged only)
+         (+ moe_balance_loss under the DeepSeek-V2 text block)
 
 Per-step randomness comes from `StepRandom(seed, step)`, the counterpart of
 `fold_in(base_rng, step)` (:202-209), so a resumed run redraws the same
@@ -96,9 +97,14 @@ def total_loss(out: Dict[str, torch.Tensor], loss_img_weight: float,
         align = align * 0.0
     img = out["masked_img_loss"] * loss_img_weight
     loss = out["masked_lm_loss"] + img + out["masked_lm_loss_pv"] + out["loss_struc"]
+    balance = out.get("moe_balance_loss")     # the DeepSeek-V2 text block's
+    if balance is not None:
+        loss = loss + balance
     metrics = dict(loss=loss, masked_lm_loss=out["masked_lm_loss"],
                    masked_img_loss=img, masked_lm_loss_pv=out["masked_lm_loss_pv"],
                    next_sentence_loss_t_v_pv=align, loss_struc=out["loss_struc"])
+    if balance is not None:
+        metrics["moe_balance_loss"] = balance
     return loss, {k: v.detach() for k, v in metrics.items()}
 
 

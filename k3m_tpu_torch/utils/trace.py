@@ -34,6 +34,22 @@ bound only while recording.
 | `k3m.stage.pin` | on a CUDA device the slot's acquisition from the pool (train/slots.py: the wait for its last copies, any allocation); empty elsewhere | |
 | `k3m.stage.h2d` | every array's copy to the device (the enqueue, on a CUDA device) | |
 | `k3m.kernel.<function>` | each call of the function that launches the kernel of `fused_layernorm` (`layernorm._forward`), `layernorm_bwd`, `fused_attention` (`attention._forward`), `attention_bwd`, `fused_biattention` (`coattn._forward`) | the call's arguments, defaults left out |
+| `k3m.mla` | DeepSeek-V2's latent attention (model/deepseek.py): its projections, the latent RMSNorm and rope, up to the attention kernel | |
+| `k3m.moe.route` | the MoE router, its fp32 softmax and top-k, the sort of the (row, expert) pairs by held expert and the gather of their rows; in the backward the sum of each row's pairs | |
+| `k3m.moe.experts` | the held experts' grouped GEMMs, forward and backward | |
+| `k3m.moe.combine` | the pairs back in row order and their weighted sum; in the backward the pairs' gradients in sorted order | |
+| `k3m.moe.shared` | the shared experts and the sum with the routed part | |
+
+Counters (`count(name, value)`): while recording, each call adds `value`
+(a device tensor) to the recording's running sum of `name` on the device,
+with no sync; `recording()` reads every sum to the host once, as it ends,
+into the recorder's `counts` (lists). While recording is off a call checks
+the one module-level name.
+
+| counter | where | value |
+| --- | --- | --- |
+| `k3m.moe.expert_rows` | each MoE layer's forward | the rows routed to each held expert, [held experts] |
+| `k3m.moe.rows` | each MoE layer's forward | the held (row, expert) pairs computed, [1] |
 """
 
 from __future__ import annotations
@@ -63,6 +79,8 @@ class Recorder:
         self.start_ns = time.time_ns()
         self.end_ns: Optional[int] = None
         self._ids = itertools.count(1)
+        self.counters: Dict[str, torch.Tensor] = {}   # running sums, on the device
+        self.counts: Dict[str, list] = {}             # their values, read at the end
 
 
 def _attr(value):
@@ -161,6 +179,17 @@ def on() -> bool:
     return _recorder is not None
 
 
+def count(name: str, value: torch.Tensor) -> None:
+    """Add `value` to the recording's device-side sum of `name` (module
+    docstring); nothing while recording is off."""
+    rec = _recorder
+    if rec is None:
+        return
+    value = value.detach()
+    held = rec.counters.get(name)
+    rec.counters[name] = value.clone() if held is None else held + value
+
+
 @contextlib.contextmanager
 def recording() -> Iterator[Recorder]:
     """Record every thread's spans into one new Recorder until the block
@@ -174,3 +203,5 @@ def recording() -> Iterator[Recorder]:
     finally:
         _recorder = None
         rec.end_ns = time.time_ns()
+        rec.counts = {k: v.tolist() for k, v in rec.counters.items()}
+        rec.counters.clear()

@@ -106,6 +106,30 @@ def test_cuda_layernorm_backward_matches_plain(cuda_device, dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("rows,n", [(300, 2048), (4099, 2048), (77, 1032)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_layernorm_backward_matches_plain_on_wide_rows(cuda_device, rows, n, dtype):
+    """Rows wider than 1,024 columns (the DeepSeek-V2 text block's 2048-wide
+    co-attention and head LayerNorms) take the backward's wide kernel, held
+    as the narrow one is above, and give the same bits twice."""
+    g = torch.Generator(device=cuda_device).manual_seed(rows + n)
+    y = torch.randn(rows, n, generator=g, device=cuda_device).to(dtype)
+    dy = torch.randn(rows, n, generator=g, device=cuda_device).to(dtype)
+    rstd = torch.rand(rows, generator=g, device=cuda_device) + 0.5
+    s = torch.randn(n, generator=g, device=cuda_device)
+    b = torch.randn(n, generator=g, device=cuda_device)
+    launches = layernorm_bwd.launches
+    got = layernorm_bwd(y, rstd, s, b, dy, dtype)
+    again = layernorm_bwd(y, rstd, s, b, dy, dtype)
+    want = layernorm_bwd_plain(y, rstd, s, b, dy, dtype)
+    _check(got[0], want[0], _share(dtype))
+    for a, r in zip(got[1:], want[1:]):
+        _check(a, r, 1e-4)
+    assert all(torch.equal(a, r) for a, r in zip(got, again))
+    assert layernorm_bwd.launches == launches + 2
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("rate", [0.0, 0.1])
 def test_cuda_attention_with_dropout_matches_plain(cuda_device, dtype, rate):

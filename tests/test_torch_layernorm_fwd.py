@@ -1,12 +1,13 @@
 """The LN forward's two instances (k3m_tpu_torch/kernels/layernorm.py).
 
 On the CPU: `ln_instance` sends every width and view of the shipped
-configs' main path to the vector instance, and odd widths and misaligned
-views to the per-element one; the CPU wrapper on those odd shapes agrees
-with the JAX package's Pallas kernel in interpret mode. On the card
-(`cuda` marker, skipped without one): both instances against the plain
-version at the vector instance's edges, twice bit for bit, with both
-launch counters. JAX is imported inside the one test that needs it, so
+configs' main path and of the DeepSeek-V2 text block's 2048-wide text to
+the vector instance, and odd widths and misaligned views to the
+per-element one; the CPU wrapper on those odd shapes agrees with the JAX
+package's Pallas kernel in interpret mode. On the card (`cuda` marker,
+skipped without one): both instances against the plain version at the
+vector instance's edges, and the vector instance alone on rows of 1,025
+to 2,048 columns, twice bit for bit, with both launch counters. JAX is imported inside the one test that needs it, so
 that the card's host, which has no JAX, runs the rest:
 
     python -m pytest tests/test_torch_layernorm_fwd.py -q --noconftest
@@ -20,10 +21,13 @@ import pytest
 import torch
 
 from k3m_tpu_torch.kernels import fused_layernorm
-from k3m_tpu_torch.kernels.layernorm import _forward, _plain_fwd, ln_instance
+from k3m_tpu_torch.kernels.layernorm import (
+    MAX_N, MAX_VEC_N, _forward, _plain_fwd, ln_instance,
+)
 from k3m_tpu_torch.model.layers import Packed
 
 CONFIGS = Path(__file__).resolve().parents[1] / "k3m_tpu_torch" / "configs"
+BENCH_CONFIGS = Path(__file__).resolve().parents[1] / "benchmark" / "configs"
 SHIPPED = ("bert_base_6layer_6conect.json", "k3m_roberta_base.json")
 DTYPES = (torch.float32, torch.bfloat16)
 
@@ -52,6 +56,20 @@ def test_shipped_widths_take_the_vector_instance(config, dtype):
         p = torch.ones(n)
         assert _instance(x, res, out, p, p) == "vector"
         assert _instance(x, None, out, p, p) == "vector"
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_deepseek_text_rows_take_the_vector_instance(dtype):
+    """The DeepSeek-V2 text block's 2048-wide text (its co-attention's and
+    heads' LayerNorms), packed and unpacked, takes the vector instance: the
+    per-element one stops at MAX_N columns."""
+    n = json.loads((BENCH_CONFIGS / "k3m_deepseek_v2_lite-ep8.json").read_text())["hidden_size"]
+    assert MAX_N < n <= MAX_VEC_N
+    packed = Packed.pack([torch.zeros(2, L, n, dtype=dtype) for L in (50, 256, 50, 256)])
+    p = torch.ones(n)
+    assert _instance(packed.rows, packed.rows, p, p) == "vector"
+    for view in packed.unpack():
+        assert _instance(view, None, p, p) == "vector"
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
@@ -139,6 +157,7 @@ def test_per_element_shapes_match_pallas(n, offset, with_res):
 # ---------------------------------------------------------------- on the card
 
 EDGES = [(1, 768), (1, 1024), (4099, 768), (200, 1024), (77, 8), (77, 520), (77, 1016)]
+WIDE = [(1, 2048), (4099, 2048), (77, 1032), (77, 2040)]   # the vector instance alone
 
 
 @pytest.fixture
@@ -193,3 +212,25 @@ def test_cuda_odd_shapes_take_the_per_element_instance(cuda_device, n, offset):
     assert (fused_layernorm.launches, fused_layernorm.per_element_launches) == (2, 2)
     with pytest.raises(RuntimeError, match="vector instance"):
         _forward(x, s, s, x, 1e-12, torch.bfloat16, False, "vector")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,n", WIDE)
+@pytest.mark.parametrize("xd,rd,od", [
+    (torch.bfloat16, torch.bfloat16, torch.bfloat16), (torch.bfloat16, None, torch.bfloat16),
+    (torch.float32, torch.float32, torch.float32), (torch.float32, torch.bfloat16, torch.bfloat16),
+])
+def test_cuda_wide_rows_take_the_vector_instance(cuda_device, rows, n, xd, rd, od):
+    """Rows of 1,025 to 2,048 columns: the vector instance's wide kernel
+    against the plain version as at the edges above; the per-element
+    instance refuses them."""
+    g = torch.Generator(device=cuda_device).manual_seed(rows * n)
+    x = (torch.randn(rows, n, generator=g, device=cuda_device) * 2 + 1).to(xd)
+    res = None if rd is None else torch.randn(rows, n, generator=g, device=cuda_device).to(rd)
+    s = torch.randn(n, generator=g, device=cuda_device)
+    b = torch.randn(n, generator=g, device=cuda_device)
+    fused_layernorm.launches = fused_layernorm.per_element_launches = 0
+    _hold(x, s, b, res, od, None)
+    assert (fused_layernorm.launches, fused_layernorm.per_element_launches) == (2, 0)
+    with pytest.raises(ValueError, match="need the vector instance"):
+        _forward(x, s, b, res, 1e-12, od, True, "per_element")

@@ -6,6 +6,7 @@
     python3 chip_smoke.py --profile        # also trace the serving forward
     python3 chip_smoke.py --parent DIR     # also time DIR's LN forward kernel (phase 3)
     python3 chip_smoke.py --ln-paths [--parent DIR]  # phases 4, 6, 8 for the LN forward, alone
+    python3 chip_smoke.py --moe-kernels    # phase 3's MoE part, alone
     python3 chip_smoke.py --dp-cards 4     # phase 17's finetune on 4 cards, alone
     python3 chip_smoke.py --tp-cards 4     # --n_model pretraining on 4 cards, alone
 
@@ -52,7 +53,17 @@ a failure:
      lanes, every dtype combination, with its rstd, each twice bit for bit,
      by its vector instance and by its per-element one, and the shapes the
      per-element instance alone takes (a width of 100, a view one element
-     off), with both launch counters; every #1 row is timed by the vector
+     off), with both launch counters; the DeepSeek-V2 MoE's six per-pair
+     kernels (kernels/moe.py, moe_kernel_rows) at the
+     pretrain-dsv2lite-ep8-b16 cell's shapes, each against its plain
+     version on a held range of 8 of 64 experts, every expert held, none,
+     one expert in every row and a valid mask cleared for the first held
+     expert, at tests/test_torch_moe_kernels.py's limits, with its launch
+     count, timed on the held range beside its plain version and its byte
+     bound, then one MoE layer's forward and backward: the kernels' launch
+     counts, its tensors against the plain versions', and the held experts'
+     and the layer's ms on the kernels and on the plain versions; every #1
+     row is timed by the vector
      instance and, with --parent DIR, by the LN forward of DIR (a checkout
      of another commit, its layernorm.cu built alone), rotating over
      copies of the inputs where their bytes fall short of twice the 50 MB
@@ -1373,6 +1384,228 @@ def launch_overhead(card, n=2000):
     return out
 
 
+# ------------------------------------------- the MoE's per-pair kernels
+
+# pretrain-dsv2lite-ep8-b16's MoE layer: 16 x 612 packed rows, top 6 of 64
+# routed experts, 8 held, hidden 2,048, experts of 1,408
+MOE_CELL = dict(N=16 * 612, E=64, k=6, H=2048, I=1408, held=(0, 8), shapes=((16, 612),))
+MOE_CASES = ("range", "every", "none", "one", "dropped")
+MOE_LAYER_LAUNCHES = dict(moe_gather=2, swiglu_fwd=2, swiglu_bwd=1, moe_combine_fwd=1,
+                          moe_combine_bwd=1, moe_gather_sum=1)
+
+
+def _moe_routes(case, dev):
+    """((e0, e1), route's tok, inv, offs, valid) of a case: `range` the
+    cell's held 8 of 64, `every` all 64 held, `none` no pair held, `one`
+    expert e0 in every row, `dropped` valid cleared for e0's rows (the
+    benchmark's planted fault); the same draws as tests/test_torch_moe_kernels.py."""
+    c = MOE_CELL
+    from k3m_tpu_torch.model import deepseek as ds
+    N, E, k = c["N"], c["E"], c["k"]
+    e0, e1 = (0, E) if case == "every" else c["held"]
+    g = torch.Generator().manual_seed(0)
+    outside = torch.tensor([e for e in range(E) if not e0 <= e < e1])
+
+    def choose(pool, m):
+        return pool[torch.rand(N, pool.numel(), generator=g).argsort(-1)[:, :m]]
+    if case == "none":
+        idx = choose(outside, k)
+    elif case == "one":
+        idx = torch.cat([torch.full((N, 1), e0), choose(outside, k - 1)], dim=1)
+    else:
+        idx = choose(torch.arange(E), k)
+    tok, inv, offs, valid, _ = ds.route(idx.to(dev), e0, e1)
+    if case == "dropped":
+        valid = valid & (torch.arange(valid.numel(), device=dev) >= offs[0])
+    return (e0, e1), tok, inv, offs, valid
+
+
+def _moe_err(got, want, share=2.0 ** -7, floor=1e-3):
+    """(error, tolerance) under the test file's elementwise limit |got -
+    want| <= share |want| + floor max|want|: the error is the largest
+    excess over the share's part; share 0 and floor 0 ask for the same bits."""
+    got, want = got.float(), want.float()
+    if not want.numel():
+        return 0.0, 0.0
+    err = float(((got - want).abs() - share * want.abs()).max().clamp_min(0))
+    return err, floor * float(want.abs().max())
+
+
+def _moe_bytes(n, R):
+    """Each kernel's least bytes at n held pairs: the held rows read once
+    and written once, indices, masks and weights included."""
+    c = MOE_CELL
+    N, k, H, I = c["N"], c["k"], c["H"], c["I"]
+    idx_b, pair_b = n * 9, N * k * 12     # tok/inv and valid a held row; inv and w a pair
+    return dict(moe_gather=2 * n * H * 2 + idx_b, swiglu_fwd=3 * n * I * 2,
+                swiglu_bwd=5 * n * I * 2, moe_combine_fwd=(n + N) * H * 2 + pair_b,
+                moe_combine_bwd=(N + 2 * n) * H * 2 + pair_b + N * k * 4,
+                moe_gather_sum=(n + N) * H * 2 + N * k * 8)
+
+
+def moe_kernel_rows(card):
+    """The six per-pair kernels of kernels/moe.py on the card at the
+    DeepSeek-V2-Lite cell's shapes (MOE_CELL): each held against its plain
+    version on each case (_moe_routes) at the limits of
+    tests/test_torch_moe_kernels.py (the gather and dy's held rows bit for
+    bit, the rest within 2^-7 of each element plus 1e-3 of the scale, dw
+    within 1e-4 plus 1e-4), one launch each; on the cell's case each timed
+    (a graph of calls rotating over copies of the inputs past twice the L2)
+    beside the plain version and its byte bound. Then one MoE layer at the
+    cell's widths, forward and backward: the kernels' launch counts
+    (MOE_LAYER_LAUNCHES), its outputs and gradients against the layer on
+    the plain versions within 2^-6 of their scale, and the held experts'
+    forward and backward (`_HeldExperts`) and the whole layer's, timed on
+    the kernels and on the plain versions."""
+    from k3m_tpu_torch.kernels import moe
+    c, dev, bf = MOE_CELL, torch.device("cuda"), torch.bfloat16
+    N, k, H, I = c["N"], c["k"], c["H"], c["I"]
+    g = torch.Generator(device=dev).manual_seed(SEED)
+
+    def rand(*shape):
+        return torch.randn(*shape, generator=g, device=dev).to(bf)
+
+    rows = []
+    for case in MOE_CASES:
+        _, tok, inv, offs, valid = _moe_routes(case, dev)
+        R, n = valid.numel(), int(offs[-1])
+        u, h, da, y, dout = rand(N, H), rand(R, 2 * I), rand(R, I), rand(R, H), rand(N, H)
+        w = torch.rand(N, k, generator=g, device=dev)
+        calls = dict(
+            moe_gather=((u, tok, offs, valid), lambda o: o[:n], (0.0, 0.0)),
+            swiglu_fwd=((h, offs), lambda o: o[:n], (2.0 ** -7, 1e-3)),
+            swiglu_bwd=((h, da, offs), lambda o: o[:n], (2.0 ** -7, 1e-3)),
+            moe_combine_fwd=((y, inv, w, offs), lambda o: o, (2.0 ** -7, 1e-3)),
+            moe_combine_bwd=((dout, y, inv, w, offs), lambda o: (o[0][:n], o[1]), None),
+            moe_gather_sum=((y, inv, offs, k), lambda o: o, (2.0 ** -7, 1e-3)))
+        moe.reset_launch_counts()
+        checked = []
+        for name, (args, held, lim) in calls.items():
+            got, want = held(getattr(moe, name)(*args)), held(getattr(moe, name + "_plain")(*args))
+            if lim is None:        # dy's held rows bit for bit, dw in fp32
+                errs = [_moe_err(got[0], want[0], 0.0, 0.0),
+                        _moe_err(got[1], want[1], 1e-4, 1e-4)]
+            else:
+                errs = [_moe_err(got, want, *lim)]
+            err, tol = max(errs)
+            checked.append(dict(kernel=name, case=case, shape=f"N{N} k{k} H{H} I{I} n{n} R{R}",
+                                dtype="bfloat16", held_rows=n, capacity_rows=R,
+                                max_abs_err=err, tol=tol))
+            log(f"moe kernel {name} {case}: n {n} of {R}, max_abs_err {err:.3e} (tol "
+                f"{tol:.1e}) | {card}")
+            if not all(e <= t for e, t in errs):
+                raise AssertionError(f"moe {name} {case} disagrees with its plain version: "
+                                     f"{errs}")
+        torch.cuda.synchronize()
+        counts = moe.launch_counts()
+        if counts != {name: 1 for name in moe.WRAPPERS}:
+            raise AssertionError(f"moe {case}: launch counts {counts}, one each expected")
+        rows += checked
+        if case != "range":
+            continue
+        nbytes = _moe_bytes(n, R)
+        for row in checked:
+            name, (args, _, _) = row["kernel"], calls[row["kernel"]]
+            kernel, plain = getattr(moe, name), getattr(moe, name + "_plain")
+            copies = [args] + [tuple(a.clone() if torch.is_tensor(a) and a.is_floating_point()
+                                     else a for a in args)
+                               for _ in range(l2_copies(nbytes[name]) - 1)]
+            row.update(ms=rotated_ms(kernel, copies),
+                       plain_ms=cuda_ms(lambda: plain(*args), iters=PLAIN_ITERS),
+                       bound_ms=1e3 * nbytes[name] / HBM_BYTES_PER_S, bound_by="bytes",
+                       l2_copies=len(copies))
+            row["roofline_pct"] = 100 * row["bound_ms"] / row["ms"]
+            log(f"moe kernel {name} {case}: kernel_ms {row['ms']:.4f} plain_ms "
+                f"{row['plain_ms']:.4f} bound_ms {row['bound_ms']:.4f} "
+                f"({row['roofline_pct']:.1f} %), {len(copies)} copies | {card}")
+        del u, h, da, y, dout
+        torch.cuda.empty_cache()
+    layer = moe_layer_check(card)
+    summary = [dict(name=name, route="cuda", source="k3m_tpu_torch/kernels/csrc/moe.cu",
+                    replaces="none (the JAX package has no mixture of experts)",
+                    launches_per_moe_layer=layer["launches"][name],
+                    max_abs_err=max(r["max_abs_err"] for r in rows if r["kernel"] == name),
+                    **{key: r[key] for key in ("shape", "ms", "plain_ms", "bound_ms",
+                                               "bound_by", "roofline_pct")})
+               for name in moe.WRAPPERS
+               for r in [next(r for r in rows if r["kernel"] == name and "ms" in r)]]
+    return dict(rows=rows, layer=layer, summary=summary)
+
+
+def moe_layer_check(card):
+    """One MoE layer at the cell's widths, forward and backward (moe_kernel_rows)."""
+    from k3m_tpu_torch.config import K3MConfig
+    from k3m_tpu_torch.kernels import moe
+    from k3m_tpu_torch.model import deepseek as ds
+    c, dev = MOE_CELL, torch.device("cuda")
+    cfg = K3MConfig(text_block="deepseek_v2", hidden_size=c["H"], num_attention_heads=16,
+                    moe_intermediate_size=c["I"], n_routed_experts=c["E"],
+                    num_experts_per_tok=c["k"], n_shared_experts=2, experts_held=c["held"],
+                    aux_loss_alpha=0.001)
+    torch.manual_seed(SEED)
+    layer = ds.MoE(cfg, 1).to(dev)
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    with torch.no_grad():
+        for p in layer.parameters():
+            p.copy_(0.02 * torch.randn(p.shape, generator=g, device=dev))
+    shapes = c["shapes"]
+    biases = tuple(torch.zeros(*shape, device=dev) for shape in shapes)
+    u = torch.randn(c["N"], c["H"], generator=g, device=dev).to(torch.bfloat16)
+    u.requires_grad_(True)
+    dout = torch.randn(c["N"], c["H"], generator=g, device=dev).to(torch.bfloat16)
+    params = [u, *layer.parameters()]
+
+    def step():
+        out = layer(u, shapes, biases)
+        grads = torch.autograd.grad(out, params, dout, allow_unused=True)
+        return [out.detach(), *(d for d in grads if d is not None)]
+
+    step()                          # warm-up
+    torch.cuda.synchronize()
+    moe.reset_launch_counts()
+    got = step()
+    torch.cuda.synchronize()
+    launches = moe.launch_counts()
+    log(f"moe layer: kernel launches of one forward and backward {launches} | {card}")
+    if launches != MOE_LAYER_LAUNCHES:
+        raise AssertionError(f"moe layer: launches {launches}, expected {MOE_LAYER_LAUNCHES}")
+    _, tok, inv, offs, valid = _moe_routes("range", dev)
+    w13 = layer.experts.w13.detach().to(torch.bfloat16).requires_grad_(True)
+    w2 = layer.experts.w2.detach().to(torch.bfloat16).requires_grad_(True)
+    weights = torch.rand(c["N"], c["k"], generator=g, device=dev).requires_grad_(True)
+    held_in = [u, w13, w2, weights]
+
+    def held():
+        out = ds._HeldExperts.apply(*held_in, tok, inv, offs, valid)
+        torch.autograd.grad(out, held_in, dout)
+
+    res = dict(launches=launches, held_experts_ms=cuda_ms(held, iters=10),
+               layer_ms=cuda_ms(step, iters=10))
+    saved = {name: getattr(ds, name) for name in moe.WRAPPERS}
+    try:
+        for name in moe.WRAPPERS:
+            setattr(ds, name, getattr(moe, name + "_plain"))
+        want = step()
+        res.update(held_experts_plain_ms=cuda_ms(held, iters=5),
+                   layer_plain_ms=cuda_ms(step, iters=5))
+    finally:
+        for name, fn in saved.items():
+            setattr(ds, name, fn)
+    errs = [(max_err(a, b), 2.0 ** -6 * max(float(b.float().abs().max()), 1e-30))
+            for a, b in zip(got, want)]
+    res["max_abs_err"], res["tol"] = _worst(errs)
+    log(f"moe layer: outputs and gradients against the plain versions' worst "
+        f"{res['max_abs_err']:.3e} (tol {res['tol']:.1e}); _HeldExperts forward + backward "
+        f"{res['held_experts_ms']:.3f} ms (plain versions {res['held_experts_plain_ms']:.3f}), "
+        f"the layer {res['layer_ms']:.3f} ms (plain versions {res['layer_plain_ms']:.3f}) "
+        f"| {card}")
+    if not all(e <= t for e, t in errs):
+        raise AssertionError(f"moe layer disagrees with the plain versions: {errs}")
+    del layer, got, want
+    torch.cuda.empty_cache()
+    return res
+
+
 def phase_kernels(card):
     """Every part of phase 3, each part's seconds logged (`part_seconds`)."""
     rows, parts = [], {}
@@ -1395,10 +1628,11 @@ def phase_kernels(card):
     tp_rows = timed("tp_kernel_rows", tp_kernel_rows, card)
     option_rows = timed("option_kernel_rows", option_kernel_rows, card)
     packed_rows = timed("packed_kernel_rows", packed_kernel_rows, card)
+    moe_rows = timed("moe_kernel_rows", moe_kernel_rows, card)
     log(f"kernels: part seconds { {k: round(v, 1) for k, v in parts.items()} }")
     return dict(rows=rows, host_us=host_us, masks=masks, edges=edges, ln_edges=ln_edges,
                 tp_rows=tp_rows, option_rows=option_rows, packed_rows=packed_rows,
-                part_seconds=parts)
+                moe=moe_rows, part_seconds=parts)
 
 
 # ------------------------------------------------------------ slice phase
@@ -5529,6 +5763,16 @@ def main(argv):
         (OUT_JSON.parent / "ln_paths.json").write_text(json.dumps(
             {"card": card, "ln_paths": runs}, indent=1, default=float))
         return 0
+    if argv[:1] == ["--moe-kernels"]:      # phase 3's MoE part, alone
+        card = phase_env()
+        build_s, _ = phase_build()
+        res = moe_kernel_rows(card)
+        OUT_JSON.parent.mkdir(parents=True, exist_ok=True)
+        (OUT_JSON.parent / "moe_kernels.json").write_text(json.dumps(
+            {"card": card, "build_s": build_s, **res}, indent=1, default=float))
+        print(card, flush=True)
+        print(json.dumps({"moe_kernels": res["summary"]}), flush=True)
+        return 0
     if argv[:1] in (["--dp-cards"], ["--tp-cards"]):   # on N cards, alone
         card = phase_env()
         run_build = phase_build()
@@ -5560,12 +5804,13 @@ def main(argv):
     kernel_json = dict(kernels=krows, tp_kernels=tp_rows, option_kernels=option_rows,
                        packed_kernels=packed_rows, dropout_masks=k["masks"],
                        forward_edges=k["edges"], ln_edges=k["ln_edges"],
-                       host_us_per_call=k["host_us"],
+                       host_us_per_call=k["host_us"], moe_kernels=k["moe"],
                        kernel_part_seconds=k["part_seconds"])
     if kernels_only:                   # quick check of a kernel change
         OUT_JSON.parent.mkdir(parents=True, exist_ok=True)
         OUT_JSON.write_text(json.dumps(dict(card=card, build_s=build_s, ptxas=ptxas,
                                             **kernel_json), indent=1))
+        print(json.dumps({"moe_kernels": k["moe"]["summary"]}), flush=True)
         return 0
     profile = "--profile" in argv
     if WORK.exists():
@@ -5617,7 +5862,7 @@ def main(argv):
                                     legacy_readme=legacy["readme"],
                                     legacy_defaults=legacy["defaults"],
                                     legacy_raw=legacy["raw"]), legacy, tp_rows,
-                        option_rows, packed_rows)
+                        option_rows, packed_rows) + k["moe"]["summary"]
     OUT_JSON.parent.mkdir(parents=True, exist_ok=True)
     OUT_JSON.write_text(json.dumps(dict(card=card, build_s=build_s, ptxas=ptxas,
                                         **kernel_json, slice=slice_res, crosscheck_worst=cross,

@@ -111,9 +111,16 @@ def _declare(lib):
                                             U, U, F, I, I, I, P]
     lib.k3m_attention_bwd_split.argtypes = [P, P, P, P, P, P, P, P, P, P, P, P,
                                             I, I, I, I, I, I, P, F, U, F, P]
+    lib.k3m_moe_gather.argtypes = [P, P, P, I, P, P, I, I, P]
+    lib.k3m_moe_swiglu_fwd.argtypes = [P, P, I, P, I, I, P]
+    lib.k3m_moe_swiglu_bwd.argtypes = [P, P, P, I, P, I, I, P]
+    lib.k3m_moe_combine_fwd.argtypes = [P, P, P, P, I, P, I, I, I, I, P]
+    lib.k3m_moe_combine_bwd.argtypes = [P, P, P, P, P, I, P, P, I, I, I, I, P]
     for fn in (lib.k3m_layernorm_fwd, lib.k3m_ln_bwd_bands, lib.k3m_layernorm_bwd,
                lib.k3m_attention_fwd, lib.k3m_attention_bwd, lib.k3m_biattention_fwd,
-               lib.k3m_attention_fwd_split, lib.k3m_attention_bwd_split):
+               lib.k3m_attention_fwd_split, lib.k3m_attention_bwd_split,
+               lib.k3m_moe_gather, lib.k3m_moe_swiglu_fwd, lib.k3m_moe_swiglu_bwd,
+               lib.k3m_moe_combine_fwd, lib.k3m_moe_combine_bwd):
         fn.restype = I
 
 

@@ -38,13 +38,16 @@ out = sum over i in T and held of s_i E_i(u), plus S(u), the
 layer holds the routed experts `experts_held` [e0, e1) alone, routes over
 all of them and computes its own experts' part: the chip's share of an
 expert-parallel deployment, whose exchange this process does not run.
-Padding rows are routed like any row. The held (row, expert) pairs are
-sorted by expert (`route`), gathered, and run as two grouped GEMMs per
-layer (`torch._grouped_mm` on the card, with the group offsets on the
-device: no count reaches the host); the sort's buffers are sized for
-every (row, choice) pair, so the rows past the held ones are never read
-(`where` on the GEMMs' outputs). The pairs are put back in row order and
-summed with their scores (`combine`).
+Padding rows are routed like any row. The (row, choice) pairs are sorted
+by held expert (`route`), the held ones first; the sort's buffers are
+sized at capacity, every pair of the layer (R = N k rows), while the work
+is bounded by the held-pair count offs[-1], which is read on the device
+alone: no count reaches the host. The held pairs' rows are gathered, run
+through SwiGLU as two grouped GEMMs (`torch._grouped_mm` on the card, with
+the group offsets on the device) and summed back into their rows with
+their scores (`combine`); the gather, SwiGLU and the combine, and their
+gradients, are kernels (kernels/moe.py) that skip the sorted rows at or
+past offs[-1], as the GEMMs do.
 
 Balance loss, DeepSeek-V2's sequence-wise one: alpha sum_i f_i P_i per
 sequence over its real tokens (the bias' zeros), f_i = E / (k L) times the
@@ -55,11 +58,13 @@ summed over the MoE layers. The layers add their sums to the collector of
 forward (model/pretrain.py).
 
 Spans: `k3m.mla` (the projections and rope), `k3m.moe.route` (router,
-softmax, top-k, the sort and the gather), `k3m.moe.experts` (the grouped
-GEMMs), `k3m.moe.combine`, `k3m.moe.shared`; counters
-`k3m.moe.expert_rows` (rows per held expert) and `k3m.moe.rows` (the held
-pairs computed), added on the device and read once a recording
-(utils/trace.py).
+softmax, top-k, the sort and the gather; in the backward the sum of each
+row's pairs' gradients), `k3m.moe.experts` (the grouped GEMMs and
+SwiGLU), `k3m.moe.combine`, `k3m.moe.shared`; counters
+`k3m.moe.expert_rows` (rows per held expert) and `k3m.moe.rows` (the
+held pairs computed), added on the device, and `k3m.moe.pairs` (the sort's
+capacity R, which the host knows), added on the host; all read once a
+recording (utils/trace.py).
 
 Tensor parallelism is not built for this block (train/mesh.py refuses it);
 data parallelism is the BERT block's: no collective runs inside a layer.
@@ -79,6 +84,9 @@ from torch import nn
 from k3m_tpu_torch import dist
 from k3m_tpu_torch.config import K3MConfig
 from k3m_tpu_torch.kernels import fused_attention
+from k3m_tpu_torch.kernels.moe import (
+    moe_combine_bwd, moe_combine_fwd, moe_gather, moe_gather_sum, swiglu_bwd, swiglu_fwd,
+)
 from k3m_tpu_torch.model.layers import (
     Linear, Packed, compute_dtype, fused_dense, pack_rows, unpack_rows,
 )
@@ -284,45 +292,39 @@ def grouped_mm(a, b, offs):
 
 
 class _HeldExperts(torch.autograd.Function):
-    """The held experts' outputs of the sorted (row, choice) pairs, back in
-    row order: gather u's rows (`tok`), the gate/up and down grouped GEMMs
-    of SwiGLU, then the pairs in row order (`inv`) as [N, k, hidden], zero
-    where the pair's expert is not held. The backward runs the same grouped
-    GEMMs (and their weight gradients) and sums each row's k pairs."""
+    """The held experts' part of the MoE output [N, hidden]: u's rows
+    gathered in sorted order (`tok`), the gate/up and down grouped GEMMs of
+    SwiGLU, then each row's held pairs (`inv`) summed with their top-k
+    weights. The kernels (kernels/moe.py) read the held-pair count offs[-1]
+    on the device and work on the sorted rows below it alone; the GEMMs
+    stop there too. The backward runs the same grouped GEMMs and their
+    weight gradients, and gives the weights' gradient in fp32."""
 
     @staticmethod
-    def forward(ctx, u, w13, w2, tok, inv, offs, valid):
+    def forward(ctx, u, w13, w2, weights, tok, inv, offs, valid):
         with trace.span("k3m.moe.route"):
-            x = u[tok]
+            x = moe_gather(u, tok, offs, valid)
         with trace.span("k3m.moe.experts"):
-            h = torch.where(valid[:, None], grouped_mm(x, w13, offs), 0)
-            g, up = h.chunk(2, dim=-1)
-            y = torch.where(valid[:, None], grouped_mm(F.silu(g) * up, w2, offs), 0)
+            h = grouped_mm(x, w13, offs)
+            y = grouped_mm(swiglu_fwd(h, offs), w2, offs)
         with trace.span("k3m.moe.combine"):
-            out = y[inv].view(u.shape[0], -1, u.shape[1])
-        ctx.save_for_backward(u, w13, w2, tok, inv, offs, valid, h)
+            out = moe_combine_fwd(y, inv, weights, offs)
+        ctx.save_for_backward(u, w13, w2, weights, tok, inv, offs, valid, h, y)
         return out
 
     @staticmethod
     def backward(ctx, dout):
-        u, w13, w2, tok, inv, offs, valid, h = ctx.saved_tensors
+        u, w13, w2, weights, tok, inv, offs, valid, h, y = ctx.saved_tensors
         with trace.span("k3m.moe.combine"):
-            dy = torch.empty_like(dout.reshape(-1, dout.shape[-1]))
-            dy[inv] = dout.reshape(-1, dout.shape[-1])
+            dy, dweights = moe_combine_bwd(dout, y, inv, weights, offs)
         with trace.span("k3m.moe.experts"):
-            g, up = h.chunk(2, dim=-1)
-            sg = F.silu(g)
-            dw2 = grouped_mm((sg * up).t(), dy, offs)
-            da = torch.where(valid[:, None], grouped_mm(dy, w2.transpose(1, 2), offs), 0)
-            sig = torch.sigmoid(g.float())
-            dg = (da.float() * up.float() * sig * (1 + g.float() * (1 - sig))).to(h.dtype)
-            dh = torch.cat([dg, da * sg], dim=-1)
-            x = u[tok]
-            dw13 = grouped_mm(x.t(), dh, offs)
-            dx = torch.where(valid[:, None], grouped_mm(dh, w13.transpose(1, 2), offs), 0)
+            dw2 = grouped_mm(swiglu_fwd(h, offs).t(), dy, offs)
+            dh = swiglu_bwd(h, grouped_mm(dy, w2.transpose(1, 2), offs), offs)
+            dw13 = grouped_mm(moe_gather(u, tok, offs, valid).t(), dh, offs)
+            dx = grouped_mm(dh, w13.transpose(1, 2), offs)
         with trace.span("k3m.moe.route"):
-            du = dx[inv].view(u.shape[0], -1, u.shape[1]).sum(1)
-        return du, dw13, dw2, None, None, None, None
+            du = moe_gather_sum(dx, inv, offs, weights.shape[1])
+        return du, dw13, dw2, dweights, None, None, None, None
 
 
 class ExpertBank(nn.Module):
@@ -387,13 +389,10 @@ class MoE(nn.Module):
             tok, inv, offs, valid, counts = route(idx, *self.held)
             trace.count("k3m.moe.expert_rows", counts)
             trace.count("k3m.moe.rows", offs[-1:])
+            trace.count("k3m.moe.pairs", tok.numel())
             self._balance(scores, idx, shapes, biases)
-        pairs = _HeldExperts.apply(u, self.experts.w13.to(u.dtype), self.experts.w2.to(u.dtype),
-                                   tok, inv, offs, valid)
-        with trace.span("k3m.moe.combine"):
-            held = (idx >= self.held[0]) & (idx < self.held[1])
-            w = torch.where(held, weights, 0).to(pairs.dtype)
-            out = (pairs * w[:, :, None]).sum(1)
+        out = _HeldExperts.apply(u, self.experts.w13.to(u.dtype), self.experts.w2.to(u.dtype),
+                                 weights, tok, inv, offs, valid)
         with trace.span("k3m.moe.shared"):
             return out + self.shared_experts(u)
 

@@ -36,20 +36,22 @@ bound only while recording.
 | `k3m.kernel.<function>` | each call of the function that launches the kernel of `fused_layernorm` (`layernorm._forward`), `layernorm_bwd`, `fused_attention` (`attention._forward`), `attention_bwd`, `fused_biattention` (`coattn._forward`) | the call's arguments, defaults left out |
 | `k3m.mla` | DeepSeek-V2's latent attention (model/deepseek.py): its projections, the latent RMSNorm and rope, up to the attention kernel | |
 | `k3m.moe.route` | the MoE router, its fp32 softmax and top-k, the sort of the (row, expert) pairs by held expert and the gather of their rows; in the backward the sum of each row's pairs | |
-| `k3m.moe.experts` | the held experts' grouped GEMMs, forward and backward | |
-| `k3m.moe.combine` | the pairs back in row order and their weighted sum; in the backward the pairs' gradients in sorted order | |
+| `k3m.moe.experts` | the held experts' grouped GEMMs and SwiGLU, forward and backward (the backward's gather of the pairs' rows too) | |
+| `k3m.moe.combine` | the weighted sum of each row's held pairs; in the backward the pairs' gradients in sorted order and the weights' gradient | |
 | `k3m.moe.shared` | the shared experts and the sum with the routed part | |
 
 Counters (`count(name, value)`): while recording, each call adds `value`
 (a device tensor) to the recording's running sum of `name` on the device,
-with no sync; `recording()` reads every sum to the host once, as it ends,
-into the recorder's `counts` (lists). While recording is off a call checks
-the one module-level name.
+with no sync, or (an int the host already knows) to a sum on the host,
+launching nothing; `recording()` reads every sum to the host once, as it
+ends, into the recorder's `counts` (lists). While recording is off a call
+checks the one module-level name.
 
 | counter | where | value |
 | --- | --- | --- |
 | `k3m.moe.expert_rows` | each MoE layer's forward | the rows routed to each held expert, [held experts] |
 | `k3m.moe.rows` | each MoE layer's forward | the held (row, expert) pairs computed, [1] |
+| `k3m.moe.pairs` | each MoE layer's forward | the sort's capacity: every (row, choice) pair of the layer, [1], on the host |
 """
 
 from __future__ import annotations
@@ -179,13 +181,14 @@ def on() -> bool:
     return _recorder is not None
 
 
-def count(name: str, value: torch.Tensor) -> None:
-    """Add `value` to the recording's device-side sum of `name` (module
-    docstring); nothing while recording is off."""
+def count(name: str, value) -> None:
+    """Add `value` to the recording's sum of `name` (module docstring): a
+    tensor, summed on its device, or an int the host already knows, summed
+    on the host; nothing while recording is off."""
     rec = _recorder
     if rec is None:
         return
-    value = value.detach()
+    value = torch.tensor([value]) if isinstance(value, int) else value.detach()
     held = rec.counters.get(name)
     rec.counters[name] = value.clone() if held is None else held + value
 
